@@ -17,11 +17,16 @@ Phases (one line each; the last line is the contract line):
 4. cfg4:10kx1k-cap: 10,000 workload_mix pods on 1,000 cap_cluster nodes
    through ``BatchScheduler(device="cuda")`` (one warm schedule, reset,
    one timed schedule), then the same batch on ``device="cpu"``: every
-   pod must land on the same node with the same mapping;
+   pod must land on the same node with the same mapping; then one more
+   cuda schedule that copies the inputs of every solve (every round and
+   bucket, claims applied), and each kernel against its plain version on
+   each copy;
 5. cfg3:10kx1k-sat: the same on bench_cluster nodes (NIC-saturated);
 6. the kernels JSON line: per kernel its launches in phases 4-5 (counts
    set to 0 just before each timed schedule and read just after), its
    time, its plain version's time and its bound at the cfg4 G=2 bucket.
+   A bound counts the bytes and operations of the real type and node
+   rows only: padded rows are sliced off and need no work.
 
 Exits non-zero, printing no result line, without CUDA, outside the
 repository, or when any phase fails. A fuller report goes to
@@ -83,10 +88,6 @@ def cuda_time_ms(torch, fn, n=N_TIMED):
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def nbytes(*ts):
-    return sum(t.numel() * t.element_size() for t in ts)
-
-
 def max_abs_err(torch, got, want):
     got = got if isinstance(got, (tuple, list)) else (got,)
     want = want if isinstance(want, (tuple, list)) else (want,)
@@ -100,36 +101,47 @@ def max_abs_err(torch, got, want):
     return err
 
 
-def bounds(torch, name, args, outs):
-    """(bound_ms, bound_by, bytes, ops): bytes = every input read once and
-    every output written once; ops = the compares/adds this data needs."""
-    moved = nbytes(*[a for a in args if hasattr(a, "element_size")]) + nbytes(*outs)
+def needed_bytes(name, tensors, real):
+    """Bytes kernel *name* must move: each tensor of its interface
+    (inputs, then outputs, as abi.ABI lists them) read or written once,
+    with the type axis T and the node axis N cut to their real lengths.
+    Padded type rows and padded node rows are sliced off by the host: no
+    answer needs them."""
+    from nhd_tpu_torch.kernels.abi import ABI
+
+    total = 0
+    for arg, t in zip(ABI[name].args, tensors, strict=True):
+        n = t.element_size()
+        for sym, size in zip(arg.dims, t.shape, strict=True):
+            n *= min(size, real.get(sym, size))
+        total += n
+    return total
+
+
+def needed_ops(name, args, outs, real):
+    """The compares and adds this data needs, over the real T and N."""
+    T, N = real["T"], real["N"]
     if name == "nic_node_masks":
-        nic_count, nic_sw, gpu_free_sw, combo, _pick, _need = args
-        N, U = nic_count.shape
-        S = gpu_free_sw.shape[1]
-        G = combo.shape[1]
-        ops = outs[0].numel() * (U + S + G * G + G)
-    elif name == "nic_any_first":
-        free_rx, free_tx, dem_rx, dem_tx, unchosen, valid, pci_ok, map_pci = args
-        ops = 0
-        chosen = ~unchosen  # [CA, UK]
-        for t in range(dem_rx.shape[0]):
-            gate = valid & (pci_ok | ~(map_pci[t] != 0))  # [N, CA]
-            ok = (dem_rx[t][None] <= free_rx[:, None]) & (
-                dem_tx[t][None] <= free_tx[:, None]
-            ) | unchosen[None]  # [N, CA, UK]
-            # a slot loop stops at its first failing chosen slot: count the
-            # chosen slots up to and including it, two compares each
-            fail_c = (~ok).to(torch.int32).cumsum(-1)
-            checked = (chosen[None] & ((fail_c == 0) | ((fail_c == 1) & ~ok)))
-            ops += int((checked.sum(-1) * gate).sum()) * 2
-            del ok, fail_c, checked
-    else:  # solve_planes
-        T, N, C = args[-3].shape
-        U = args[8].shape[1]
-        G = args[18].shape[1]
-        ops = T * N * (10 + C * (U * G + U * (U * G + U + 1) + 4))
+        nic_count, _sw, gpu_free_sw, combo, _pick, _need = args
+        U, S, G = nic_count.shape[1], gpu_free_sw.shape[1], combo.shape[1]
+        return N * outs[0].shape[1] * (U + S + G * G + G)
+    if name == "nic_any_first":
+        unchosen = args[4]  # [CA, UK]
+        # one decision per (t, n, ca) slot, and every pick that passes ran
+        # its whole slot loop: two compares per chosen slot
+        chosen_min = int((~unchosen).sum(1).min())
+        passing = int(outs[2][:T, :N].sum())
+        return T * N * unchosen.shape[0] + 2 * chosen_min * passing
+    # solve_planes: per (t, n) the combo, GPU, CPU and misc-slot loops
+    C, U, G = args[-3].shape[2], args[8].shape[1], args[18].shape[1]
+    return T * N * (10 + C * (U * G + U * (U * G + U + 1) + 4))
+
+
+def bounds(name, args, outs, real):
+    """(bound_ms, bound_by, bytes, ops) for one launch on this data."""
+    tensors = [a for a in args if hasattr(a, "element_size")] + list(outs)
+    moved = needed_bytes(name, tensors, real)
+    ops = needed_ops(name, args, outs, real)
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / VECTOR_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), moved, ops
@@ -149,8 +161,11 @@ def stage(kernel_mod, reference, node, pod):
     }
 
 
-def check_kernels(torch, label, node, pod, report):
-    """Phase 3 for one bucket: kernel vs plain on the card, times, bounds."""
+def check_kernels(torch, label, node, pod, report, real, *, timed=True):
+    """One solve's kernels against their plain versions on the card, on
+    the same inputs; with *timed*, also their times and bounds. *real*:
+    the real type and node counts {"T": ..., "N": ...} of the padded
+    tensors."""
     from nhd_tpu_torch import kernels
     from nhd_tpu_torch.kernels import reference
     from nhd_tpu_torch.solver import kernel as kernel_mod
@@ -168,19 +183,51 @@ def check_kernels(torch, label, node, pod, report):
         if err != 0.0:
             fail(f"{name} disagrees with its plain version at {label}: "
                  f"max abs err {err}")
+        out[name] = {"max_abs_err": err}
+        if not timed:
+            continue
         ms = cuda_time_ms(torch, lambda: kfn(*args, **kw))
         plain_ms = cuda_time_ms(torch, lambda: pfn(*args, **kw))
         outs = got if isinstance(got, tuple) else (got,)
-        bound_ms, bound_by, moved, ops = bounds(torch, name, args, outs)
-        out[name] = {
+        bound_ms, bound_by, moved, ops = bounds(name, args, outs, real)
+        out[name].update({
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "bytes": moved, "ops": ops,
-            "max_abs_err": err,
-        }
+        })
         log(f"kernel {name} @ {label}: exact; {ms:.4f} ms (plain "
-            f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms by {bound_by})")
+            f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms by {bound_by}, "
+            f"{moved} B, {ops} ops)")
     report["kernels"][label] = out
     return out
+
+
+def capture_solves(torch, sched, nodes, items):
+    """One more schedule of the batch (allocation state reset) that keeps,
+    for every solve it makes, a copy of the resident node tensors as that
+    solve reads them, and its pod tensors. Runs after the counted run, so
+    its launches are not counted. Returns (results, [(G, real, node, pod)])."""
+    from nhd_tpu_torch.solver.device_state import DeviceClusterState
+
+    seen = []
+    solve_ranked = DeviceClusterState.solve_ranked
+
+    def spy(self, pods, R):
+        self._flush_staged()  # the claims this solve must see
+        seen.append((
+            pods.G, {"T": pods.n_types, "N": self.N},
+            [t.clone() for t in self.tensors()], self.pod_tensors(pods),
+        ))
+        return solve_ranked(self, pods, R)
+
+    for n in nodes.values():
+        n.reset_resources()
+    DeviceClusterState.solve_ranked = spy
+    try:
+        results, _ = sched.schedule(nodes, items, now=0.0)
+    finally:
+        DeviceClusterState.solve_ranked = solve_ranked
+    torch.cuda.synchronize()
+    return results, seen
 
 
 def wide_bucket(torch, dev):
@@ -385,6 +432,18 @@ def run_cell(torch, name, cluster_fn, report, launches_total):
     log(f"{name} cpu: placed {sum(1 for r in cpu_res if r.node)} "
         f"rounds={cpu_stats.rounds} wall={cpu_wall:.4f}s; every pod's node, "
         "mapping and NICs identical to the cuda run")
+
+    # every solve of the batch, each round's claims applied: the kernels
+    # against their plain versions at this cell's shapes and states
+    again, snaps = capture_solves(torch, sched, nodes, items)
+    if [(r.node, r.nic_list) for r in again] != [(r.node, r.nic_list) for r in results]:
+        fail(f"{name}: a second cuda schedule of the batch placed differently")
+    for i, (G, real, node, pod) in enumerate(snaps):
+        check_kernels(torch, f"{name} solve {i} G={G} T={real['T']}",
+                      node, pod, report, real, timed=False)
+    log(f"{name} kernels vs plain: all {len(snaps)} solves of the batch "
+        f"(buckets {sorted({s[0] for s in snaps})}, every round), exact")
+    del snaps
     profile = profile_schedule(torch, sched, nodes, items)
     idle = profile["idle_share"]
     log(f"{name} profile: wall={profile['wall_s']:.4f}s device_busy="
@@ -424,12 +483,12 @@ def main():
     report["device"] = {"smi": smi, "kind": kind}
 
     # 2. build
-    from nhd_tpu_torch import native
+    from nhd_tpu_torch import kernels, native
     from nhd_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
     logs = build.build_all()
-    for name in build.SIGNATURES:
+    for name in kernels.KERNELS:
         build.load(name)
     have_native = native.available()
     build_s = time.perf_counter() - t0
@@ -455,17 +514,20 @@ def main():
     buckets = encode_pods(workload_mix(10_000, GROUPS), cluster.interner)
     headline = None
     for G, pods in sorted(buckets.items()):
-        label = f"cfg4 G={G} U={cluster.U} K={cluster.K} T={pods.n_types} N={state.Np}"
-        res = check_kernels(torch, label, state.tensors(), state.pod_tensors(pods), report)
+        Tp = state.pod_tensors(pods).dem_rx.shape[0]
+        label = (f"cfg4 G={G} U={cluster.U} K={cluster.K} T={pods.n_types} "
+                 f"(Tp={Tp}) N={cluster.n_nodes} (Np={state.Np})")
+        res = check_kernels(torch, label, state.tensors(), state.pod_tensors(pods),
+                            report, {"T": pods.n_types, "N": cluster.n_nodes})
         if G == 2:
             headline = res
     node, pod = wide_bucket(torch, dev)
-    check_kernels(torch, "wide G=3 U=2 K=8 T=8 N=4096", node, pod, report)
+    check_kernels(torch, "wide G=3 U=2 K=8 T=8 N=4096", node, pod, report,
+                  {"T": 8, "N": 4096})
     del node, pod
     oracle_check(dev)
 
     # 4, 5. main path
-    from nhd_tpu_torch import kernels
     from nhd_tpu_torch.sim.workloads import bench_cluster
 
     launches_total = {k: 0 for k in kernels.KERNELS}

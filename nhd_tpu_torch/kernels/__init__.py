@@ -11,9 +11,10 @@ Three CUDA C++ kernels carry the solve (sources beside this file, built by
   selection value, as [T, N] int32 planes (kernel.py:41-204, :320-338).
 
 Each wrapper takes its plain version (``reference.py``) only for tensors
-on the CPU. For CUDA tensors it checks shapes, types and contiguity,
-launches the kernel on PyTorch's current stream, adds one to
-``LAUNCHES[name]`` and raises if the launch failed: there is no fallback.
+on the CPU. For CUDA tensors it checks shapes, types and contiguity
+against the kernel's interface table (``abi.ABI``), launches the kernel
+on PyTorch's current stream, adds one to ``LAUNCHES[name]`` and raises if
+the launch failed: there is no fallback.
 """
 
 from __future__ import annotations
@@ -23,11 +24,12 @@ from typing import Dict, Sequence, Tuple
 import torch
 
 from nhd_tpu_torch.kernels import reference
+from nhd_tpu_torch.kernels.abi import ABI, shape
 from nhd_tpu_torch.kernels.reference import PLANES
 
 Tensor = torch.Tensor
 
-KERNELS = ("nic_node_masks", "nic_any_first", "solve_planes")
+KERNELS = tuple(ABI)
 
 #: launches per kernel since the last reset_launches() — counted where a
 #: wrapper launches its kernel and nowhere else
@@ -62,40 +64,48 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _launch(name: str, inputs: Sequence[Tensor], sizes: Dict[str, int]
+            ) -> Tuple[Tensor, ...]:
+    """Check *inputs* against kernel *name*'s interface, allocate its
+    outputs, launch it on the current stream and count the launch."""
+    from nhd_tpu_torch.kernels import build
+
+    spec = ABI[name]
+    if len(inputs) != len(spec.inputs):
+        raise TypeError(
+            f"{name}: {len(inputs)} tensors, expected {len(spec.inputs)}"
+        )
+    dev = inputs[0].device
+    for arg, t in zip(spec.inputs, inputs):
+        _check(arg.name, t, getattr(torch, arg.dtype), shape(arg, sizes), dev)
+    outs = tuple(
+        torch.empty(shape(arg, sizes), dtype=getattr(torch, arg.dtype), device=dev)
+        for arg in spec.outputs
+    )
+    build.launch(
+        name,
+        *(t.data_ptr() for t in (*inputs, *outs)),
+        *(sizes[s] for s in spec.sizes),
+        dev.index, _stream(dev),
+    )
+    LAUNCHES[name] += 1
+    return outs
+
+
 def nic_node_masks(
     nic_count: Tensor, nic_sw: Tensor, gpu_free_sw: Tensor,
     combo: Tensor, pick: Tensor, need_max: Tensor,
 ) -> Tuple[Tensor, Tensor]:
     """(valid [N, C*A] bool, pci_ok [N, C*A] bool)."""
+    args = (nic_count, nic_sw, gpu_free_sw, combo, pick, need_max)
     if _on_cpu(nic_count):
-        return reference.nic_node_masks(
-            nic_count, nic_sw, gpu_free_sw, combo, pick, need_max
-        )
-    from nhd_tpu_torch.kernels import build
-
-    dev = nic_count.device
+        return reference.nic_node_masks(*args)
     N, U = nic_count.shape
-    K = nic_sw.shape[2]
-    S = gpu_free_sw.shape[1]
     C, G = combo.shape
     A = pick.shape[0]
-    i32 = torch.int32
-    _check("nic_count", nic_count, i32, (N, U), dev)
-    _check("nic_sw", nic_sw, i32, (N, U, K), dev)
-    _check("gpu_free_sw", gpu_free_sw, i32, (N, S), dev)
-    _check("combo", combo, i32, (C, G), dev)
-    _check("pick", pick, i32, (A, G), dev)
-    _check("need_max", need_max, i32, (C, A, U), dev)
-    valid = torch.empty((N, C * A), dtype=torch.bool, device=dev)
-    pci_ok = torch.empty((N, C * A), dtype=torch.bool, device=dev)
-    build.launch(
-        "nic_node_masks",
-        nic_count.data_ptr(), nic_sw.data_ptr(), gpu_free_sw.data_ptr(),
-        combo.data_ptr(), pick.data_ptr(), need_max.data_ptr(),
-        valid.data_ptr(), pci_ok.data_ptr(),
-        N, U, K, S, G, C, A, dev.index, _stream(dev),
-    )
-    LAUNCHES["nic_node_masks"] += 1
+    sizes = dict(N=N, U=U, K=nic_sw.shape[-1], S=gpu_free_sw.shape[-1],
+                 G=G, C=C, A=A, CA=C * A)
+    valid, pci_ok = _launch("nic_node_masks", args, sizes)
     return valid, pci_ok
 
 
@@ -111,32 +121,14 @@ def nic_any_first(
             free_rx, free_tx, dem_rx, dem_tx, unchosen, valid, pci_ok,
             map_pci, U=U, K=K, C=C, A=A,
         )
-    from nhd_tpu_torch.kernels import build
-
-    dev = free_rx.device
-    N, T, UK, CA = free_rx.shape[0], dem_rx.shape[0], U * K, C * A
-    f32, b = torch.float32, torch.bool
-    _check("free_rx", free_rx, f32, (N, UK), dev)
-    _check("free_tx", free_tx, f32, (N, UK), dev)
-    _check("dem_rx", dem_rx, f32, (T, CA, UK), dev)
-    _check("dem_tx", dem_tx, f32, (T, CA, UK), dev)
-    _check("unchosen", unchosen, b, (CA, UK), dev)
-    _check("valid", valid, b, (N, CA), dev)
-    _check("pci_ok", pci_ok, b, (N, CA), dev)
-    map_pci = (map_pci if map_pci.dtype == b else map_pci != 0).contiguous()
-    _check("map_pci", map_pci, b, (T,), dev)
-    nic_any = torch.empty((T, N, C), dtype=b, device=dev)
-    first_a = torch.empty((T, N, C), dtype=torch.int32, device=dev)
-    n_picks = torch.empty((T, N, C), dtype=torch.int32, device=dev)
-    build.launch(
+    map_pci = (map_pci if map_pci.dtype == torch.bool else map_pci != 0).contiguous()
+    sizes = dict(T=dem_rx.shape[0], N=free_rx.shape[0], UK=U * K, C=C, A=A,
+                 CA=C * A)
+    nic_any, first_a, n_picks = _launch(
         "nic_any_first",
-        free_rx.data_ptr(), free_tx.data_ptr(), dem_rx.data_ptr(),
-        dem_tx.data_ptr(), unchosen.data_ptr(), valid.data_ptr(),
-        pci_ok.data_ptr(), map_pci.data_ptr(),
-        nic_any.data_ptr(), first_a.data_ptr(), n_picks.data_ptr(),
-        T, N, UK, C, A, dev.index, _stream(dev),
+        (free_rx, free_tx, dem_rx, dem_tx, unchosen, valid, pci_ok, map_pci),
+        sizes,
     )
-    LAUNCHES["nic_any_first"] += 1
     return nic_any, first_a, n_picks
 
 
@@ -157,40 +149,12 @@ def solve_planes(
     )
     if _on_cpu(numa_nodes):
         return reference.solve_planes(*args)
-    from nhd_tpu_torch.kernels import build
-
-    dev = numa_nodes.device
     T, N, C = nic_any.shape
-    U = cpu_free.shape[1]
-    G = combo.shape[1]
-    NCLS = class_score.shape[1]
-    i32, i64, b = torch.int32, torch.int64, torch.bool
-    for name, t, dt, shape in (
-        ("numa_nodes", numa_nodes, torch.int8, (N,)),
-        ("smt", smt, b, (N,)), ("active", active, b, (N,)),
-        ("maintenance", maintenance, b, (N,)), ("busy", busy, b, (N,)),
-        ("gpuless", gpuless, b, (N,)), ("node_gmask", node_gmask, i64, (N,)),
-        ("hp_free", hp_free, i32, (N,)), ("cpu_free", cpu_free, i32, (N, U)),
-        ("gpu_free", gpu_free, i32, (N, U)),
-        ("node_class", node_class, i32, (N,)),
-        ("cpu_dem_smt", cpu_dem_smt, i32, (T, G + 1)),
-        ("cpu_dem_raw", cpu_dem_raw, i32, (T, G + 1)),
-        ("gpu_dem", gpu_dem, i32, (T, G)), ("hp", hp, i32, (T,)),
-        ("needs_gpu", needs_gpu, b, (T,)), ("pod_gmask", pod_gmask, i64, (T,)),
-        ("class_score", class_score, i32, (T, NCLS)),
-        ("combo", combo, i32, (C, G)), ("maxdig", maxdig, i32, (C,)),
-        ("skew", skew, i32, (C,)), ("nic_any", nic_any, b, (T, N, C)),
-        ("first_a", first_a, i32, (T, N, C)),
-        ("n_picks", n_picks, i32, (T, N, C)),
-    ):
-        _check(name, t, dt, shape, dev)
+    G = combo.shape[-1]
+    NCLS = class_score.shape[-1]
     if NCLS < 1:
         raise ValueError("class_score needs at least one class column")
-    out = torch.empty((len(PLANES), T, N), dtype=i32, device=dev)
-    build.launch(
-        "solve_planes",
-        *(t.data_ptr() for t in args), out.data_ptr(),
-        T, N, U, G, C, NCLS, dev.index, _stream(dev),
-    )
-    LAUNCHES["solve_planes"] += 1
+    sizes = dict(T=T, N=N, U=cpu_free.shape[-1], G=G, C=C, NCLS=NCLS,
+                 G1=G + 1, P=len(PLANES))
+    (out,) = _launch("solve_planes", args, sizes)
     return out

@@ -3,7 +3,8 @@
 Each ``*.cu`` source in this directory is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, and loaded
 with ctypes. The wrappers pass raw device pointers (``tensor.data_ptr()``)
-and PyTorch's current stream. No source includes PyTorch's headers, so a
+and PyTorch's current stream, in the order ``abi.ABI`` gives for each
+kernel. No source includes PyTorch's headers, so a
 build takes seconds, not the minutes ``torch.utils.cpp_extension.load``
 needs for a binding file.
 
@@ -26,15 +27,10 @@ import time
 from pathlib import Path
 from typing import Dict, List, Optional
 
+from nhd_tpu_torch.kernels.abi import ABI
+
 _DIR = Path(__file__).resolve().parent
 BUILD_DIR = _DIR.parent / "_build"
-
-#: kernel name -> (C entry point, ctypes argument kinds: "p" pointer, "i" int)
-SIGNATURES: Dict[str, tuple] = {
-    "nic_node_masks": ("nhd_nic_node_masks", "pppppppp" + "iiiiiii" + "ip"),
-    "nic_any_first": ("nhd_nic_any_first", "ppppppppppp" + "iiiii" + "ip"),
-    "solve_planes": ("nhd_solve_planes", "p" * 25 + "iiiiii" + "ip"),
-}
 
 NVCC_FLAGS = [
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -81,7 +77,7 @@ def build_all() -> Dict[str, str]:
     processes in parallel. Returns {name: compiler log} of what was built
     (ptxas prints registers, shared memory and spills per kernel). Raises
     with the compiler's output when any build fails."""
-    todo = [n for n in SIGNATURES if not library_path(n).exists()]
+    todo = [n for n in ABI if not library_path(n).exists()]
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -122,13 +118,16 @@ def load(name: str) -> ctypes.CDLL:
             return lib
         build_all()
         lib = ctypes.CDLL(str(library_path(name)))
-        entry, kinds = SIGNATURES[name]
-        fn = getattr(lib, entry)
+        spec = ABI[name]
+        fn = getattr(lib, spec.entry)
         fn.restype = ctypes.c_int
-        fn.argtypes = [
-            ctypes.c_void_p if k == "p" else ctypes.c_int for k in kinds
-        ]
-        err = getattr(lib, entry + "_error")
+        # tensor pointers, int sizes, then the device index and the stream
+        fn.argtypes = (
+            [ctypes.c_void_p] * len(spec.args)
+            + [ctypes.c_int] * len(spec.sizes)
+            + [ctypes.c_int, ctypes.c_void_p]
+        )
+        err = getattr(lib, spec.entry + "_error")
         err.restype = ctypes.c_char_p
         err.argtypes = [ctypes.c_int]
         _LIBS[name] = lib
@@ -139,7 +138,7 @@ def launch(name: str, *args) -> None:
     """Call kernel *name*'s C entry point; raise on a launch error (a
     refused launch never runs, and a later synchronize would not say so)."""
     lib = load(name)
-    entry, _ = SIGNATURES[name]
+    entry = ABI[name].entry
     rc = getattr(lib, entry)(*args)
     if rc != 0:
         msg = getattr(lib, entry + "_error")(rc).decode()

@@ -17,9 +17,11 @@
 // skips its slot loop, and a slot that fails ends it, so the work follows
 // the data. The [T, N, C, A] lattice never leaves registers.
 //
-// Bound: operations at the cluster shapes (two float compares per chosen
-// slot per (t, n, ca) against a few hundred KB of inputs); the demand rows
-// [T, C*A, U*K] are shared by every node and stay in L1/L2.
+// Bound: bytes, at every bucket chip_smoke.py measures: the [T, C*A, U*K]
+// demand rows, the [N, C*A] masks and the [T, N, C] outputs outweigh the
+// compares (at most two per chosen slot per gated (t, n, ca), fewer where
+// a slot fails early). The demand rows are shared by every node and stay
+// in L1/L2.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
