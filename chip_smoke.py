@@ -9,11 +9,16 @@ Phases (one line each; the last line is the contract line):
 2. build: the CUDA kernels (one nvcc per source, in parallel, into
    nhd_tpu_torch/_build/) and the native assignment core;
 3. kernels vs plain: each kernel against its plain PyTorch version on the
-   card, exact equality, at the cfg4 solve buckets (G=1 and G=2, U=2,
-   K=7, N=1024, the main path's own inputs) and a wide bucket (G=3, U=2,
-   K=8, so C=8, A=512, N=4096, random from a seed); CUDA-event median
-   times over 30 launches; plus the CUDA matcher against the serial
-   oracle on a small random cluster;
+   card, exact equality, at the solve buckets of both cells' clusters
+   (cfg4: G=1 and G=2, U=2, K=7; cfg3: K=2; N=1000 in Np=1024 rows, the
+   main path's own inputs, first solve of each bucket) and a wide bucket
+   (G=3, U=2, K=8, so C=8, A=512, N=4096, random from a seed); CUDA-event
+   median times over 30 launches; then nic_any_first and solve_planes
+   on every edge shape of nhd_tpu_torch/kernels/sweep.py (random from a
+   seed; picks per combo across 32-lane chunks, combo ranges straddling
+   chunks, no pick or every pick fitting, T=1, ragged node tiles, U*K
+   past 32, tied skew, no feasible combo); plus the CUDA matcher against
+   the serial oracle on a small random cluster;
 4. cfg4:10kx1k-cap: 10,000 workload_mix pods on 1,000 cap_cluster nodes
    through ``BatchScheduler(device="cuda")`` (one warm schedule, reset,
    one timed schedule), then the same batch on ``device="cpu"``: every
@@ -284,6 +289,44 @@ def wide_bucket(torch, dev):
     return node, upload_pods(pods, T, U, K, dev)
 
 
+def sweep_check(torch, dev, report):
+    """nic_any_first and solve_planes against their plain versions on every
+    edge shape of kernels/sweep.py, exactly. These launches are not the
+    main path's: the counts are reset before each timed schedule."""
+    import numpy as np
+
+    from nhd_tpu_torch import kernels
+    from nhd_tpu_torch.kernels import reference, sweep
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def hold(name, label, args, kw):
+        got = getattr(kernels, name)(*args, **kw)
+        want = getattr(reference, name)(*args, **kw)
+        torch.cuda.synchronize()
+        err = max_abs_err(torch, got, want)
+        if err != 0.0:
+            fail(f"{name} disagrees with its plain version on sweep shape "
+                 f"{label}: max abs err {err}")
+
+    for i, shape in enumerate(sweep.NIC_SWEEP):
+        args, kw = sweep.nic_case(i, *shape)
+        hold("nic_any_first", f"(T, N, U, K, C, A, fill)={shape}",
+             [up(a) for a in args], kw)
+    for i, shape in enumerate(sweep.PLANE_SWEEP):
+        hold("solve_planes", f"(T, N, U, G, C, NCLS, fill)={shape}",
+             [up(a) for a in sweep.plane_case(i, *shape)], {})
+    report["sweep"] = {"nic_any_first": [list(s) for s in sweep.NIC_SWEEP],
+                       "solve_planes": [list(s) for s in sweep.PLANE_SWEEP]}
+    log(f"sweep: nic_any_first exact on {len(sweep.NIC_SWEEP)} shapes "
+        f"(A in {sorted({s[5] for s in sweep.NIC_SWEEP})}, C in "
+        f"{sorted({s[4] for s in sweep.NIC_SWEEP})}, U*K in "
+        f"{sorted({s[2] * s[3] for s in sweep.NIC_SWEEP})}); solve_planes exact "
+        f"on {len(sweep.PLANE_SWEEP)} shapes (C in "
+        f"{sorted({s[4] for s in sweep.PLANE_SWEEP})}, tied skew, no feasible combo)")
+
+
 def oracle_check(dev):
     """The CUDA matcher against the serial oracle on a small input."""
     import random
@@ -494,7 +537,7 @@ def main():
     build_s = time.perf_counter() - t0
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
     log(f"build: {len(logs)} kernels compiled in {build_s:.2f}s "
         f"(nvcc {build.BUILD_SECONDS['total']:.2f}s); native core: {have_native}")
@@ -503,33 +546,34 @@ def main():
     report["build_s"] = build_s
 
     # 3. kernels vs plain on the card
-    from nhd_tpu_torch.sim.workloads import cap_cluster, workload_mix
+    from nhd_tpu_torch.sim.workloads import bench_cluster, cap_cluster, workload_mix
     from nhd_tpu_torch.solver.device_state import DeviceClusterState
     from nhd_tpu_torch.solver.encode import encode_cluster, encode_pods
 
     dev = torch.device("cuda", 0)
-    cluster = encode_cluster(cap_cluster(1_000, GROUPS), now=0.0)
-    cluster.busy[:] = False
-    state = DeviceClusterState(cluster, dev)
-    buckets = encode_pods(workload_mix(10_000, GROUPS), cluster.interner)
     headline = None
-    for G, pods in sorted(buckets.items()):
-        Tp = state.pod_tensors(pods).dem_rx.shape[0]
-        label = (f"cfg4 G={G} U={cluster.U} K={cluster.K} T={pods.n_types} "
-                 f"(Tp={Tp}) N={cluster.n_nodes} (Np={state.Np})")
-        res = check_kernels(torch, label, state.tensors(), state.pod_tensors(pods),
-                            report, {"T": pods.n_types, "N": cluster.n_nodes})
-        if G == 2:
-            headline = res
+    for cell, cluster_fn in (("cfg4", cap_cluster), ("cfg3", bench_cluster)):
+        cluster = encode_cluster(cluster_fn(1_000, GROUPS), now=0.0)
+        cluster.busy[:] = False
+        state = DeviceClusterState(cluster, dev)
+        buckets = encode_pods(workload_mix(10_000, GROUPS), cluster.interner)
+        for G, pods in sorted(buckets.items()):
+            Tp = state.pod_tensors(pods).dem_rx.shape[0]
+            label = (f"{cell} G={G} U={cluster.U} K={cluster.K} T={pods.n_types} "
+                     f"(Tp={Tp}) N={cluster.n_nodes} (Np={state.Np})")
+            res = check_kernels(torch, label, state.tensors(), state.pod_tensors(pods),
+                                report, {"T": pods.n_types, "N": cluster.n_nodes})
+            if cell == "cfg4" and G == 2:
+                headline = res
+        del state
     node, pod = wide_bucket(torch, dev)
     check_kernels(torch, "wide G=3 U=2 K=8 T=8 N=4096", node, pod, report,
                   {"T": 8, "N": 4096})
     del node, pod
+    sweep_check(torch, dev, report)
     oracle_check(dev)
 
     # 4, 5. main path
-    from nhd_tpu_torch.sim.workloads import bench_cluster
-
     launches_total = {k: 0 for k in kernels.KERNELS}
     run_cell(torch, "cfg4:10kx1k-cap", cap_cluster, report, launches_total)
     run_cell(torch, "cfg3:10kx1k-sat", bench_cluster, report, launches_total)

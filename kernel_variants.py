@@ -1,0 +1,263 @@
+#!/usr/bin/env python3
+"""Time variants of the port's CUDA kernels on one NVIDIA GPU.
+
+    python3 kernel_variants.py [--probe]
+
+A variant is a committed kernel source with one text substitution
+(``VARIANTS``): a tuning constant changed, or the kernel body cut to an
+immediate return, which times the launch of the same grid and nothing
+else (the floor under every time chip_smoke.py reports). Each variant is
+built with build.py's nvcc flags, checked against the kernel's plain
+version (empty bodies excepted) and timed with chip_smoke.py's
+CUDA-event median at the main path's solve buckets (cfg4 and cfg3, G=1
+and G=2) and the wide bucket, in four passes that alternate the order of
+the variants. With ``--probe``, nic_any_first is also built with a
+%globaltimer stamp at each phase of each block (entry, headroom staged,
+nodes done, outputs written) and the per-phase means are printed.
+
+Prints one line per (bucket, kernel, variant) and the card's name and
+power limit; writes chiprun_out/kernel_variants.json. Needs a GPU.
+"""
+
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+KDIR = os.path.join("nhd_tpu_torch", "kernels")
+EMPTY = {
+    "nic_any_first": ("    const int NB = nodes_per_block;\n",
+                      "    if (T > 0) return;\n    const int NB = nodes_per_block;\n"),
+    "solve_planes": ("    const int t = blockIdx.y;\n    const int sub",
+                     "    if (T > 0) return;\n    const int t = blockIdx.y;\n    const int sub"),
+}
+NIC_TARGET = "const long long want = ((long long)C * A <= 32 ? 1LL : 2LL) * sm_count(device);"
+PLANES_TARGET = "const long long want = 2LL * sm_count(device);"
+#: (kernel, variant) -> (text in the committed source, its replacement)
+VARIANTS = {
+    ("nic_any_first", "committed"): None,
+    ("nic_any_first", "empty"): EMPTY["nic_any_first"],
+    ("nic_any_first", "batch4"): ("constexpr int NODE_BATCH = 8;",
+                                  "constexpr int NODE_BATCH = 4;"),
+    ("nic_any_first", "2perSM"): (NIC_TARGET,
+                                  "const long long want = 2LL * sm_count(device);"),
+    ("solve_planes", "committed"): None,
+    ("solve_planes", "empty"): EMPTY["solve_planes"],
+    ("solve_planes", "4perSM"): (PLANES_TARGET,
+                                 "const long long want = 4LL * sm_count(device);"),
+}
+PROBE_SLOTS = ("entry", "staged", "nodes", "written")
+#: the probe's stamps: (text after which a stamp goes, its slot)
+PROBE_AT = (
+    ("    const int NB = nodes_per_block;\n", 0),
+    ("            s_head[i] = make_float2(free_rx[n0 * UK + i], free_tx[n0 * UK + i]);\n"
+     "    }\n    __syncthreads();\n", 1),
+    ("        }\n    }\n    __syncthreads();\n\n", 2),
+    ("        n_picks[at] = n_pass;\n    }\n", 3),
+)
+PROBE_HEAD = """
+__device__ unsigned long long g_probe[65536 * 4];
+#define PROBE(slot) do { if (threadIdx.x == 0) { \\
+    const long long b_ = blockIdx.x + (long long)gridDim.x * (blockIdx.y + (long long)gridDim.y * blockIdx.z); \\
+    unsigned long long t_; asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_)); \\
+    if (b_ < 65536) g_probe[b_ * 4 + (slot)] = t_; } } while (0)
+"""
+PROBE_TAIL = """
+extern "C" int nhd_probe_clear(void)
+{
+    void* at = nullptr;
+    const cudaError_t err = cudaGetSymbolAddress(&at, g_probe);
+    return (int)(err != cudaSuccess ? err : cudaMemset(at, 0, sizeof(g_probe)));
+}
+
+extern "C" int nhd_probe_read(void* dst, int n)
+{
+    return (int)cudaMemcpyFromSymbol(dst, g_probe, (size_t)n * 8);
+}
+"""
+
+
+def _replace_once(src, old, new):
+    if src.count(old) != 1:
+        raise ValueError(f"expected one {old!r} in the kernel source")
+    return src.replace(old, new)
+
+
+def variant_source(kernel, variant):
+    with open(os.path.join(KDIR, f"{kernel}.cu")) as fh:
+        src = fh.read()
+    sub = VARIANTS[(kernel, variant)]
+    return src if sub is None else _replace_once(src, *sub)
+
+
+def probe_source():
+    """nic_any_first with a %globaltimer stamp at each phase of a block."""
+    src = variant_source("nic_any_first", "committed")
+    src = _replace_once(src, "namespace {\n", "namespace {\n" + PROBE_HEAD)
+    for anchor, slot in PROBE_AT:
+        src = _replace_once(src, anchor, anchor + f"    PROBE({slot});\n")
+    return src + PROBE_TAIL
+
+
+def build_all(sources, out_dir):
+    """{key: ctypes library}, one nvcc per source, all started together."""
+    from nhd_tpu_torch.kernels import build
+
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for key, src in sources.items():
+        stem = os.path.join(out_dir, "_".join(key))
+        with open(stem + ".cu", "w") as fh:
+            fh.write(src)
+        procs[key] = (subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, "-o", stem + ".so", stem + ".cu"],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ), stem + ".so")
+    libs = {}
+    for key, (proc, so) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {key}:\n{log}")
+        libs[key] = ctypes.CDLL(so)
+    return libs
+
+
+def entry(lib, kernel):
+    from nhd_tpu_torch.kernels.abi import ABI
+
+    spec = ABI[kernel]
+    fn = getattr(lib, spec.entry)
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * len(spec.args)
+                   + [ctypes.c_int] * len(spec.sizes) + [ctypes.c_int, ctypes.c_void_p])
+    return fn
+
+
+def caller(torch, fn, kernel, args, kw):
+    """A no-argument call of entry point *fn* on *args*, outputs allocated once."""
+    from nhd_tpu_torch.kernels.abi import ABI, shape
+
+    spec = ABI[kernel]
+    if kernel == "nic_any_first":
+        sizes = dict(T=args[2].shape[0], N=args[0].shape[0], UK=kw["U"] * kw["K"],
+                     C=kw["C"], A=kw["A"], CA=kw["C"] * kw["A"])
+    else:
+        T, N, C = args[21].shape
+        G = args[18].shape[-1]
+        sizes = dict(T=T, N=N, U=args[8].shape[-1], G=G, C=C,
+                     NCLS=args[17].shape[-1], G1=G + 1, P=8)
+    outs = tuple(torch.empty(shape(a, sizes), dtype=getattr(torch, a.dtype),
+                             device=args[0].device) for a in spec.outputs)
+    ptrs = [t.data_ptr() for t in (*args, *outs)]
+    ints = [sizes[s] for s in spec.sizes]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        rc = fn(*ptrs, *ints, args[0].device.index, stream)
+        if rc:
+            raise RuntimeError(f"{kernel} launch failed ({rc})")
+        return outs
+    return call
+
+
+def buckets(torch, cs, dev):
+    """[(label, staged kernel inputs)] at the main path's buckets and the wide one."""
+    from nhd_tpu_torch.kernels import reference
+    from nhd_tpu_torch.sim.workloads import bench_cluster, cap_cluster, workload_mix
+    from nhd_tpu_torch.solver import kernel as kernel_mod
+    from nhd_tpu_torch.solver.device_state import DeviceClusterState
+    from nhd_tpu_torch.solver.encode import encode_cluster, encode_pods
+
+    out = []
+    for cell, cluster_fn in (("cfg4", cap_cluster), ("cfg3", bench_cluster)):
+        cluster = encode_cluster(cluster_fn(1_000, cs.GROUPS), now=0.0)
+        cluster.busy[:] = False
+        state = DeviceClusterState(cluster, dev)
+        pods = encode_pods(workload_mix(10_000, cs.GROUPS), cluster.interner)
+        for G, p in sorted(pods.items()):
+            out.append((f"{cell} G={G}", cs.stage(kernel_mod, reference, state.tensors(),
+                                                  state.pod_tensors(p))))
+    node, pod = cs.wide_bucket(torch, dev)
+    out.append(("wide", cs.stage(kernel_mod, reference, node, pod)))
+    return out
+
+
+def probe_phases(np, lib, call, torch):
+    """Per-phase means (us) over the blocks of one launch of *call*."""
+    read = lib.nhd_probe_read
+    read.restype = ctypes.c_int
+    read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.nhd_probe_clear.restype = ctypes.c_int
+    if lib.nhd_probe_clear():
+        raise RuntimeError("clearing the probe stamps failed")
+    call()
+    torch.cuda.synchronize()
+    buf = np.zeros(65536 * 4, np.uint64)
+    if read(buf.ctypes.data, buf.size):
+        raise RuntimeError("reading the probe stamps failed")
+    stamps = buf.reshape(-1, 4).astype(np.int64)
+    stamps = stamps[stamps[:, 0] > 0]
+    phases = np.diff(stamps, axis=1).mean(0) / 1e3
+    return {
+        "blocks": int(len(stamps)),
+        "span_us": float((stamps[:, 3].max() - stamps[:, 0].min()) / 1e3),
+        **{f"{a}->{b}_us": float(v)
+           for a, b, v in zip(PROBE_SLOTS, PROBE_SLOTS[1:], phases)},
+    }
+
+
+def main():
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_variants: needs a GPU", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+    from nhd_tpu_torch.kernels import reference
+
+    probe = "--probe" in sys.argv[1:]
+    sources = {key: variant_source(*key) for key in VARIANTS}
+    if probe:
+        sources[("nic_any_first", "probe")] = probe_source()
+    libs = build_all(sources, os.path.join("chiprun_out", "variants"))
+    dev = torch.device("cuda", 0)
+    report = {"device": cs.smi_line(), "times_ms": {}, "probe": {}}
+    for label, staged in buckets(torch, cs, dev):
+        for kernel in ("nic_any_first", "solve_planes"):
+            args, kw = staged[kernel]
+            want = getattr(reference, kernel)(*args, **kw)
+            want = want if isinstance(want, tuple) else (want,)
+            keys = [k for k in sources if k[0] == kernel]
+            calls = {k: caller(torch, entry(libs[k], kernel), kernel, args, kw)
+                     for k in keys}
+            for k, call in calls.items():
+                got = call()
+                torch.cuda.synchronize()
+                if k[1] != "empty" and not all(
+                        torch.equal(g, w) for g, w in zip(got, want)):
+                    raise SystemExit(f"{k} disagrees with the plain version at {label}")
+            times = {k: [] for k in keys}
+            for order in (keys, keys[::-1], keys, keys[::-1]):
+                for k in order:
+                    times[k].append(cs.cuda_time_ms(torch, calls[k]))
+            for k in keys:
+                print(f"{label:9s} {kernel:14s} {k[1]:10s} "
+                      + " ".join(f"{x:.4f}" for x in times[k]), flush=True)
+                report["times_ms"][f"{label}|{kernel}|{k[1]}"] = times[k]
+            if probe and kernel == "nic_any_first":
+                key = ("nic_any_first", "probe")
+                phases = probe_phases(np, libs[key], calls[key], torch)
+                report["probe"][label] = phases
+                print(f"  probe {label}: " + " ".join(
+                    f"{n}={v:.2f}" if isinstance(v, float) else f"{n}={v}"
+                    for n, v in phases.items()), flush=True)
+    print(report["device"], flush=True)
+    with open(os.path.join("chiprun_out", "kernel_variants.json"), "w") as fh:
+        json.dump(report, fh, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

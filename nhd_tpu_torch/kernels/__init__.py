@@ -10,6 +10,10 @@ Three CUDA C++ kernels carry the solve (sources beside this file, built by
 * ``solve_planes`` — the rest of the solve, the policy preference and the
   selection value, as [T, N] int32 planes (kernel.py:41-204, :320-338).
 
+``sweep.py`` makes random inputs at the shapes where the kernels' index
+logic can break; chip_smoke.py and the card tests hold the kernels to
+their plain versions on them.
+
 Each wrapper takes its plain version (``reference.py``) only for tensors
 on the CPU. For CUDA tensors it checks shapes, types and contiguity
 against the kernel's interface table (``abi.ABI``), launches the kernel

@@ -135,11 +135,30 @@ def test_wrapper_rejects_a_tensor_of_the_wrong_type(monkeypatch):
         kernels.nic_node_masks(*swapped)
 
 
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+def _script(name):
+    spec = importlib.util.spec_from_file_location(name, ROOT / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _chip_smoke():
+    return _script("chip_smoke")
+
+
+def test_kernel_variants_apply_to_the_sources(monkeypatch):
+    """kernel_variants.py's substitutions each meet their text exactly
+    once in the committed .cu sources, so a kernel edit that moves one
+    fails here rather than on the card."""
+    kv = _script("kernel_variants")
+    monkeypatch.chdir(ROOT)
+    for kernel, variant in kv.VARIANTS:
+        src = kv.variant_source(kernel, variant)
+        committed = (KDIR / f"{kernel}.cu").read_text()
+        assert (src == committed) == (kv.VARIANTS[(kernel, variant)] is None)
+    probe = kv.probe_source()
+    assert probe.count("PROBE(") == 1 + len(kv.PROBE_AT)
+    assert "nhd_probe_read" in probe
 
 
 @pytest.mark.parametrize("name", kernels.KERNELS)

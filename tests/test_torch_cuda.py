@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from nhd_tpu_torch import kernels
-from nhd_tpu_torch.kernels import reference
+from nhd_tpu_torch.kernels import reference, sweep
 
 pytestmark = pytest.mark.cuda
 
@@ -58,6 +58,61 @@ def test_nic_any_first_kernel_matches_plain(shape):
     assert kernels.LAUNCHES["nic_any_first"] == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def _cuda(arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in arrays]
+
+
+@pytest.mark.parametrize("shape", sweep.NIC_SWEEP, ids=str)
+def test_nic_any_first_sweep_matches_plain(shape):
+    """The edge shapes of the kernel: picks per combo across 32-lane
+    chunks, straddling combos, none/all fitting, T=1, ragged node tiles,
+    U*K past 32, a warp with a second chunk, U*K=1000 and picks that
+    choose every slot."""
+    _need_cuda()
+    args, kw = sweep.nic_case(sweep.NIC_SWEEP.index(shape), *shape)
+    args = _cuda(args)
+    got = kernels.nic_any_first(*args, **kw)
+    want = reference.nic_any_first(*args, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("shape", sweep.PLANE_SWEEP, ids=str)
+def test_solve_planes_sweep_matches_plain(shape):
+    _need_cuda()
+    args = _cuda(sweep.plane_case(sweep.PLANE_SWEEP.index(shape), *shape))
+    before = kernels.LAUNCHES["solve_planes"]
+    got = kernels.solve_planes(*args)
+    want = reference.solve_planes(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["solve_planes"] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("fill", ["tie", "none"])
+def test_solve_planes_first_maximum_and_no_feasible_combo(fill):
+    """Tied skew: the combo value still orders by c, and the first maximum
+    wins; no feasible combo: cand 0, best_c 0, and best_m, best_a and
+    n_picks read at combo 0 — all as the plain version has them."""
+    _need_cuda()
+    T, N, U, G, C, NCLS = 3, 301, 2, 2, 4, 4
+    args = sweep.plane_case(11, T, N, U, G, C, NCLS, fill)
+    got = kernels.solve_planes(*_cuda(args))
+    want = reference.solve_planes(*[torch.from_numpy(np.ascontiguousarray(a))
+                                    for a in args])
+    assert torch.equal(got.cpu(), want)
+    P = {name: i for i, name in enumerate(kernels.PLANES)}
+    cand = want[P["cand"]] != 0
+    assert torch.equal(want[P["best_c"]][~cand], torch.zeros_like(want[0][~cand]))
+    if fill == "none":
+        assert not cand.any()
+        first_a = torch.from_numpy(args[22])
+        assert torch.equal(want[P["best_a"]], first_a[..., 0])
+    else:
+        assert cand.any()
 
 
 def _solve_instance(seed, n_nodes=40):
