@@ -8,36 +8,45 @@ Phases (one line each; the last line is the contract line):
 1. device: ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``;
 2. build: the CUDA kernels (one nvcc per source, in parallel, into
    nhd_tpu_torch/_build/) and the native assignment core;
-3. kernels vs plain: each kernel against its plain PyTorch version on the
-   card, exact equality, at the solve buckets of both cells' clusters
-   (cfg4: G=1 and G=2, U=2, K=7; cfg3: K=2; N=1000 in Np=1024 rows, the
-   main path's own inputs, first solve of each bucket) and a wide bucket
-   (G=3, U=2, K=8, so C=8, A=512, N=4096, random from a seed); CUDA-event
-   median times over 30 launches; then nic_any_first and solve_planes
-   on every edge shape of nhd_tpu_torch/kernels/sweep.py (random from a
-   seed; picks per combo across 32-lane chunks, combo ranges straddling
-   chunks, no pick or every pick fitting, T=1, ragged node tiles, U*K
-   past 32, tied skew, no feasible combo); plus the CUDA matcher against
-   the serial oracle on a small random cluster;
-4. cfg4:10kx1k-cap: 10,000 workload_mix pods on 1,000 cap_cluster nodes
-   through ``BatchScheduler(device="cuda")`` (one warm schedule, reset,
-   one timed schedule), then the same batch on ``device="cpu"``: every
-   pod must land on the same node with the same mapping; then one more
-   cuda schedule that copies the inputs of every solve (every round and
-   bucket, claims applied), and each kernel against its plain version on
-   each copy;
-5. cfg3:10kx1k-sat: the same on bench_cluster nodes (NIC-saturated);
-6. the kernels JSON line: per kernel its launches in phases 4-5 (counts
+3. kernels vs plain: each solve kernel against its plain PyTorch version
+   on the card, exact equality, at the solve buckets of both cells'
+   clusters (cfg4: G=1 and G=2, U=2, K=7; cfg3: K=2; N=1000 in Np=1024
+   rows, the main path's own inputs, first solve of each bucket) and a
+   wide bucket (G=3, U=2, K=8, so C=8, A=512, N=4096, random from a seed);
+   CUDA-event median times over 30 launches; then every kernel on every
+   edge shape of nhd_tpu_torch/kernels/sweep.py (random from a seed); plus
+   the CUDA matcher against the serial oracle on a small random cluster;
+4. cfg4:10kx1k-cap, speculative: 10,000 workload_mix pods on 1,000
+   cap_cluster nodes through ``BatchScheduler(device="cuda")`` with the
+   card's default (round 0 is the speculative megaround; one warm
+   schedule, reset, one timed schedule), then the same batch on
+   ``device="cpu"`` with ``NHD_TPU_SPECULATE=1``: every pod must land on
+   the same node with the same mapping and NICs; then one more cuda
+   schedule that copies the inputs of every solve (classic rounds and
+   megaround iterations) and of every claim-kernel call, and each kernel
+   against its plain version on each copy (the claim kernels timed at
+   the first iteration); then the whole megaround replayed from its
+   starting state on the card and through the plain versions: claims,
+   counts, need left and iterations equal;
+5. cfg3:10kx1k-sat, speculative: the same on bench_cluster nodes
+   (NIC-saturated);
+6. cfg4:10kx1k-cap, classic: phase 4 with ``NHD_TPU_SPECULATE=0`` on both
+   sides (the classic rounds stay checked on the card);
+7. the kernels JSON line: per kernel its launches in phases 4-6 (counts
    set to 0 just before each timed schedule and read just after), its
-   time, its plain version's time and its bound at the cfg4 G=2 bucket.
-   A bound counts the bytes and operations of the real type and node
-   rows only: padded rows are sliced off and need no work.
+   time, its plain version's time and its bound — the solve kernels at
+   the cfg4 G=2 bucket, the claim kernels at cfg4's first megaround
+   iteration. A bound counts the bytes and operations of the real type
+   and node rows only (padded rows are sliced off and need no work); a
+   claim kernel's counts what its iteration's data needs (the live type
+   rows, the elected nodes, the nodes that took copies).
 
 Exits non-zero, printing no result line, without CUDA, outside the
 repository, or when any phase fails. A fuller report goes to
 chiprun_out/chip_smoke_report.json.
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -52,6 +61,14 @@ HBM_BYTES_PER_S = 3.35e12
 VECTOR_OPS_PER_S = 67e12
 GROUPS = ["default", "edge", "batch"]
 N_TIMED = 30
+#: the cells' size: pods per batch, nodes per cluster; and the wide
+#: bucket's node count
+CELL_PODS, CELL_NODES, WIDE_N = 10_000, 1_000, 4096
+
+
+def card(torch):
+    """The one card this script drives."""
+    return torch.device("cuda", 0)
 
 
 def log(msg):
@@ -71,11 +88,15 @@ def smi_line():
     return out[0].strip()
 
 
-def cuda_time_ms(torch, fn, n=N_TIMED):
+def cuda_time_ms(torch, fn, n=N_TIMED, prep=None):
     """Median device time of one call of *fn*, from CUDA events around each
     call. A spin kernel queued first holds the card while the host
-    enqueues all calls, so host launch overhead does not enter the times."""
+    enqueues all calls, so host launch overhead does not enter the times.
+    *prep*, queued before each start event, restores what *fn* writes in
+    place, so every call does the same work."""
     for _ in range(3):
+        if prep is not None:
+            prep()
         fn()
     torch.cuda.synchronize()
     sleep = getattr(torch.cuda, "_sleep", None)
@@ -85,6 +106,8 @@ def cuda_time_ms(torch, fn, n=N_TIMED):
     for _ in range(n):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
+        if prep is not None:
+            prep()
         s.record()
         fn()
         e.record()
@@ -152,6 +175,106 @@ def bounds(name, args, outs, real):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), moved, ops
 
 
+def _distinct(*cols):
+    """How many distinct rows the equal-length index columns *cols* hold."""
+    import torch
+
+    if not cols[0].numel():
+        return 0
+    return int(torch.stack(cols, 1).unique(dim=0).shape[0])
+
+
+def claim_needs(name, t, real, kw):
+    """(bytes, ops) claim kernel *name* needs at one megaround iteration.
+    *t* holds its tensors by interface name as the call found them (and,
+    for spec_elect, the ``plan`` it wrote); *real* the real node count N.
+    Counted from this iteration's data, each needed word read once and
+    each written word written once: the cand plane of the live type rows
+    (need > 0) at every real node and the pref plane where cand is set;
+    the node rows of the elected nodes (spec_elect) or of the nodes that
+    took copies (spec_apply) and the distinct table rows they use; with
+    NIC sharing off, the rx headroom of a claiming node's NICs and the
+    NICs it takes; the switches of its PCI GPU slots. spec_fill reads the
+    elect row of every real node and the rest of the plan at winners."""
+    import torch
+
+    from nhd_tpu_torch.kernels.reference import _elected_rows
+
+    N = real["N"]
+    plan = t["plan"][:, :N]
+    elected = plan[0] >= 0
+    if name == "spec_fill":
+        wins = int(elected.sum())
+        rows = int(plan[0][elected].unique().numel())
+        # elect everywhere; hi and cap read, count written at winners; the
+        # need of each row with winners read and written; the progress flag
+        return 4 * N + 12 * wins + 8 * rows + 4, N + 3 * wins
+    sharing = kw["sharing"]
+    U = t["cpu_free"].shape[1]
+    K = t["nic_free"].shape[2]
+    UK = U * K
+    pick = elected if name == "spec_elect" else elected & (plan[6] > 0)
+    ns = pick.nonzero().flatten()
+    n_pick = int(ns.numel())
+    p = plan[:, ns].long()
+    tt, ca, _, _, occ = _elected_rows(t["trow"], p, t["cpu_g"], t["cpu_m"],
+                                      t["gpu_g"], t["nic_occ"], t["smt"][ns], U)
+    C_t = t["trow"][tt, 1].long()
+    cb = torch.minimum(p[3].clamp(min=0), C_t - 1)
+    mb = p[4].clamp(0, U - 1)
+    s = (~t["smt"][ns]).long()
+    # the [U] demand rows of cpu_g, cpu_m and gpu_g the picked nodes read
+    tables = 4 * U * (_distinct(s, tt, cb) + _distinct(s, tt, mb)
+                      + _distinct(tt, cb))
+    if name == "spec_elect":
+        live = t["status"][1:] > 0
+        lt = live.nonzero().flatten()
+        off = t["plane_off"][lt]
+        idx = (off[:, :1] + off[:, 1:]
+               + torch.arange(N, device=off.device)[None, :])
+        cand = int((t["planes"][idx] != 0).sum()) if N else 0
+        node_rows = 1 + 4 * U + 4 * U + 4 + (0 if sharing else 4 * UK)
+        if not sharing:
+            tables += 4 * U * _distinct(tt, ca)
+        moved = (4 * t["status"].shape[0] + 16 * int(lt.numel()) + 4 * N * int(lt.numel())
+                 + 4 * cand + 12 * n_pick + 16 * _distinct(tt)
+                 + n_pick * node_rows + tables + 7 * 4 * N)
+        ops = (N * int(lt.numel()) + 2 * cand
+               + n_pick * U * (6 + (0 if sharing else K)))
+        return moved, ops
+    # spec_apply: one gpu_uk row per distinct (type, ca); nic_rx and
+    # nic_tx rows with sharing on, the nic_occ row with it off
+    tables += (4 * UK + (8 * UK if sharing else 4 * U)) * _distinct(tt, ca)
+    k = p[6]
+    per_node = (12 + 1 + 2 * (8 * U + 4) + 8 + (1 if kw["respect_busy"] else 0))
+    if sharing:
+        nic = n_pick * 16 * UK  # rx and tx of every slot, read and written
+    else:
+        free = t["nic_free"][ns][..., 0] > 0                       # [n, U, K]
+        room = (k[:, None].float() * occ)[..., None]
+        taken = free & (free.int().cumsum(2) <= room)
+        nic = n_pick * 4 * UK + 8 * int(taken.sum())  # rx read, taken zeroed
+    guk = t["gpu_uk"][tt, ca] != 0                                 # [n, UK]
+    sw = t["nic_sw"][ns].reshape(n_pick, UK)
+    S = t["gpu_free_sw"].shape[1]
+    on_sw = guk & (sw >= 0) & (sw < S)
+    switches = _distinct(on_sw.nonzero()[:, 0], sw[on_sw]) if n_pick else 0
+    # the elect and count rows everywhere; A, C and hugepages of each type;
+    # the switch of each PCI GPU slot, and each such switch read and written
+    moved = (8 * N + n_pick * per_node + 12 * _distinct(tt) + tables + nic
+             + 4 * int(guk.sum()) + 8 * switches)
+    ops = n_pick * (4 * U + (2 * UK if sharing else UK)) + int(guk.sum())
+    return moved, ops
+
+
+def claim_bound(name, t, real, kw):
+    """(bound_ms, bound_by, bytes, ops) of one claim-kernel call."""
+    moved, ops = claim_needs(name, t, real, kw)
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / VECTOR_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), moved, ops
+
+
 def stage(kernel_mod, reference, node, pod):
     """Each kernel's (args, keywords) at one solve, the intermediate inputs
     made by the plain versions."""
@@ -177,7 +300,7 @@ def check_kernels(torch, label, node, pod, report, real, *, timed=True):
 
     staged = stage(kernel_mod, reference, node, pod)
     out = {}
-    for name in kernels.KERNELS:
+    for name in kernels.SOLVE_KERNELS:
         args, kw = staged[name]
         kfn = getattr(kernels, name)
         pfn = getattr(reference, name)
@@ -206,33 +329,201 @@ def check_kernels(torch, label, node, pod, report, real, *, timed=True):
     return out
 
 
-def capture_solves(torch, sched, nodes, items):
-    """One more schedule of the batch (allocation state reset) that keeps,
-    for every solve it makes, a copy of the resident node tensors as that
-    solve reads them, and its pod tensors. Runs after the counted run, so
-    its launches are not counted. Returns (results, [(G, real, node, pod)])."""
+class Capture:
+    """What one schedule sends to the kernels, copied as it happens: every
+    solve (classic rounds through ``solve_ranked``, megaround iterations
+    through ``speculate.solve_planes``) as (G, real, node tensors, pod
+    tensors); every claim-kernel call as (name, its tensors by interface
+    name as the call found them, keywords); every megaround's starting
+    state as (node tensors by name, bucket pods, needs, respect_busy)."""
+
+    def __init__(self):
+        self.solves, self.claims, self.megarounds = [], [], []
+
+
+def capture_schedule(torch, sched, nodes, items):
+    """One more schedule of the batch (allocation state reset) through the
+    spies of ``Capture``. Runs after the counted run, so its launches are
+    not counted; fails unless the spies saw every launch of the schedule.
+    Returns (results, stats, Capture)."""
+    from nhd_tpu_torch import kernels
+    from nhd_tpu_torch.kernels.abi import ABI
+    from nhd_tpu_torch.solver import speculate
     from nhd_tpu_torch.solver.device_state import DeviceClusterState
 
-    seen = []
+    cap = Capture()
+    real_types = {}
     solve_ranked = DeviceClusterState.solve_ranked
+    megaround = DeviceClusterState.megaround
+    solve_planes = speculate.solve_planes
+    claim_fns = {name: getattr(kernels, name) for name in kernels.CLAIM_KERNELS}
 
-    def spy(self, pods, R):
+    def spy_ranked(self, pods, R):
         self._flush_staged()  # the claims this solve must see
-        seen.append((
+        cap.solves.append((
             pods.G, {"T": pods.n_types, "N": self.N},
             [t.clone() for t in self.tensors()], self.pod_tensors(pods),
         ))
         return solve_ranked(self, pods, R)
 
+    def spy_megaround(self, bucket_pods, needs, respect_busy):
+        self._flush_staged()
+        real_types.clear()
+        real_types.update({p.G: p.n_types for p in bucket_pods})
+        real_types["N"] = self.N
+        cap.megarounds.append((
+            {k: v.clone() for k, v in self._dev.items()}, list(bucket_pods),
+            [n.copy() for n in needs], respect_busy, self.N,
+        ))
+        return megaround(self, bucket_pods, needs, respect_busy)
+
+    def spy_planes(G, U, K, node, pod, out=None):
+        cap.solves.append((
+            G, {"T": real_types[G], "N": real_types["N"]},
+            [t.clone() for t in node], pod,
+        ))
+        return solve_planes(G, U, K, node, pod, out=out)
+
+    def spy_claim(name):
+        names = [a.name for a in ABI[name].inputs]
+
+        def spy(*args, **kw):
+            cap.claims.append((
+                name, {n: a.clone() for n, a in zip(names, args)}, dict(kw),
+            ))
+            return claim_fns[name](*args, **kw)
+        return spy
+
     for n in nodes.values():
         n.reset_resources()
-    DeviceClusterState.solve_ranked = spy
+    kernels.reset_launches()
+    DeviceClusterState.solve_ranked = spy_ranked
+    DeviceClusterState.megaround = spy_megaround
+    speculate.solve_planes = spy_planes
+    for name in kernels.CLAIM_KERNELS:
+        setattr(kernels, name, spy_claim(name))
     try:
-        results, _ = sched.schedule(nodes, items, now=0.0)
+        results, stats = sched.schedule(nodes, items, now=0.0)
     finally:
         DeviceClusterState.solve_ranked = solve_ranked
+        DeviceClusterState.megaround = megaround
+        speculate.solve_planes = solve_planes
+        for name, fn in claim_fns.items():
+            setattr(kernels, name, fn)
     torch.cuda.synchronize()
-    return results, seen
+    # the spies saw every launch, or a seam moved and a check would miss it
+    for name in kernels.SOLVE_KERNELS:
+        if kernels.LAUNCHES[name] != len(cap.solves):
+            fail(f"{name} launched {kernels.LAUNCHES[name]} times, but the spies "
+                 f"saw {len(cap.solves)} solves")
+    for name in kernels.CLAIM_KERNELS:
+        seen = sum(1 for c in cap.claims if c[0] == name)
+        if kernels.LAUNCHES[name] != seen:
+            fail(f"{name} launched {kernels.LAUNCHES[name]} times, but the spies "
+                 f"saw {seen} calls")
+    return results, stats, cap
+
+
+def run_claim(torch, fn, name, snap, kw):
+    """Call claim kernel (or plain version) *fn* on a copy of *snap*;
+    returns the copy (in-place tensors updated) with ``plan`` set to the
+    plan the call wrote or read."""
+    from nhd_tpu_torch.kernels.abi import ABI
+
+    t = {k: v.clone() for k, v in snap.items()}
+    args = [t[a.name] for a in ABI[name].inputs]
+    out = fn(*args, **kw)
+    if name == "spec_elect":
+        t["plan"] = out
+    return t
+
+
+def check_claims(torch, label, calls, report, real, *, timed):
+    """Each captured claim-kernel call, kernel and plain version on two
+    copies of its inputs: every tensor the call writes must be equal.
+    With *timed*, the first call of each kernel is also timed (its
+    in-place inputs restored before every launch) and bounded."""
+    from nhd_tpu_torch import kernels
+    from nhd_tpu_torch.kernels import reference
+    from nhd_tpu_torch.kernels.abi import ABI
+
+    out = {}
+    for i, (name, snap, kw) in enumerate(calls):
+        kfn = getattr(kernels, name)
+        pfn = getattr(reference, name)
+        got = run_claim(torch, kfn, name, snap, kw)
+        want = run_claim(torch, pfn, name, snap, kw)
+        torch.cuda.synchronize()
+        err = 0.0
+        for k in want:
+            err = max(err, max_abs_err(torch, got[k], want[k]))
+        if err != 0.0:
+            fail(f"{name} disagrees with its plain version at {label} call {i}: "
+                 f"max abs err {err}")
+        if not timed or name in out:
+            continue
+        work = {k: v.clone() for k, v in snap.items()}
+        written = [a.name for a in ABI[name].inputs if a.inplace]
+
+        def prep(work=work, written=written, snap=snap):
+            for k in written:
+                work[k].copy_(snap[k])
+
+        args = [work[a.name] for a in ABI[name].inputs]
+        ms = cuda_time_ms(torch, lambda: kfn(*args, **kw), prep=prep)
+        plain_ms = cuda_time_ms(torch, lambda: pfn(*args, **kw), prep=prep)
+        t = dict(snap)
+        t["plan"] = want["plan"]
+        bound_ms, bound_by, moved, ops = claim_bound(name, t, real, kw)
+        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "bytes": moved, "ops": ops}
+        log(f"kernel {name} @ {label} iteration 0: exact; {ms:.4f} ms (plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms by {bound_by}, "
+            f"{moved} B, {ops} ops)")
+    if timed:
+        report["kernels"][label] = out
+    return out
+
+
+def replay_megaround(torch, label, snap, report):
+    """The megaround from its captured starting state, kernels on the card
+    against the plain versions on the CPU: claims, counts, need left,
+    iterations and the projected node state must be equal. Returns the
+    card run's wall time in ms (kernels built, one sync per iteration),
+    its iterations, and the wall time of its table setup alone."""
+    from nhd_tpu_torch.solver.kernel import _MUTABLE, _pad_pow2, upload_pods
+    from nhd_tpu_torch.solver.speculate import run_megaround, spec_iters, spec_tables
+
+    state, bucket_pods, needs, respect_busy, _n = snap
+    U = int(state["cpu_free"].shape[1])
+    K = int(state["nic_free"].shape[2])
+    outs = []
+    for dev in (card(torch), torch.device("cpu")):
+        node = {k: v.to(dev, copy=True) for k, v in state.items()}
+        pods = [upload_pods(p, _pad_pow2(p.n_types), U, K, dev) for p in bucket_pods]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        spec_tables(bucket_pods, pods, U, K, int(state["hp_free"].shape[0]), dev)
+        torch.cuda.synchronize()
+        setup_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        res = run_megaround(node, bucket_pods, pods, needs, U, K, spec_iters(),
+                            respect_busy)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        outs.append(([t.cpu() for t in res] + [node[k].cpu() for k in _MUTABLE],
+                     ms, setup_ms))
+    (got, ms, setup_ms), (want, cpu_ms, _) = outs
+    for g, w in zip(got, want):
+        if not torch.equal(g, w):
+            fail(f"{label}: the megaround on the card and its plain replay differ")
+    its = int(want[3])
+    log(f"{label}: megaround replay exact (claims, counts, need left, "
+        f"{its} iterations, node state); card {ms:.2f} ms (its table setup "
+        f"{setup_ms:.2f} ms, so {(ms - setup_ms) / max(its, 1):.3f} ms an "
+        f"iteration), plain on the CPU {cpu_ms:.2f} ms")
+    return ms, its, setup_ms
 
 
 def wide_bucket(torch, dev):
@@ -246,7 +537,7 @@ def wide_bucket(torch, dev):
     from nhd_tpu_torch.solver.kernel import to_device, upload_pods
 
     rng = np.random.default_rng(2026)
-    N, U, K, S, T, G = 4096, 2, 8, 16, 8, 3
+    N, U, K, S, T, G = WIDE_N, 2, 8, 16, 8, 3
     nic_count = rng.integers(0, K + 1, (N, U)).astype(np.int32)
     absent = np.arange(K)[None, None, :] >= nic_count[:, :, None]
     nic_free = (rng.integers(0, 200, (N, U, K, 2)) * 0.5).astype(np.float32)
@@ -290,9 +581,11 @@ def wide_bucket(torch, dev):
 
 
 def sweep_check(torch, dev, report):
-    """nic_any_first and solve_planes against their plain versions on every
-    edge shape of kernels/sweep.py, exactly. These launches are not the
-    main path's: the counts are reset before each timed schedule."""
+    """Every kernel against its plain version on every edge shape of
+    kernels/sweep.py, exactly (the claim kernels each on its own copy of
+    the inputs, spec_fill and spec_apply fed the plain plan). These
+    launches are not the main path's: the counts are reset before each
+    timed schedule."""
     import numpy as np
 
     from nhd_tpu_torch import kernels
@@ -310,6 +603,9 @@ def sweep_check(torch, dev, report):
             fail(f"{name} disagrees with its plain version on sweep shape "
                  f"{label}: max abs err {err}")
 
+    for i, shape in enumerate(sweep.NODE_SWEEP):
+        hold("nic_node_masks", f"(N, U, K, S, G, C, A, fill)={shape}",
+             [up(a) for a in sweep.node_case(i, *shape)], {})
     for i, shape in enumerate(sweep.NIC_SWEEP):
         args, kw = sweep.nic_case(i, *shape)
         hold("nic_any_first", f"(T, N, U, K, C, A, fill)={shape}",
@@ -317,14 +613,40 @@ def sweep_check(torch, dev, report):
     for i, shape in enumerate(sweep.PLANE_SWEEP):
         hold("solve_planes", f"(T, N, U, G, C, NCLS, fill)={shape}",
              [up(a) for a in sweep.plane_case(i, *shape)], {})
-    report["sweep"] = {"nic_any_first": [list(s) for s in sweep.NIC_SWEEP],
-                       "solve_planes": [list(s) for s in sweep.PLANE_SWEEP]}
-    log(f"sweep: nic_any_first exact on {len(sweep.NIC_SWEEP)} shapes "
-        f"(A in {sorted({s[5] for s in sweep.NIC_SWEEP})}, C in "
-        f"{sorted({s[4] for s in sweep.NIC_SWEEP})}, U*K in "
+    for i, shape in enumerate(sweep.SPEC_SWEEP):
+        case = sweep.spec_case(i, *shape)
+        t = {k: up(v) for k, v in case.items() if isinstance(v, np.ndarray)}
+        kw = dict(sharing=case["sharing"], respect_busy=case["respect_busy"])
+        calls = [("spec_elect", {k: t[k] for k in sweep.SPEC_ELECT_ARGS}, kw)]
+        plan = reference.spec_elect(*(t[k].clone() for k in sweep.SPEC_ELECT_ARGS), **kw)
+        status = t["status"].clone()
+        status[0] = 0
+        calls.append(("spec_fill", {"plan": plan, "status": status}, {}))
+        plan = plan.clone()
+        reference.spec_fill(plan, status.clone())
+        calls.append(("spec_apply", {"plan": plan, **{k: t[k] for k in sweep.SPEC_APPLY_ARGS}},
+                      dict(kw, it=case["it"])))
+        check_claims(torch, f"sweep (N, U, K, S, buckets, sharing, busy)={shape}",
+                     calls, report, {"N": shape[0]}, timed=False)
+    report["sweep"] = {
+        "nic_node_masks": [list(s) for s in sweep.NODE_SWEEP],
+        "nic_any_first": [list(s) for s in sweep.NIC_SWEEP],
+        "solve_planes": [list(s) for s in sweep.PLANE_SWEEP],
+        "claim_kernels": [repr(s) for s in sweep.SPEC_SWEEP],
+    }
+    log(f"sweep: nic_node_masks exact on {len(sweep.NODE_SWEEP)} shapes (G in "
+        f"{sorted({s[4] for s in sweep.NODE_SWEEP})}, C*A in "
+        f"{sorted({s[5] * s[6] for s in sweep.NODE_SWEEP})}, fills "
+        f"{sorted({s[7] for s in sweep.NODE_SWEEP})}); nic_any_first exact on "
+        f"{len(sweep.NIC_SWEEP)} shapes (A in {sorted({s[5] for s in sweep.NIC_SWEEP})}, "
+        f"C in {sorted({s[4] for s in sweep.NIC_SWEEP})}, U*K in "
         f"{sorted({s[2] * s[3] for s in sweep.NIC_SWEEP})}); solve_planes exact "
         f"on {len(sweep.PLANE_SWEEP)} shapes (C in "
-        f"{sorted({s[4] for s in sweep.PLANE_SWEEP})}, tied skew, no feasible combo)")
+        f"{sorted({s[4] for s in sweep.PLANE_SWEEP})}, tied skew, no feasible combo); "
+        f"spec_elect, spec_fill, spec_apply exact on {len(sweep.SPEC_SWEEP)} shapes "
+        "(1-3 buckets, N in "
+        f"{sorted({s[0] for s in sweep.SPEC_SWEEP})}, both NIC-sharing branches, "
+        "both busy rules)")
 
 
 def oracle_check(dev):
@@ -384,7 +706,7 @@ def oracle_check(dev):
         f"serial oracle ({placed} placeable)")
 
 
-def profile_schedule(torch, sched, nodes, items):
+def profile_schedule(torch, sched, nodes, items, speculative):
     """One more schedule of the same batch (allocation state reset) under
     torch.profiler: device busy time (sum of kernel and copy time on the
     card) against the wall, and the largest device and host entries.
@@ -394,7 +716,8 @@ def profile_schedule(torch, sched, nodes, items):
     for n in nodes.values():
         n.reset_resources()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with speculate_env(None if speculative else "0"), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         sched.schedule(nodes, items, now=0.0)
         torch.cuda.synchronize()
@@ -423,43 +746,75 @@ def profile_schedule(torch, sched, nodes, items):
     }
 
 
-def run_cell(torch, name, cluster_fn, report, launches_total):
-    """Phases 4 and 5: warm + timed schedule on CUDA, then the CPU run."""
+@contextlib.contextmanager
+def speculate_env(value):
+    """NHD_TPU_SPECULATE set to *value* (None: unset, the device's
+    default) for the duration."""
+    old = os.environ.pop("NHD_TPU_SPECULATE", None)
+    if value is not None:
+        os.environ["NHD_TPU_SPECULATE"] = value
+    try:
+        yield
+    finally:
+        os.environ.pop("NHD_TPU_SPECULATE", None)
+        if old is not None:
+            os.environ["NHD_TPU_SPECULATE"] = old
+
+
+def run_cell(torch, name, cluster_fn, report, launches_total, *, speculative):
+    """Phases 4-6: warm + timed schedule on CUDA (speculation as the card's
+    default has it, or off), then the CPU run with speculation set the same
+    way, then the captured schedule and every kernel against its plain
+    version on its inputs."""
     from nhd_tpu_torch import kernels
     from nhd_tpu_torch.sim.workloads import workload_mix
     from nhd_tpu_torch.solver import BatchItem, BatchScheduler
 
-    reqs = workload_mix(10_000, GROUPS)
+    reqs = workload_mix(CELL_PODS, GROUPS)
     items = [BatchItem(("ns", f"p{i}"), r) for i, r in enumerate(reqs)]
-    nodes = cluster_fn(1_000, GROUPS)
-    sched = BatchScheduler(device="cuda", respect_busy=False, register_pods=False)
-    sched.schedule(nodes, items, now=0.0)  # warm: builds, caches, allocator
-    for n in nodes.values():
-        n.reset_resources()
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    results, stats = sched.schedule(nodes, items, now=0.0)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
-    for k, v in launches.items():
-        if v == 0:
+    nodes = cluster_fn(CELL_NODES, GROUPS)
+    sched = BatchScheduler(device=card(torch), respect_busy=False, register_pods=False)
+    with speculate_env(None if speculative else "0"):
+        sched.schedule(nodes, items, now=0.0)  # warm: builds, caches, allocator
+        for n in nodes.values():
+            n.reset_resources()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        results, stats = sched.schedule(nodes, items, now=0.0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+    path = kernels.KERNELS if speculative else kernels.SOLVE_KERNELS
+    for k in path:
+        if launches[k] == 0:
             fail(f"{name}: kernel {k} was never launched on the main path")
+    for k, v in launches.items():
         launches_total[k] += v
+    spec_it = stats.counters.get("spec_iterations", 0)
+    if speculative and not spec_it:
+        fail(f"{name}: the card's default did not run the speculative round 0")
+    if not speculative and spec_it:
+        fail(f"{name}: NHD_TPU_SPECULATE=0 still ran the megaround")
     placed = sum(1 for r in results if r.node)
     p99 = stats.bind_latency_percentile(results, 99)
     phases = " ".join(f"{k}={v * 1e3:.1f}ms" for k, v in sorted(stats.phases.items()))
+    spec_ms = stats.phases.get("spec_dispatch", 0.0) * 1e3
     log(f"{name} cuda: placed {placed}/{len(items)} rounds={stats.rounds} "
+        f"megaround iterations={spec_it} megaround={spec_ms:.2f}ms "
+        f"claims_r0={stats.counters.get('claims_r0', 0)} "
+        f"rejects_r0={stats.counters.get('rejects_r0', 0)} "
+        f"certified={stats.counters.get('certified_unschedulable', 0)} "
         f"wall={wall:.4f}s ({placed / wall:.0f} pods/s) p99_bind={p99 * 1e3:.1f}ms "
         f"solve={stats.solve_seconds:.4f}s select={stats.select_seconds:.4f}s "
         f"assign={stats.assign_seconds:.4f}s launches={launches}")
     log(f"{name} phases: {phases}")
 
     t1 = time.perf_counter()
-    cpu_res, cpu_stats = BatchScheduler(
-        device="cpu", respect_busy=False, register_pods=False
-    ).schedule(cluster_fn(1_000, GROUPS), items, now=0.0)
+    with speculate_env("1" if speculative else "0"):
+        cpu_res, cpu_stats = BatchScheduler(
+            device="cpu", respect_busy=False, register_pods=False
+        ).schedule(cluster_fn(CELL_NODES, GROUPS), items, now=0.0)
     cpu_wall = time.perf_counter() - t1
     diff = [
         i for i, (a, b) in enumerate(zip(results, cpu_res))
@@ -472,36 +827,57 @@ def run_cell(torch, name, cluster_fn, report, launches_total):
              f"(first: {results[i]} vs {cpu_res[i]})")
     if placed == 0:
         fail(f"{name}: nothing placed")
+    if (cpu_stats.rounds, cpu_stats.counters.get("spec_iterations", 0)) != (
+            stats.rounds, spec_it):
+        fail(f"{name}: rounds or megaround iterations differ on cuda and cpu")
     log(f"{name} cpu: placed {sum(1 for r in cpu_res if r.node)} "
-        f"rounds={cpu_stats.rounds} wall={cpu_wall:.4f}s; every pod's node, "
-        "mapping and NICs identical to the cuda run")
+        f"rounds={cpu_stats.rounds} megaround iterations="
+        f"{cpu_stats.counters.get('spec_iterations', 0)} wall={cpu_wall:.4f}s; "
+        "every pod's node, mapping and NICs identical to the cuda run")
 
-    # every solve of the batch, each round's claims applied: the kernels
-    # against their plain versions at this cell's shapes and states
-    again, snaps = capture_solves(torch, sched, nodes, items)
+    # every solve and claim-kernel call of the batch: each kernel against
+    # its plain version at this cell's shapes and states
+    with speculate_env(None if speculative else "0"):
+        again, _, cap = capture_schedule(torch, sched, nodes, items)
     if [(r.node, r.nic_list) for r in again] != [(r.node, r.nic_list) for r in results]:
         fail(f"{name}: a second cuda schedule of the batch placed differently")
-    for i, (G, real, node, pod) in enumerate(snaps):
+    for i, (G, real, node, pod) in enumerate(cap.solves):
         check_kernels(torch, f"{name} solve {i} G={G} T={real['T']}",
                       node, pod, report, real, timed=False)
-    log(f"{name} kernels vs plain: all {len(snaps)} solves of the batch "
-        f"(buckets {sorted({s[0] for s in snaps})}, every round), exact")
-    del snaps
-    profile = profile_schedule(torch, sched, nodes, items)
+    log(f"{name} kernels vs plain: all {len(cap.solves)} solves of the batch "
+        f"(buckets {sorted({s[0] for s in cap.solves})}, every round and "
+        "megaround iteration; as many as the solve kernels' launches), exact")
+    cell = {}
+    if speculative:
+        if not cap.megarounds or not cap.claims:
+            fail(f"{name}: the captured schedule ran no megaround")
+        real = {"N": cap.megarounds[0][4]}
+        check_claims(torch, f"{name} megaround", cap.claims, report, real, timed=True)
+        log(f"{name} claim kernels vs plain: all {len(cap.claims)} calls "
+            f"({len(cap.claims) // 3} iterations), exact")
+        replays = [replay_megaround(torch, f"{name} megaround {i}", snap, report)
+                   for i, snap in enumerate(cap.megarounds)]
+        cell["megaround_replay_ms"] = [ms for ms, _, _ in replays]
+        cell["megaround_iterations"] = [it for _, it, _ in replays]
+        cell["megaround_setup_ms"] = [ms for _, _, ms in replays]
+    del cap
+    profile = profile_schedule(torch, sched, nodes, items, speculative)
     idle = profile["idle_share"]
     log(f"{name} profile: wall={profile['wall_s']:.4f}s device_busy="
         f"{profile['device_busy_s']:.6f}s idle_share="
         f"{'not measured' if idle is None else f'{idle:.4f}'}; "
         f"top device: {profile['top_device']}; top host: {profile['top_host']}")
-    report["cells"][name] = {
-        "profile": profile,
+    cell.update({
+        "profile": profile, "speculative": speculative,
         "placed": placed, "pods": len(items), "rounds": stats.rounds,
+        "megaround_iterations_run": spec_it, "megaround_ms": spec_ms,
         "wall_s": wall, "pods_per_s": placed / wall, "p99_bind_s": p99,
         "solve_s": stats.solve_seconds, "select_s": stats.select_seconds,
         "assign_s": stats.assign_seconds, "phases_s": stats.phases,
         "counters": stats.counters, "launches": launches,
         "cpu_wall_s": cpu_wall, "cpu_rounds": cpu_stats.rounds,
-    }
+    })
+    report["cells"][name] = cell
     return placed
 
 
@@ -550,13 +926,13 @@ def main():
     from nhd_tpu_torch.solver.device_state import DeviceClusterState
     from nhd_tpu_torch.solver.encode import encode_cluster, encode_pods
 
-    dev = torch.device("cuda", 0)
+    dev = card(torch)
     headline = None
     for cell, cluster_fn in (("cfg4", cap_cluster), ("cfg3", bench_cluster)):
-        cluster = encode_cluster(cluster_fn(1_000, GROUPS), now=0.0)
+        cluster = encode_cluster(cluster_fn(CELL_NODES, GROUPS), now=0.0)
         cluster.busy[:] = False
         state = DeviceClusterState(cluster, dev)
-        buckets = encode_pods(workload_mix(10_000, GROUPS), cluster.interner)
+        buckets = encode_pods(workload_mix(CELL_PODS, GROUPS), cluster.interner)
         for G, pods in sorted(buckets.items()):
             Tp = state.pod_tensors(pods).dem_rx.shape[0]
             label = (f"{cell} G={G} U={cluster.U} K={cluster.K} T={pods.n_types} "
@@ -567,20 +943,26 @@ def main():
                 headline = res
         del state
     node, pod = wide_bucket(torch, dev)
-    check_kernels(torch, "wide G=3 U=2 K=8 T=8 N=4096", node, pod, report,
-                  {"T": 8, "N": 4096})
+    check_kernels(torch, f"wide G=3 U=2 K=8 T=8 N={WIDE_N}", node, pod, report,
+                  {"T": 8, "N": WIDE_N})
     del node, pod
     sweep_check(torch, dev, report)
     oracle_check(dev)
 
-    # 4, 5. main path
+    # 4, 5, 6. main path: the card's default (speculative), then classic
     launches_total = {k: 0 for k in kernels.KERNELS}
-    run_cell(torch, "cfg4:10kx1k-cap", cap_cluster, report, launches_total)
-    run_cell(torch, "cfg3:10kx1k-sat", bench_cluster, report, launches_total)
-    if report["cells"]["cfg4:10kx1k-cap"]["placed"] != 10_000:
-        fail("cfg4 is capacity-matched: every pod must place")
+    run_cell(torch, "cfg4:10kx1k-cap", cap_cluster, report, launches_total,
+             speculative=True)
+    run_cell(torch, "cfg3:10kx1k-sat", bench_cluster, report, launches_total,
+             speculative=True)
+    run_cell(torch, "cfg4:10kx1k-cap classic", cap_cluster, report,
+             launches_total, speculative=False)
+    for cell in ("cfg4:10kx1k-cap", "cfg4:10kx1k-cap classic"):
+        if report["cells"][cell]["placed"] != CELL_PODS:
+            fail(f"{cell} is capacity-matched: every pod must place")
+    claim_headline = report["kernels"]["cfg4:10kx1k-cap megaround"]
 
-    # 6. kernels line
+    # 7. kernels line
     meta = {
         "nic_node_masks": ("nhd_tpu_torch/kernels/nic_node_masks.cu",
                            "nhd_tpu/solver/kernel.py:136"),
@@ -588,15 +970,22 @@ def main():
                           "attic/nic_pallas.py:89"),
         "solve_planes": ("nhd_tpu_torch/kernels/solve_planes.cu",
                          "nhd_tpu/solver/kernel.py:41"),
+        "spec_elect": ("nhd_tpu_torch/kernels/spec_elect.cu",
+                       "nhd_tpu/solver/speculate.py:301"),
+        "spec_fill": ("nhd_tpu_torch/kernels/spec_fill.cu",
+                      "nhd_tpu/solver/speculate.py:406"),
+        "spec_apply": ("nhd_tpu_torch/kernels/spec_apply.cu",
+                       "nhd_tpu/solver/speculate.py:448"),
     }
+    at = {**headline, **claim_headline}
     line = {"kernels": [
         {
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1], "launches": launches_total[name],
-            "max_abs_err": headline[name]["max_abs_err"],
-            "ms": headline[name]["ms"], "plain_ms": headline[name]["plain_ms"],
-            "bound_ms": headline[name]["bound_ms"],
-            "bound_by": headline[name]["bound_by"], "library_ms": None,
+            "max_abs_err": at[name]["max_abs_err"],
+            "ms": at[name]["ms"], "plain_ms": at[name]["plain_ms"],
+            "bound_ms": at[name]["bound_ms"],
+            "bound_by": at[name]["bound_by"], "library_ms": None,
         }
         for name in kernels.KERNELS
     ]}

@@ -27,6 +27,8 @@ import sys
 
 KDIR = os.path.join("nhd_tpu_torch", "kernels")
 EMPTY = {
+    "nic_node_masks": ("    const int NB = nodes_per_block;\n",
+                       "    if (N > 0) return;\n    const int NB = nodes_per_block;\n"),
     "nic_any_first": ("    const int NB = nodes_per_block;\n",
                       "    if (T > 0) return;\n    const int NB = nodes_per_block;\n"),
     "solve_planes": ("    const int t = blockIdx.y;\n    const int sub",
@@ -36,6 +38,10 @@ NIC_TARGET = "const long long want = ((long long)C * A <= 32 ? 1LL : 2LL) * sm_c
 PLANES_TARGET = "const long long want = 2LL * sm_count(device);"
 #: (kernel, variant) -> (text in the committed source, its replacement)
 VARIANTS = {
+    ("nic_node_masks", "committed"): None,
+    ("nic_node_masks", "empty"): EMPTY["nic_node_masks"],
+    ("nic_node_masks", "grid2048"): ("constexpr long long GRID_TARGET = 512;",
+                                     "constexpr long long GRID_TARGET = 2048;"),
     ("nic_any_first", "committed"): None,
     ("nic_any_first", "empty"): EMPTY["nic_any_first"],
     ("nic_any_first", "batch4"): ("constexpr int NODE_BATCH = 8;",
@@ -136,17 +142,11 @@ def entry(lib, kernel):
 
 def caller(torch, fn, kernel, args, kw):
     """A no-argument call of entry point *fn* on *args*, outputs allocated once."""
+    from nhd_tpu_torch.kernels import sizes_for
     from nhd_tpu_torch.kernels.abi import ABI, shape
 
     spec = ABI[kernel]
-    if kernel == "nic_any_first":
-        sizes = dict(T=args[2].shape[0], N=args[0].shape[0], UK=kw["U"] * kw["K"],
-                     C=kw["C"], A=kw["A"], CA=kw["C"] * kw["A"])
-    else:
-        T, N, C = args[21].shape
-        G = args[18].shape[-1]
-        sizes = dict(T=T, N=N, U=args[8].shape[-1], G=G, C=C,
-                     NCLS=args[17].shape[-1], G1=G + 1, P=8)
+    sizes = sizes_for(kernel, args, **kw)
     outs = tuple(torch.empty(shape(a, sizes), dtype=getattr(torch, a.dtype),
                              device=args[0].device) for a in spec.outputs)
     ptrs = [t.data_ptr() for t in (*args, *outs)]
@@ -225,7 +225,7 @@ def main():
     dev = torch.device("cuda", 0)
     report = {"device": cs.smi_line(), "times_ms": {}, "probe": {}}
     for label, staged in buckets(torch, cs, dev):
-        for kernel in ("nic_any_first", "solve_planes"):
+        for kernel in ("nic_node_masks", "nic_any_first", "solve_planes"):
             args, kw = staged[kernel]
             want = getattr(reference, kernel)(*args, **kw)
             want = want if isinstance(want, tuple) else (want,)

@@ -152,3 +152,184 @@ def solve_planes(
         sel.to(i32), cand.to(i32), pref, best_c.to(i32), best_m.to(i32),
         best_a.to(i32), n_combos, picks.to(i32),
     ])
+
+
+# ---- the speculative megaround's claim kernels (nhd_tpu/solver/speculate.py
+# :301-531), one function per kernel over the megaround's global type axis.
+# The kernels update the caller's tensors in place (the reference donated
+# them); so do these.
+
+#: rows of the per-node plan written by spec_elect (and, for "count", by
+#: spec_fill). A node with no eligible type has elect -1 and zeros.
+PLAN = ("elect", "hi", "cap", "c", "m", "a", "count")
+#: columns of the per-type row table: the bucket's pick width A and combo
+#: count C, the flag bits below, hugepages per pod
+TROW = ("A", "C", "flags", "hp")
+FLAG_NEEDS_GPU, FLAG_MAP_PCI, FLAG_HAS_NIC = 1, 2, 4
+_INF = float(1 << 20)
+_T_SHIFT = 21
+
+
+def _plane_rows(planes: Tensor, plane_off: Tensor, N: int):
+    """(row base [TT, N] int64, plane stride [TT, 1]) into the flat plane
+    buffer: plane p of global type t at node n is planes[base + p*stride]."""
+    n_idx = torch.arange(N, device=planes.device, dtype=torch.int64)
+    return plane_off[:, :1] + n_idx[None, :], plane_off[:, 1:2]
+
+
+def _elected_rows(trow, plan, cpu_g, cpu_m, gpu_g, nic_occ, smt, U):
+    """The per-node demand rows at each node's (elect, c, m, a), the
+    reference's bucket-merged gathers (speculate.py:339-376), clipped as
+    it clips them. Nodes with elect -1 read type row 0."""
+    t = plan[0].clamp(min=0).long()
+    A_t, C_t = trow[t, 0].long(), trow[t, 1].long()
+    zero = torch.zeros_like(t)
+    cb = torch.minimum(torch.maximum(plan[3].long(), zero), C_t - 1)
+    mb = plan[4].long().clamp(0, U - 1)
+    ab = torch.minimum(torch.maximum(plan[5].long(), zero), A_t - 1)
+    ca = cb * A_t + ab
+    s = (~smt).long()  # 0: the SMT demand, 1: the raw one
+    cpu_dem = cpu_g[s, t, cb] + cpu_m[s, t, mb]   # [N, U]
+    return t, ca, cpu_dem, gpu_g[t, cb], nic_occ[t, ca]
+
+
+def _div_min_u(free_u: Tensor, dem_u: Tensor) -> Tensor:
+    per_u = torch.where(
+        dem_u > 0,
+        torch.floor(free_u / torch.clamp(dem_u, min=1e-6)),
+        torch.full_like(dem_u, _INF),
+    )
+    return per_u.min(dim=1).values
+
+
+def spec_elect(
+    planes, plane_off, trow, smt, cpu_free, gpu_free, hp_free, nic_free,
+    cpu_g, cpu_m, gpu_g, nic_occ, status, *, sharing: bool, respect_busy: bool,
+) -> Tensor:
+    """The election and the capacity (speculate.py:301-404): [7, N] int32
+    in PLAN order. Clears the progress flag status[0]."""
+    N, U = cpu_free.shape
+    i32 = torch.int32
+    need = status[1:]
+    rows, ps = _plane_rows(planes, plane_off, N)
+    cand = planes[rows + ps] != 0
+    pref = planes[rows + 2 * ps]
+    elig = cand & (need > 0)[:, None]
+    key = torch.where(
+        elig, pref * (1 << 24) + need.clamp(max=1 << 20)[:, None],
+        torch.full_like(pref, -1),
+    )
+    elect = key.argmax(0)             # first maximum, as jnp.argmax
+    has = elig.any(0)
+    n_idx = torch.arange(N, device=planes.device)
+    at = rows[elect, n_idx]
+    stride = ps[elect, 0]
+    c, m, a = (planes[at + p * stride] for p in (3, 4, 5))
+    hi = (planes[at + 2 * stride] == 2).to(i32)
+    plan = torch.stack([elect.to(i32), hi, torch.zeros_like(hi), c, m, a,
+                        torch.zeros_like(hi)])
+    t, _ca, cpu_dem, gpu_dem, occ = _elected_rows(
+        trow, plan, cpu_g, cpu_m, gpu_g, nic_occ, smt, U)
+    cap = _div_min_u(cpu_free.float(), cpu_dem)
+    cap = torch.minimum(cap, _div_min_u(gpu_free.float(), gpu_dem))
+    if not sharing:
+        free_nic = (nic_free[..., 0] > 0).float().sum(2)  # [N, U]
+        cap = torch.minimum(cap, _div_min_u(free_nic, occ))
+    hp_t = trow[t, 3].float()
+    cap = torch.minimum(cap, torch.where(
+        hp_t > 0, torch.floor(hp_free.float() / torch.clamp(hp_t, min=1e-6)),
+        torch.full_like(hp_t, _INF),
+    ))
+    flags = trow[t, 2]
+    one = (flags & FLAG_MAP_PCI) != 0
+    if respect_busy:
+        one |= (flags & FLAG_NEEDS_GPU) != 0
+    if sharing:
+        one |= (flags & FLAG_HAS_NIC) != 0
+    cap = torch.where(one, torch.clamp(cap, max=1.0), cap)
+    plan[2] = torch.clamp(cap, min=0.0).to(i32)
+    plan = torch.where(has[None], plan, torch.zeros_like(plan))
+    plan[0] = torch.where(has, elect.to(i32), torch.full_like(plan[0], -1))
+    status[0] = 0
+    return plan
+
+
+def spec_fill(plan: Tensor, status: Tensor) -> None:
+    """The balanced fill (speculate.py:406-448, 529): each type's copies
+    go to its elected nodes at ceil(need / winners) each, pref-2 winners by
+    node index first, then pref-1 winners. Writes plan's count row,
+    subtracts the takes from the need (status[1:]) and sets the progress
+    flag status[0] when anything was taken."""
+    TT, N = status.shape[0] - 1, plan.shape[1]
+    i32 = torch.int32
+    need = status[1:]
+    win = plan[0][None, :] == torch.arange(TT, device=plan.device, dtype=i32)[:, None]
+    n_win = win.sum(1, dtype=i32).clamp(min=1)
+    fair = torch.div(need + n_win - 1, n_win, rounding_mode="floor")
+    zero = torch.zeros((), dtype=i32, device=plan.device)
+    capw = torch.where(
+        win, torch.minimum(plan[2].clamp(min=1)[None, :], fair[:, None]), zero)
+    hi = win & (plan[1] != 0)[None, :]
+    cap_hi = torch.where(hi, capw, zero)
+    cap_lo = torch.where(win & ~hi, capw, zero)
+    prefix_hi = torch.cumsum(cap_hi, 1, dtype=i32) - cap_hi
+    prefix_lo = (cap_hi.sum(1, keepdim=True, dtype=i32)
+                 + torch.cumsum(cap_lo, 1, dtype=i32) - cap_lo)
+    prefix = torch.where(hi, prefix_hi, prefix_lo)
+    take = torch.where(
+        win, torch.minimum(torch.clamp(need[:, None] - prefix, min=0), capw), zero)
+    plan[6] = take.max(0).values
+    taken = take.sum(1, dtype=i32)
+    status[1:] = need - taken
+    if bool((taken > 0).any()):
+        status[0] = 1
+
+
+def spec_apply(
+    plan, trow, smt, nic_sw, cpu_g, cpu_m, gpu_g, nic_occ, gpu_uk, nic_rx,
+    nic_tx, busy, hp_free, cpu_free, gpu_free, nic_free, gpu_free_sw,
+    claims, counts, *, it: int, sharing: bool, respect_busy: bool,
+) -> None:
+    """The claim deltas and the claim record (speculate.py:448-527) for the
+    nodes that took copies: cpu, gpu and hugepages, NIC bandwidth (sharing
+    on) or the lowest free NICs zeroed (sharing off), the per-switch GPUs
+    through nic_sw, busy; the packed claim word and the count go to row
+    *it* of claims and counts. Every float step is the reference's: f32
+    arithmetic, then a truncating cast back."""
+    U = cpu_free.shape[1]
+    K = nic_sw.shape[2]
+    S = gpu_free_sw.shape[1]
+    taken = (plan[0] >= 0) & (plan[6] > 0)
+    ns = taken.nonzero().flatten()
+    if ns.numel() == 0:
+        return
+    p = plan[:, ns]
+    t, ca, cpu_dem, gpu_dem, occ = _elected_rows(
+        trow, p, cpu_g, cpu_m, gpu_g, nic_occ, smt[ns], U)
+    kf = p[6].float()
+    i32 = torch.int32
+    cpu_free[ns] = (cpu_free[ns].float() - kf[:, None] * cpu_dem).to(i32)
+    gpu_free[ns] = (gpu_free[ns].float() - kf[:, None] * gpu_dem).to(i32)
+    hp_free[ns] = hp_free[ns] - (kf * trow[t, 3].float()).to(i32)
+    nf = nic_free[ns].reshape(len(ns), U * K, 2)
+    if sharing:
+        nf[..., 0] = nf[..., 0] - kf[:, None] * nic_rx[t, ca]
+        nf[..., 1] = nf[..., 1] - kf[:, None] * nic_tx[t, ca]
+        nic_free[ns] = nf.reshape(len(ns), U, K, 2)
+    else:
+        cur = nic_free[ns]
+        unocc = cur[..., 0] > 0                                  # [n, U, K]
+        used = unocc & (
+            torch.cumsum(unocc.to(i32), 2) <= (kf[:, None] * occ)[..., None]
+        )
+        nic_free[ns] = torch.where(used[..., None], torch.zeros_like(cur), cur)
+    guk = kf[:, None] * gpu_uk[t, ca]                            # [n, U*K]
+    onehot = (nic_sw[ns].reshape(len(ns), U * K)[..., None]
+              == torch.arange(S, device=nic_sw.device)).float()
+    sw_delta = (guk[..., None] * onehot).sum(1)                  # [n, S]
+    gpu_free_sw[ns] = (gpu_free_sw[ns].float() - sw_delta).to(i32)
+    if respect_busy:
+        busy[ns] = True
+    word = t.to(i32) * (1 << _T_SHIFT) + (p[3] * U + p[4]) * trow[t, 0] + p[5]
+    claims[it, ns] = word
+    counts[it, ns] = p[6]

@@ -1,9 +1,26 @@
 """Random kernel inputs at the shapes where the kernels' index logic can break.
 
-``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold ``nic_any_first``
-and ``solve_planes`` against their plain versions, exactly, on every case
-here; the CPU tests check that the cases cover what the comments claim.
-Inputs are made with numpy from a seed, in each kernel's argument order.
+``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold ``nic_node_masks``,
+``nic_any_first``, ``solve_planes`` and the megaround's claim kernels
+against their plain versions, exactly, on every case here; the CPU tests
+check that the cases cover what the comments claim. Inputs are made with
+numpy from a seed, in each kernel's argument order.
+
+``NODE_SWEEP`` rows are (N, U, K, S, G, C, A, fill) of ``nic_node_masks``:
+G from 1 to 4 and one past 4 (the kernel's wider slot table), C*A of 1,
+of 4096 (16 chunks of lanes) and not a multiple of 4 or 32, U past the 4
+need entries a lane keeps in registers, U*K past 32, node counts that
+leave a ragged last strip, and U*K = 13000 (a node's switch row past 48 KB
+of shared memory, read from global memory). ``fill`` "oob" puts switch
+ids outside [-S, S) (the check fails), "onesw" puts every present NIC
+on one switch (share = G), "neg" makes gpu_free_sw entries negative often (the
+node fails every pick); every case has switch id -1 (the wrap to S-1).
+
+``SPEC_SWEEP`` rows are (N, U, K, S, buckets, sharing, respect_busy) of
+the claim kernels, ``buckets`` a tuple of (Tp, C, A): one and several
+buckets of different C and C*A (the tables' padded axes), node counts
+past one and several fill tiles of 256, both NIC-sharing branches and
+both busy rules.
 
 ``NIC_SWEEP`` rows are (T, N, U, K, C, A, fill): picks per combo A across
 one and several 32-lane chunks (1, 7, 31, 32, 33, 49, 512), combos C from
@@ -41,6 +58,28 @@ NIC_SWEEP = (
     (2, 99, 2, 8, 2, 2000, "rand"),
     (2, 45, 1, 1000, 2, 3, "rand"),
     (2, 99, 2, 3, 2, 9, "dense"),
+)
+
+NODE_SWEEP = (
+    (1021, 2, 7, 14, 1, 2, 7, "rand"),
+    (1021, 2, 7, 14, 2, 4, 49, "rand"),
+    (1023, 2, 7, 14, 2, 4, 49, "neg"),
+    (517, 2, 2, 4, 3, 3, 7, "rand"),
+    (517, 2, 8, 16, 4, 5, 13, "rand"),
+    (1021, 2, 2, 4, 1, 1, 1, "rand"),
+    (1021, 2, 8, 16, 3, 8, 512, "rand"),
+    (99, 4, 10, 40, 2, 3, 33, "oob"),
+    (257, 2, 3, 6, 3, 2, 9, "onesw"),
+    (45, 5, 3, 15, 6, 7, 11, "rand"),
+    (37, 1, 13000, 8, 2, 1, 3, "rand"),
+)
+
+SPEC_SWEEP = (
+    (77, 2, 3, 6, ((8, 2, 3),), False, False),
+    (1021, 2, 7, 14, ((4, 2, 7), (8, 4, 49)), False, False),
+    (1021, 2, 7, 14, ((4, 2, 7), (8, 4, 49)), True, False),
+    (300, 2, 2, 4, ((2, 2, 2), (4, 4, 4), (2, 8, 8)), False, True),
+    (513, 4, 3, 12, ((8, 4, 3), (4, 16, 9)), True, True),
 )
 
 PLANE_SWEEP = (
@@ -131,3 +170,99 @@ def plane_case(seed: int, T: int, N: int, U: int, G: int, C: int, NCLS: int,
         rng.integers(0, 50, (T, N, C)).astype(i32),     # first_a
         rng.integers(0, 50, (T, N, C)).astype(i32),     # n_picks
     )
+
+
+def node_case(seed: int, N: int, U: int, K: int, S: int, G: int, C: int,
+              A: int, fill: str = "rand") -> tuple:
+    """The 6 arguments of ``nic_node_masks``: NIC counts, switch ids (some
+    -1, the absent NIC), per-switch free GPUs, the combo and pick tables
+    and the per-(combo, pick) NIC need."""
+    rng = np.random.default_rng(seed)
+    i32 = np.int32
+    nic_count = rng.integers(0, K + 1, (N, U)).astype(i32)
+    nic_sw = rng.integers(-1, S, (N, U, K)).astype(i32)
+    if fill == "oob":
+        wild = rng.random((N, U, K)) < 0.1
+        nic_sw[wild] = rng.choice([S, S + 3, -S - 1, -S - 4], int(wild.sum()))
+    elif fill == "onesw":
+        nic_sw[nic_sw >= 0] = rng.integers(0, S)
+    gpu_free_sw = rng.integers(0, G + 2, (N, S)).astype(i32)
+    neg = rng.random((N, S)) < (0.2 if fill == "neg" else 0.002)
+    neg[rng.integers(0, N), rng.integers(0, S)] = True
+    gpu_free_sw[neg] = -1
+    combo = rng.integers(0, U, (C, G)).astype(i32)
+    pick = rng.integers(0, K, (A, G)).astype(i32)
+    need_max = rng.integers(0, min(K, 3) + 1, (C, A, U)).astype(i32)
+    return nic_count, nic_sw, gpu_free_sw, combo, pick, need_max
+
+
+def spec_case(seed: int, N: int, U: int, K: int, S: int, buckets, sharing: bool,
+              respect_busy: bool) -> Dict[str, object]:
+    """One megaround iteration's inputs for the claim kernels, by argument
+    name, laid out as solver/speculate.py lays them out: each bucket's
+    [8, Tp, N] solve planes back to back in one flat buffer (cand, pref,
+    best c/m/a random, some c/m/a out of range so the kernels clamp),
+    the hoisted demand tables over the global type axis padded to the
+    largest C and C*A, the node state on the request grid (integer cpu,
+    gpu and hugepages; NIC headroom on a 0.5 Gbps grid, -1 where absent)
+    and the status vector (progress, then every type row's need, some 0).
+    Also ``it`` and ``IT``, the iteration row and depth."""
+    rng = np.random.default_rng(seed)
+    i32, f32 = np.int32, np.float32
+    TT = sum(tp for tp, _, _ in buckets)
+    CM = max(c for _, c, _ in buckets)
+    CAM = max(c * a for _, c, a in buckets)
+    UK = U * K
+    planes, plane_off, trow = [], np.zeros((TT, 2), np.int64), np.zeros((TT, 4), i32)
+    base = row = 0
+    for tp, c, a in buckets:
+        pl = np.zeros((8, tp, N), i32)
+        pl[1] = rng.random((tp, N)) < 0.4                         # cand
+        pl[2] = np.where(pl[1] != 0, rng.integers(1, 3, (tp, N)), 0)  # pref
+        pl[3] = rng.integers(-1, c + 1, (tp, N))                  # best_c
+        pl[4] = rng.integers(0, U + 1, (tp, N))                   # best_m
+        pl[5] = rng.integers(0, a + 1, (tp, N))                   # best_a
+        planes.append(pl.ravel())
+        plane_off[row:row + tp, 0] = base + np.arange(tp) * N
+        plane_off[row:row + tp, 1] = tp * N
+        flags = rng.integers(0, 8, tp)
+        trow[row:row + tp] = np.stack(
+            [np.full(tp, a), np.full(tp, c), flags, rng.integers(0, 3, tp)], 1)
+        base += 8 * tp * N
+        row += tp
+    need = rng.integers(0, 40, TT)
+    need[rng.random(TT) < 0.25] = 0
+    nic_free = (rng.integers(0, 200, (N, U, K, 2)) * 0.5).astype(f32)
+    nic_free[rng.random((N, U, K)) < 0.2] = -1.0
+    occ = rng.integers(0, 3, (TT, CAM, U)).astype(f32)
+    return dict(
+        planes=np.concatenate(planes), plane_off=plane_off, trow=trow,
+        smt=rng.random(N) < 0.7,
+        cpu_free=rng.integers(-2, 40, (N, U)).astype(i32),
+        gpu_free=rng.integers(0, 5, (N, U)).astype(i32),
+        hp_free=rng.integers(0, 65, N).astype(i32),
+        nic_free=nic_free,
+        cpu_g=rng.integers(0, 6, (2, TT, CM, U)).astype(f32),
+        cpu_m=rng.integers(0, 2, (2, TT, U, U)).astype(f32),
+        gpu_g=rng.integers(0, 2, (TT, CM, U)).astype(f32),
+        nic_occ=occ,
+        gpu_uk=rng.integers(0, 2, (TT, CAM, UK)).astype(f32),
+        nic_rx=(rng.integers(0, 40, (TT, CAM, UK)) * 0.5).astype(f32),
+        nic_tx=(rng.integers(0, 20, (TT, CAM, UK)) * 0.5).astype(f32),
+        nic_sw=rng.integers(-1, S, (N, U, K)).astype(i32),
+        busy=rng.random(N) < 0.1,
+        gpu_free_sw=rng.integers(0, 4, (N, S)).astype(i32),
+        status=np.concatenate([[1], need]).astype(i32),
+        claims=np.full((4, N), -1, i32),
+        counts=np.zeros((4, N), i32),
+        it=int(rng.integers(0, 4)), sharing=sharing, respect_busy=respect_busy,
+    )
+
+
+#: argument names of the claim kernels, in their wrappers' order
+SPEC_ELECT_ARGS = ("planes", "plane_off", "trow", "smt", "cpu_free", "gpu_free",
+                   "hp_free", "nic_free", "cpu_g", "cpu_m", "gpu_g", "nic_occ",
+                   "status")
+SPEC_APPLY_ARGS = ("trow", "smt", "nic_sw", "cpu_g", "cpu_m", "gpu_g", "nic_occ",
+                   "gpu_uk", "nic_rx", "nic_tx", "busy", "hp_free", "cpu_free",
+                   "gpu_free", "nic_free", "gpu_free_sw", "claims", "counts")

@@ -1,8 +1,7 @@
 """Gang/batch scheduling: greedy rounds over the batched solve.
 
-The counterpart of the reference's nhd_tpu/solver/batch.py, classic
-rounds only. A 10k-pod batch can't afford 10k serial solves, so each
-greedy round:
+The counterpart of the reference's nhd_tpu/solver/batch.py. A 10k-pod
+batch can't afford 10k serial solves, so each greedy round:
 
   1. runs one solve + rank per group-count bucket on the device (the
      port's kernels, solver/kernel.py) and pulls the packed [9, T, R]
@@ -21,10 +20,16 @@ auto means on for CUDA), round r+1's solves are launched right after
 round r's native assign, so round r's result materialization runs on
 the host while the card computes.
 
-Not in this slice, each with its gate closed: the speculative megaround
-(round 0 always runs classic), the solver fault guard, the mesh,
-streaming tiles, the AOT cache, and the reference's small-round CPU
-routing — on the card that routing would be a hidden CPU fallback.
+With speculation on (``NHD_TPU_SPECULATE``; auto means on for CUDA, off
+while a non-uniform policy scoring matrix is live), round 0 is the
+speculative megaround (solver/speculate.py): the device runs the whole
+greedy claim loop and the host re-verifies its claims through the same
+native apply; whatever the native core rejects retries in classic
+rounds. A saturation certificate can end the batch after round 0.
+
+Not in this slice, each with its gate closed: the solver fault guard,
+the mesh, streaming tiles, the AOT cache, and the reference's small-round
+CPU routing — on the card that routing would be a hidden CPU fallback.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from nhd_tpu_torch.core.request import PodRequest
 from nhd_tpu_torch.core.topology import MapMode, NicDir, PodTopology
 from nhd_tpu_torch.device import DeviceLike, resolve_device
 from nhd_tpu_torch.obs.recorder import get_recorder
+from nhd_tpu_torch.policy.scoring import scoring_active
 from nhd_tpu_torch.solver.device_state import DeviceClusterState, HostPull
 from nhd_tpu_torch.solver.encode import (
     ClusterDelta,
@@ -55,9 +61,15 @@ from nhd_tpu_torch.solver.fast_assign import (
     FastCluster,
     apply_record_to_topology,
 )
-from nhd_tpu_torch.solver.kernel import bucket_tractable, rank_budget
+from nhd_tpu_torch.solver.kernel import _pad_pow2, bucket_tractable, rank_budget
 from nhd_tpu_torch.solver.matcher import decode_mapping
 from nhd_tpu_torch.solver.oracle import find_node as oracle_find_node
+from nhd_tpu_torch.solver.speculate import (
+    _T_SHIFT,
+    decode_claims_grouped,
+    spec_iters,
+    speculate_enabled,
+)
 from nhd_tpu_torch.utils import get_logger
 
 
@@ -86,6 +98,15 @@ class BatchAssignment(NamedTuple):
 # host-side view of the device ranking (kernel.RankOut): all [T, R]
 RankHost = namedtuple(
     "RankHost", "val idx best_c best_m best_a n_picks free_gpu free_cpu free_hp"
+)
+
+# one speculative dispatch (see _speculate_dispatch): its four result
+# tensors on their way to the host (HostPulls started at dispatch);
+# ``certifiable`` records the saturation-certificate preconditions
+# evaluated at dispatch time
+SpecDispatch = namedtuple(
+    "SpecDispatch",
+    "bucket_keys bucket_pods claims counts need_left iters_used certifiable",
 )
 
 
@@ -381,6 +402,180 @@ class BatchScheduler:
         cap = np.where(cand, np.maximum(cap, 1), 0)
         return cap
 
+    def _speculate_dispatch(self, dev, all_buckets, is_pending):
+        """Round 0 of the speculative path: the megaround
+        (solver/speculate.py) for every eligible bucket jointly — PCI
+        types included. Returns None when nothing is eligible."""
+        bucket_keys, bucket_pods, needs = [], [], []
+        t_total = 0
+        need_total = 0
+        for G, full in all_buckets.items():
+            mask = is_pending[full.pod_index]
+            # keep the FULL type rows and keep empty buckets in the
+            # dispatch: absent types and dead buckets carry zero need and
+            # the loop skips a bucket with no need
+            pods = replace(
+                full,
+                pod_type=full.pod_type[mask],
+                pod_index=full.pod_index[mask],
+            )
+            Tp = _pad_pow2(pods.n_types)
+            need = np.bincount(pods.pod_type, minlength=Tp).astype(np.int32)
+            U, K = dev.cluster.U, dev.cluster.K
+            word_overflow = (
+                (U**pods.G) * (max(K, 1) ** pods.G) * U >= (1 << _T_SHIFT)
+            )
+            if word_overflow or not bucket_tractable(pods.G, U, K):
+                if not need.any():
+                    # a zero-need bucket whose lattice is word-overflowing
+                    # or intractable must not ride along: building its
+                    # combo tables is the explosion the budget prevents
+                    continue
+                # the packed claim word's (c*U+m)*A + a field would
+                # overflow: classic rounds handle any lattice
+                return None
+            bucket_keys.append(G)
+            bucket_pods.append(pods)
+            needs.append(need)
+            t_total += Tp
+            need_total += int(need.sum())
+        if (
+            not bucket_keys
+            or need_total == 0
+            or t_total >= (1 << (31 - _T_SHIFT))
+        ):
+            # nothing to speculate, or the global type axis would
+            # overflow the claim word's type field
+            return None
+        # saturation-certificate preconditions (see the spec-round
+        # consumer): with these, the loop's projected state provably
+        # upper-bounds true state, so a no-candidate exit is final
+        from nhd_tpu_torch.core.node import ENABLE_NIC_SHARING
+
+        certifiable = (
+            not ENABLE_NIC_SHARING
+            and dev.cluster.uniform_nic_caps
+            and not any(
+                need[: pods.n_types][pods.map_pci].any()
+                for pods, need in zip(bucket_pods, needs)
+            )
+        )
+        claims, counts, need_left, it = dev.megaround(
+            bucket_pods, needs, self.respect_busy
+        )
+        # the four copies to the host start now, each into pinned memory
+        # behind an event, so the FastCluster join runs under them
+        return SpecDispatch(
+            bucket_keys, bucket_pods, HostPull(claims), HostPull(counts),
+            HostPull(need_left), HostPull(it), certifiable,
+        )
+
+    def _expand_speculative(self, spec, claims_np, counts_np, cluster):
+        """Expand the megaround's packed claim tensor into per-bucket
+        winner ARRAYS: pods of a type consume its claims in (iteration,
+        node) order, re-sorted to pod-index order within the bucket (the
+        classic apply order). Returns
+        ({G: (pods, w_pod, w_node, w_type, w_c, w_m, w_a)}, node_claimed)
+        with every w_* an int32 numpy array (w_pod int64)."""
+        bucket_keys, bucket_pods = spec.bucket_keys, spec.bucket_pods
+        shapes = tuple((p.G, _pad_pow2(p.n_types)) for p in bucket_pods)
+        decoded = decode_claims_grouped(
+            claims_np, shapes, tuple(bucket_keys), cluster.U, cluster.K,
+            counts_np,
+        )
+        out = {}
+        node_claimed: Dict[int, int] = {}
+        for gk, pods in zip(bucket_keys, bucket_pods):
+            per_type = decoded.get(gk, {})
+            if not per_type:
+                continue
+            # pod ids per type in pod-index order: pod_index is ascending
+            # within the encode, so a stable sort by type keeps it
+            order = np.argsort(pods.pod_type, kind="stable")
+            types_sorted = pods.pod_type[order]
+            podid_sorted = pods.pod_index[order]
+            t_vals, t_starts = np.unique(types_sorted, return_index=True)
+            t_bounds = np.append(t_starts, len(types_sorted))
+            t_slice = {
+                int(t): (int(lo), int(hi))
+                for t, lo, hi in zip(t_vals, t_bounds[:-1], t_bounds[1:])
+            }
+            cols: List[List[np.ndarray]] = [[] for _ in range(6)]
+            for t, (nds, cs, ms, As) in per_type.items():
+                span = t_slice.get(int(t))
+                if span is None:
+                    continue
+                lo, hi = span
+                k = min(hi - lo, len(nds))
+                if k == 0:
+                    continue
+                cols[0].append(podid_sorted[lo : lo + k])
+                cols[1].append(nds[:k])
+                cols[2].append(np.full(k, int(t), np.int64))
+                cols[3].append(cs[:k])
+                cols[4].append(ms[:k])
+                cols[5].append(As[:k])
+            if not cols[0]:
+                continue
+            w_pod, w_node, w_type, w_c, w_m, w_a = (
+                np.concatenate(c) for c in cols
+            )
+            o = np.argsort(w_pod, kind="stable")
+            out[gk] = (
+                pods,
+                np.ascontiguousarray(w_pod[o], np.int64),
+                np.ascontiguousarray(w_node[o], np.int32),
+                np.ascontiguousarray(w_type[o], np.int32),
+                np.ascontiguousarray(w_c[o], np.int32),
+                np.ascontiguousarray(w_m[o], np.int32),
+                np.ascontiguousarray(w_a[o], np.int32),
+            )
+            for n in np.unique(w_node).tolist():
+                node_claimed.setdefault(int(n), gk)
+        return out, node_claimed
+
+    @staticmethod
+    def _spec_tuples(expanded):
+        """Adapter for the object-assignment fallback: per-bucket winner
+        arrays → (claims tuples, bucket_out with a synthetic RankHost
+        carrying each claim's (c, m, a) at its rank position)."""
+        claims: List[Tuple[int, int, int, int, int]] = []
+        bucket_out = {}
+        for gk, (pods, w_pod, w_node, w_type, w_c, w_m, w_a) in (
+            expanded.items()
+        ):
+            T = pods.n_types
+            counts = np.bincount(w_type, minlength=T)
+            r_spec = int(counts.max(initial=0)) or 1
+            val = np.zeros((T, r_spec), np.int32)
+            idx = np.zeros((T, r_spec), np.int32)
+            bc = np.zeros((T, r_spec), np.int32)
+            bm = np.zeros((T, r_spec), np.int32)
+            ba = np.zeros((T, r_spec), np.int32)
+            # rank position = per-type claim ordinal, in (iter, node) order
+            seen = np.zeros(T, np.int64)
+            for pod_i, n, t, c, m, a in zip(
+                w_pod.tolist(), w_node.tolist(), w_type.tolist(),
+                w_c.tolist(), w_m.tolist(), w_a.tolist(),
+            ):
+                j = int(seen[t])
+                seen[t] += 1
+                val[t, j] = 1
+                idx[t, j] = n
+                bc[t, j] = c
+                bm[t, j] = m
+                ba[t, j] = a
+                claims.append((pod_i, n, gk, t, j))
+            zeros = np.zeros((T, r_spec), np.int32)
+            bucket_out[gk] = (
+                pods,
+                RankHost(val, idx, bc, bm, ba,
+                         np.ones((T, r_spec), np.int32),
+                         zeros, zeros, zeros),
+            )
+        claims.sort()
+        return claims, bucket_out
+
     def _schedule_serial(
         self, nodes, items, indices, results, stats, now, apply
     ) -> set:
@@ -603,6 +798,15 @@ class BatchScheduler:
         prelaunched = None
         pipeline_on = apply and _pipeline_enabled(self.device)
         accelerator = self.device.type == "cuda"
+        # speculative round 0 (solver/speculate.py): the device runs the
+        # whole greedy claim loop and the host re-verifies its claims
+        # through the normal native apply. Off under a live (non-uniform)
+        # scoring matrix: its claims would bypass the policy ranking
+        spec_ok = (
+            apply
+            and speculate_enabled(self.device)
+            and not scoring_active()
+        )
 
         def _membership(full, mask):
             """Restrict pod membership WITHOUT shrinking the type rows:
@@ -678,11 +882,22 @@ class BatchScheduler:
             # (pod index, node index, bucket G, type, rank position)
             claims: List[Tuple[int, int, int, int, int]] = []
             bucket_out = {}
+            spec = None
+            claims_np = counts_np = None
+            spec_round = spec_ok and round_no == 0
             if prelaunched is not None:
                 launched = prelaunched
                 prelaunched = None
             else:
-                launched = _dispatch_solves()
+                if spec_round:
+                    t_sp = time.perf_counter()
+                    spec = self._speculate_dispatch(dev, all_buckets, is_pending)
+                    stats.phase_add("spec_dispatch", time.perf_counter() - t_sp)
+                    launched = []
+                if spec is None:
+                    # nothing to speculate: classic round
+                    spec_round = False
+                    launched = _dispatch_solves()
             if submit_fast:
                 submit_fast = False
                 fast_future = _fc_executor().submit(
@@ -694,6 +909,15 @@ class BatchScheduler:
                 fast = fast_future.result()
                 fast_future = None
                 stats.phase_add("fast_join", time.perf_counter() - t_j)
+            if spec_round:
+                # the megaround's results, copied since dispatch
+                t_pull = time.perf_counter()
+                claims_np = spec.claims.numpy()
+                counts_np = spec.counts.numpy()
+                spec_need_left = int(spec.need_left.numpy().sum())
+                spec_it = int(spec.iters_used.numpy())
+                stats.phase_add("spec_pull", time.perf_counter() - t_pull)
+                stats.count_add("spec_iterations", spec_it)
             for G, pods, pull in launched:
                 # one pull per bucket: the packed [9, Tp, R] ranking
                 arr = pull.numpy()
@@ -705,6 +929,14 @@ class BatchScheduler:
             # accepts claims from ONE bucket per round, so per-node
             # application order stays pod-index order
             node_claimed: Dict[int, int] = {}
+            spec_winners = None
+            if spec_round:
+                # the device already ran the whole claim loop: expand its
+                # packed tensor into per-bucket winner arrays (the native
+                # apply's direct input); the capacity select is skipped
+                spec_winners, node_claimed = self._expand_speculative(
+                    spec, claims_np, counts_np, cluster
+                )
             winners: Dict[int, tuple] = {}
             for G, (pods, out) in bucket_out.items():
                 if not apply:
@@ -724,7 +956,14 @@ class BatchScheduler:
             applied_on_node: set = set()
             stats.select_seconds += time.perf_counter() - t0
 
-            if not claims and not winners:
+            if not claims and not winners and not spec_winners:
+                if spec_round:
+                    # an empty speculation is not a saturation verdict:
+                    # fall through to a classic round
+                    stats.round_end_seconds.append(
+                        time.perf_counter() - t_batch
+                    )
+                    continue
                 break  # no pod could be placed: remaining are unschedulable
 
             t0 = time.perf_counter()
@@ -735,10 +974,19 @@ class BatchScheduler:
                 and fast is not None
                 and fast.round_supported()
                 and all(
-                    fast.round_ok_for(bucket_out[G][0]) for G in bucket_out
+                    fast.round_ok_for(po)
+                    for po in (
+                        [v[0] for v in spec_winners.values()]
+                        if spec_round
+                        else [bucket_out[G][0] for G in bucket_out]
+                    )
                 )
             )
-            if not round_ok and winners:
+            if spec_round and not round_ok:
+                # object-assignment fallback consumes claim tuples + a
+                # synthetic RankHost — materialize them from the arrays
+                claims, bucket_out = self._spec_tuples(spec_winners)
+            elif not round_ok and winners:
                 # object-assignment fallback: pod-sorted claim tuples from
                 # the vectorized winner arrays
                 claims = [
@@ -756,12 +1004,29 @@ class BatchScheduler:
                 # one native call per bucket places every winner of the
                 # round (native/nhd_assign.cc nhd_assign_round) and
                 # mutates the packed host state + solver arrays
+                native_in = []
+                if spec_round:
+                    for G, (pods, w_pod, w_node, w_type, w_c, w_m, _a) in (
+                        spec_winners.items()
+                    ):
+                        native_in.append(
+                            (G, pods, w_pod, w_node, w_type, w_c, w_m)
+                        )
+                else:
+                    for G, (pods, w_pod, w_node, w_type, w_rank) in (
+                        winners.items()
+                    ):
+                        out = bucket_out[G][1]
+                        w_c = np.ascontiguousarray(
+                            out.best_c[w_type, w_rank], np.int32)
+                        w_m = np.ascontiguousarray(
+                            out.best_m[w_type, w_rank], np.int32)
+                        native_in.append(
+                            (G, pods, w_pod, w_node, w_type, w_c, w_m)
+                        )
                 native_out = []
                 t_na = time.perf_counter()
-                for G, (pods, w_pod, w_node, w_type, w_rank) in winners.items():
-                    out = bucket_out[G][1]
-                    w_c = np.ascontiguousarray(out.best_c[w_type, w_rank], np.int32)
-                    w_m = np.ascontiguousarray(out.best_m[w_type, w_rank], np.int32)
+                for G, pods, w_pod, w_node, w_type, w_c, w_m in native_in:
                     buffers = fast.assign_round(
                         pods, w_node, w_type, w_c, w_m,
                         set_busy=self.respect_busy,
@@ -777,33 +1042,58 @@ class BatchScheduler:
                 # a winner leaves pending when its assignment succeeded OR
                 # it was the first claim its node processed (ran against
                 # fresh feasibility: final); later same-node failures are
-                # stale contention and retry next round
+                # stale contention and retry next round. In the
+                # speculative round NO failure is final: its claims were
+                # solved against projected state, not a fresh snapshot
                 removed: List[np.ndarray] = []
                 first_masks: List[np.ndarray] = []
                 seen_first: set = set()
+                round_rejects = 0
                 for G, pods, w_pod, w_node, w_type, buffers, w_c, w_m in (
                     native_out
                 ):
                     ok = buffers[0] >= 0
+                    round_rejects += int((~ok).sum())
                     if round_no < 8:
                         stats.count_add(f"claims_r{round_no}", len(w_pod))
                         stats.count_add(
                             f"rejects_r{round_no}", int((~ok).sum())
                         )
                     first = np.zeros(len(w_pod), bool)
-                    uniq, fi = np.unique(w_node, return_index=True)
-                    fresh = [
-                        i for u, i in zip(uniq.tolist(), fi.tolist())
-                        if u not in seen_first
-                    ]
-                    first[fresh] = True
-                    seen_first.update(uniq.tolist())
+                    if not spec_round:
+                        uniq, fi = np.unique(w_node, return_index=True)
+                        fresh = [
+                            i for u, i in zip(uniq.tolist(), fi.tolist())
+                            if u not in seen_first
+                        ]
+                        first[fresh] = True
+                        seen_first.update(uniq.tolist())
                     first_masks.append(first)
                     removed.append(w_pod[ok | first])
                 if removed:
                     pending = pending[
                         ~np.isin(pending, np.concatenate(removed))
                     ]
+
+                # saturation certificate: the megaround exited before its
+                # iteration cap with need left, i.e. its last solve found
+                # no eligible (type, node) pair against the projected
+                # state. With zero native rejects, no PCI type with need
+                # and uniform NIC caps with sharing off, the projection
+                # upper-bounds true state, so the leftovers are
+                # unschedulable without a classic confirmation round
+                if (
+                    spec_round
+                    and len(pending)
+                    and spec.certifiable
+                    and round_rejects == 0
+                    and spec_need_left > 0
+                    and spec_it < spec_iters()
+                ):
+                    stats.count_add(
+                        "certified_unschedulable", len(pending)
+                    )
+                    pending = pending[:0]
 
                 # launch round r+1's solves NOW: the materialization below
                 # runs under the next round's kernels. The launch seconds
@@ -832,7 +1122,7 @@ class BatchScheduler:
                         first = first_masks[bi]
                         w_pod_all = w_pod.tolist()
                         for w in np.nonzero(~ok)[0].tolist():
-                            if not first[w]:
+                            if spec_round or not first[w]:
                                 continue
                             pod_i, n = w_pod_all[w], w_node_l[w]
                             item = items[pod_i]
@@ -965,7 +1255,7 @@ class BatchScheduler:
                     try:
                         rec = fast.assign(n, mapping, item.request)
                     except FastAssignError as exc:
-                        if not is_first:
+                        if not is_first or spec_round:
                             continue  # stale same-node claim: retry
                         self.logger.error(
                             f"assignment failed for {item.key} on {node.name}: {exc}"
@@ -1007,7 +1297,7 @@ class BatchScheduler:
                 try:
                     nic_list = node.assign_physical_ids(mapping, top)
                 except AssignmentError as exc:
-                    if not is_first:
+                    if not is_first or spec_round:
                         continue  # stale same-node claim: retry
                     self.logger.error(
                         f"assignment failed for {item.key} on {node.name}: {exc}"

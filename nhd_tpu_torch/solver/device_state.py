@@ -58,12 +58,15 @@ def from_numpy(cluster_like, pods_like, device: DeviceLike = "cuda"
 class HostPull:
     """A rank tensor on its way to the host. On CUDA the copy goes into
     pinned memory without blocking and ``numpy()`` waits for its event
-    only; on the CPU the tensor already is host memory."""
+    only; on the CPU the tensor already is host memory. *into*: a pinned
+    host tensor of *t*'s shape and type to copy into, reused by a caller
+    that pulls the same tensor again and again."""
 
-    def __init__(self, t: Tensor):
+    def __init__(self, t: Tensor, into: Optional[Tensor] = None):
         self._event = None
         if t.device.type == "cuda":
-            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._host = (into if into is not None else
+                          torch.empty(t.shape, dtype=t.dtype, pin_memory=True))
             self._host.copy_(t, non_blocking=True)
             self._event = torch.cuda.Event()
             self._event.record(torch.cuda.current_stream(t.device))
@@ -188,6 +191,40 @@ class DeviceClusterState:
             ))
             self._pods[key] = hit
         return hit[1]
+
+    def megaround(self, bucket_pods: list, needs: list, respect_busy: bool):
+        """Run the speculative multi-round (solver/speculate.py) against
+        the resident tensors: up to spec_iters() claim rounds for every
+        bucket jointly, the claim kernels updating the mutable tensors in
+        place (the reference donated them to its jitted loop).
+
+        ``bucket_pods``: PodTypeArrays per bucket, in bucket-dict order;
+        ``needs``: per-bucket int32 [Tp] pending-pod counts. Returns the
+        device tensors (claims [iters, Np] packed int32 words, counts
+        [iters, Np], need_left [TT], iterations used as a scalar). If
+        anything raises, the mutable tensors are rebuilt from the host
+        mirror (source of truth) before the error propagates."""
+        from nhd_tpu_torch.solver.speculate import run_megaround, spec_iters
+
+        self._flush_staged()
+        shapes = tuple(
+            (pods.G, _pad_pow2(pods.n_types)) for pods in bucket_pods
+        )
+        JIT_STATS.record_use(
+            "megaround",
+            "B" + "_".join(f"G{g}T{t}" for g, t in shapes)
+            + f"_U{self.cluster.U}_K{self.cluster.K}_N{self.Np}",
+        )
+        try:
+            return run_megaround(
+                self._dev, bucket_pods,
+                [self.pod_tensors(pods) for pods in bucket_pods],
+                needs, self.cluster.U, self.cluster.K, spec_iters(),
+                respect_busy,
+            )
+        except BaseException:
+            self._rebuild_mutable()
+            raise
 
     def solve_ranked(self, pods, R: int) -> Tensor:
         """Flush staged rows, then solve + rank: the packed [9, Tp, R]

@@ -25,7 +25,7 @@ from __future__ import annotations
 import os
 from dataclasses import dataclass
 from functools import lru_cache
-from typing import List, NamedTuple, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -273,17 +273,18 @@ def plane_args(node: Sequence[Tensor], pod: PodTensors, nic_any: Tensor,
 
 
 def solve_planes(G: int, U: int, K: int, node: Sequence[Tensor],
-                 pod: PodTensors) -> Tensor:
+                 pod: PodTensors, out: Optional[Tensor] = None) -> Tensor:
     """The padded solve: [8, Tp, Np] int32 planes (kernels.PLANES order)
     from the 15 node tensors (``_ARG_ORDER``) and one bucket's pod
-    tensors — three kernel launches on CUDA tensors."""
+    tensors — three kernel launches on CUDA tensors. With *out*, the
+    planes are written there (the megaround's plane buffer)."""
     tb = pod.tables
     if (tb.G, tb.U, tb.K) != (G, U, K):
         raise ValueError(f"pod tensors were built for {(tb.G, tb.U, tb.K)}")
     valid, pci_ok = kernels.nic_node_masks(*mask_args(node, pod))
     args, kw = nic_args(node, pod, valid, pci_ok)
     nic = kernels.nic_any_first(*args, **kw)
-    return kernels.solve_planes(*plane_args(node, pod, *nic))
+    return kernels.solve_planes(*plane_args(node, pod, *nic), out=out)
 
 
 _P = {name: i for i, name in enumerate(kernels.PLANES)}

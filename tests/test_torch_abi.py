@@ -2,10 +2,10 @@
 
 No kernel is compiled here. These tests hold the table against the
 ``extern "C"`` entry point of every ``.cu`` source (parameter names, their
-order, pointer or int), drive each wrapper's CUDA branch with the launch
-stubbed out to see that it passes the right tensor for each parameter,
-and check that chip_smoke.py's bounds count only the real type and node
-rows of padded tensors.
+order, pointer or int, const or written), drive each wrapper's CUDA
+branch with the launch stubbed out to see that it passes the right
+tensor for each parameter, and check that chip_smoke.py's bounds count
+only the real type and node rows of padded tensors.
 """
 
 import importlib.util
@@ -13,11 +13,12 @@ import random
 import re
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from nhd_tpu_torch import kernels
-from nhd_tpu_torch.kernels import abi, build, reference
+from nhd_tpu_torch.kernels import abi, build, reference, sweep
 
 ROOT = Path(__file__).resolve().parent.parent
 KDIR = ROOT / "nhd_tpu_torch" / "kernels"
@@ -51,8 +52,9 @@ def test_abi_matches_the_cuda_entry_point(name):
     got = [(p, "ptr" if t.endswith("void*") else t) for t, p in params]
     assert got == want
     for (t, p), a in zip(params, spec.args):
-        # inputs are const, outputs are written
-        assert t.startswith("const") != a.out, (p, t)
+        # inputs are const; outputs and in-place tensors are written
+        assert t.startswith("const") != (a.out or a.inplace), (p, t)
+        assert not (a.out and a.inplace), p
     assert spec.args == spec.inputs + spec.outputs
 
 
@@ -88,7 +90,28 @@ def _stage(seed=3, n_nodes=24):
         "nic_any_first": (n_args, n_kw),
         "solve_planes": (kernel_mod.plane_args(node, pod, *nic), {}),
     }
+    staged.update(_claim_stage())
     return staged, {"T": pods.n_types, "N": cluster.n_nodes}
+
+
+def _claim_stage(shape=sweep.SPEC_SWEEP[1], case=None):
+    """The claim kernels' (args, keywords) on one sweep case (or on
+    *case*, a dict laid out as ``sweep.spec_case`` lays it out), spec_fill
+    and spec_apply fed the plain plan."""
+    case = sweep.spec_case(0, *shape) if case is None else case
+    t = {k: torch.from_numpy(v) for k, v in case.items() if isinstance(v, np.ndarray)}
+    kw = dict(sharing=case["sharing"], respect_busy=case["respect_busy"])
+    elect = tuple(t[k] for k in sweep.SPEC_ELECT_ARGS)
+    plan = reference.spec_elect(*(a.clone() for a in elect), **kw)
+    status = t["status"].clone()
+    filled = plan.clone()
+    reference.spec_fill(filled, status)
+    return {
+        "spec_elect": (elect, kw),
+        "spec_fill": ((plan, status), {}),
+        "spec_apply": ((filled, *(t[k] for k in sweep.SPEC_APPLY_ARGS)),
+                       dict(kw, it=case["it"])),
+    }
 
 
 @pytest.mark.parametrize("name", kernels.KERNELS)
@@ -104,21 +127,25 @@ def test_wrapper_passes_each_tensor_to_its_parameter(name, monkeypatch):
     monkeypatch.setattr(build, "launch", lambda n, *a: calls.append((n, a)))
     before = kernels.LAUNCHES[name]
     outs = getattr(kernels, name)(*args, **kw)
-    outs = outs if isinstance(outs, tuple) else (outs,)
+    # the claim kernels spec_fill and spec_apply write only in place
+    outs = () if outs is None else outs if isinstance(outs, tuple) else (outs,)
     assert kernels.LAUNCHES[name] == before + 1
     assert [n for n, _ in calls] == [name]
     spec = abi.ABI[name]
     sent = calls[0][1]
     n_ptr = len(spec.args)
     assert list(sent[:n_ptr]) == [t.data_ptr() for t in (*args, *outs)]
-    want = getattr(reference, name)(*args, **kw)
-    want = want if isinstance(want, tuple) else (want,)
+    want = getattr(reference, name)(*(a.clone() for a in args), **kw)
+    want = () if want is None else want if isinstance(want, tuple) else (want,)
     assert [(o.shape, o.dtype) for o in outs] == [(w.shape, w.dtype) for w in want]
     sizes = dict(zip(spec.sizes, sent[n_ptr:n_ptr + len(spec.sizes)]))
     for arg, t in zip(spec.args, (*args, *outs)):
         for sym, size in zip(arg.dims, t.shape):
             if sym in sizes:
                 assert sizes[sym] == size, (arg.name, sym)
+    for flag, key in (("SHARING", "sharing"), ("BUSY", "respect_busy"), ("it", "it")):
+        if flag in sizes:
+            assert sizes[flag] == int(kw[key])
 
 
 def test_wrapper_rejects_a_tensor_of_the_wrong_type(monkeypatch):
@@ -161,7 +188,7 @@ def test_kernel_variants_apply_to_the_sources(monkeypatch):
     assert "nhd_probe_read" in probe
 
 
-@pytest.mark.parametrize("name", kernels.KERNELS)
+@pytest.mark.parametrize("name", kernels.SOLVE_KERNELS)
 def test_bound_counts_real_rows_only(name):
     """chip_smoke.py's byte count equals the bytes of the tensors sliced
     to their real type and node rows, by hand; padding adds nothing."""
@@ -189,3 +216,95 @@ def test_bound_counts_real_rows_only(name):
     bound_ms, bound_by, moved, ops = smoke.bounds(name, args, outs, real)
     assert moved == want and ops > 0 and bound_ms > 0
     assert bound_by in ("bytes", "operations")
+
+
+@pytest.mark.parametrize("name", kernels.CLAIM_KERNELS)
+def test_claim_bound_counts_real_nodes_only(name):
+    """A claim kernel's byte and operation counts read only the real node
+    rows: the same call with every node-axis tensor cut to the real nodes
+    counts the same, and padded nodes that were elected add nothing."""
+    staged = _claim_stage(sweep.SPEC_SWEEP[3])
+    args, kw = staged[name]
+    spec = abi.ABI[name]
+    t = {a.name: x for a, x in zip(spec.inputs, args)}
+    if name == "spec_elect":
+        t["plan"] = reference.spec_elect(*(a.clone() for a in args), **kw)
+    N = t["plan"].shape[1] - 40
+    assert bool((t["plan"][0, N:] >= 0).any())  # padded nodes elected too
+    cut = {}
+    for a in spec.args:
+        x = t[a.name]
+        cut[a.name] = x.narrow(a.dims.index("N"), 0, N) if "N" in a.dims else x
+    smoke = _chip_smoke()
+    full = smoke.claim_bound(name, t, {"N": N}, kw)
+    assert smoke.claim_bound(name, cut, {"N": N}, kw) == full
+    bound_ms, bound_by, moved, ops = full
+    assert moved > 0 and ops > 0 and bound_ms > 0 and bound_by == "bytes"
+    assert smoke.claim_needs(name, t, {"N": N + 40}, kw)[0] > moved
+
+
+def _hand_case():
+    """Two nodes, one NUMA node of three NIC slots, two switches, NIC
+    sharing off; two type rows of one combo and one pick, the second with
+    no need. Both nodes elect type 0 (need 5, 2 cpus and one NIC a copy):
+    node 0 (pref 2, two free NICs) takes 2 copies, node 1 (pref 1, three
+    free NICs) takes 3; slot 0 of type 0 carries a PCI GPU."""
+    i32, f32 = np.int32, np.float32
+    planes = np.zeros((8, 2, 2), i32)
+    planes[1] = [[1, 1], [1, 0]]                       # cand
+    planes[2] = [[2, 1], [1, 0]]                       # pref
+    nic_free = np.full((2, 1, 3, 2), 10.0, f32)
+    nic_free[0, 0, 1] = -1.0                           # node 0: slot 1 absent
+    gpu_uk = np.zeros((2, 1, 3), f32)
+    gpu_uk[0, 0, 0] = 1.0
+    return dict(
+        planes=planes.ravel(), plane_off=np.array([[0, 4], [2, 4]], np.int64),
+        trow=np.array([[1, 1, 0, 0], [1, 1, 0, 0]], i32),
+        smt=np.ones(2, bool), cpu_free=np.full((2, 1), 8, i32),
+        gpu_free=np.zeros((2, 1), i32), hp_free=np.zeros(2, i32),
+        nic_free=nic_free, cpu_g=np.full((2, 2, 1, 1), 2.0, f32),
+        cpu_m=np.zeros((2, 2, 1, 1), f32), gpu_g=np.zeros((2, 1, 1), f32),
+        nic_occ=np.ones((2, 1, 1), f32), gpu_uk=gpu_uk,
+        nic_rx=np.zeros((2, 1, 3), f32), nic_tx=np.zeros((2, 1, 3), f32),
+        nic_sw=np.array([[[0, 1, 1]], [[1, 0, -1]]], i32),
+        busy=np.zeros(2, bool), gpu_free_sw=np.full((2, 2), 4, i32),
+        status=np.array([1, 5, 0], i32), claims=np.full((1, 2), -1, i32),
+        counts=np.zeros((1, 2), i32), it=0, sharing=False, respect_busy=False,
+    )
+
+
+# by hand, term by term as chip_smoke.claim_needs names them
+_HAND_BYTES = {
+    # status 12, plane_off of the live row 16, cand 2 x 4, pref where cand
+    # 2 x 4, c/m/a 2 x 12, trow 16; per elected node smt 1, cpu 4, gpu 4,
+    # hp 4, NIC rx 3 x 4; one cpu_g, cpu_m, gpu_g, nic_occ row 4 each;
+    # the plan written 7 x 2 x 4
+    "spec_elect": 12 + 16 + 8 + 8 + 24 + 16 + 2 * 25 + 16 + 56,
+    # elect 2 x 4; hi, cap read and count written 2 x 12; need of the
+    # one row with winners read and written 8; progress 4
+    "spec_fill": 8 + 24 + 8 + 4,
+    # elect and count rows 16; per claiming node c/m/a 12, smt 1, cpu,
+    # gpu, hp read and written 24, claim and count 8; trow 12; cpu_g,
+    # cpu_m, gpu_g rows 12, gpu_uk row 12, nic_occ row 4; NIC rx read
+    # 2 x 12 and five NICs taken 5 x 8; one PCI slot a node 2 x 4, its
+    # switch read and written 2 x 8
+    "spec_apply": 16 + 2 * 45 + 12 + 12 + 16 + 24 + 40 + 8 + 16,
+}
+_HAND_OPS = {"spec_elect": 2 + 4 + 18, "spec_fill": 2 + 6, "spec_apply": 14 + 2}
+
+
+@pytest.mark.parametrize("name", kernels.CLAIM_KERNELS)
+def test_claim_bound_hand_count(name):
+    """With NIC sharing off a claim kernel is charged only what this
+    iteration's data needs: the counts of a two-node case equal a count
+    by hand, and the fill and the apply took what the hand count says."""
+    staged = _claim_stage(case=_hand_case())
+    args, kw = staged[name]
+    t = {a.name: x for a, x in zip(abi.ABI[name].inputs, args)}
+    if name == "spec_elect":
+        t["plan"] = reference.spec_elect(*(a.clone() for a in args), **kw)
+    if name == "spec_apply":
+        assert t["plan"][6].tolist() == [2, 3]         # the copies each took
+    smoke = _chip_smoke()
+    assert smoke.claim_needs(name, t, {"N": 2}, kw) == (
+        _HAND_BYTES[name], _HAND_OPS[name])

@@ -6,8 +6,9 @@ package, so it also runs on a GPU machine without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Tolerance: exact equality — every output is a boolean verdict or an
-integer choice.
+Tolerance: exact equality — every output is a boolean verdict, an
+integer choice, or (the claim kernels' NIC headroom) a float32 value the
+kernel must round as the plain version does.
 """
 
 import random
@@ -158,11 +159,16 @@ def test_solve_kernels_match_plain(seed):
             assert torch.equal(gr[row][live], wr[row][live])
 
 
-def test_schedule_cuda_equals_cpu():
-    """One pipelined CUDA schedule places like the CPU plain path."""
+@pytest.mark.parametrize("speculate", ["0", "1"])
+def test_schedule_cuda_equals_cpu(speculate, monkeypatch):
+    """One pipelined CUDA schedule places like the CPU plain path, with
+    classic rounds and with the speculative round 0 (set on both sides:
+    the default differs between the card and the CPU)."""
     _need_cuda()
     from nhd_tpu_torch.sim.workloads import cap_cluster, workload_mix
     from nhd_tpu_torch.solver import BatchItem, BatchScheduler
+
+    monkeypatch.setenv("NHD_TPU_SPECULATE", speculate)
 
     reqs = workload_mix(300, ["default", "edge"])
     items = [BatchItem(("ns", f"p{i}"), r) for i, r in enumerate(reqs)]
@@ -175,3 +181,94 @@ def test_schedule_cuda_equals_cpu():
                     for r in res])
     assert out[0] == out[1]
     assert sum(1 for n, _ in out[0] if n) > 0
+
+
+@pytest.mark.parametrize("shape", sweep.NODE_SWEEP, ids=str)
+def test_nic_node_masks_sweep_matches_plain(shape):
+    """G from 1 to 6, C*A from 1 to 4096, U past the registers, U*K past
+    32 and past shared memory, ragged strips, switch ids -1 and out of
+    range, every NIC on one switch, negative switch entries."""
+    _need_cuda()
+    args = _cuda(sweep.node_case(sweep.NODE_SWEEP.index(shape), *shape))
+    before = kernels.LAUNCHES["nic_node_masks"]
+    got = kernels.nic_node_masks(*args)
+    want = reference.nic_node_masks(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["nic_node_masks"] == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def _spec_pair(shape):
+    """The sweep case twice on the card: one set for the kernels, one for
+    the plain versions (the kernels write some inputs in place)."""
+    case = sweep.spec_case(sweep.SPEC_SWEEP.index(shape), *shape)
+    mk = lambda: {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()  # noqa: E731
+                  if isinstance(v, np.ndarray) else v for k, v in case.items()}
+    return mk(), mk()
+
+
+def _assert_same(a, b, names):
+    for k in names:
+        assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.parametrize("shape", sweep.SPEC_SWEEP, ids=str)
+def test_claim_kernels_sweep_match_plain(shape):
+    """spec_elect, spec_fill and spec_apply each against its plain version
+    on the same inputs (the later two fed the plain plan), every in-place
+    tensor compared after the call."""
+    _need_cuda()
+    k, p = _spec_pair(shape)
+    kw = dict(sharing=k["sharing"], respect_busy=k["respect_busy"])
+    launches = {n: kernels.LAUNCHES[n] for n in ("spec_elect", "spec_fill", "spec_apply")}
+    plan_k = kernels.spec_elect(*(k[n] for n in sweep.SPEC_ELECT_ARGS), **kw)
+    plan_p = reference.spec_elect(*(p[n] for n in sweep.SPEC_ELECT_ARGS), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(plan_k, plan_p)
+    _assert_same(k, p, ["status"])
+    plan_k = plan_p.clone()
+    kernels.spec_fill(plan_k, k["status"])
+    reference.spec_fill(plan_p, p["status"])
+    torch.cuda.synchronize()
+    assert torch.equal(plan_k, plan_p)
+    _assert_same(k, p, ["status"])
+    assert (plan_p[6] > 0).any()
+    kernels.spec_apply(plan_p, *(k[n] for n in sweep.SPEC_APPLY_ARGS), it=k["it"], **kw)
+    reference.spec_apply(plan_p, *(p[n] for n in sweep.SPEC_APPLY_ARGS), it=p["it"], **kw)
+    torch.cuda.synchronize()
+    _assert_same(k, p, sweep.SPEC_APPLY_ARGS)
+    for n, v in launches.items():
+        assert kernels.LAUNCHES[n] == v + 1
+
+
+@pytest.mark.parametrize("sharing", [False, True])
+@pytest.mark.parametrize("respect_busy", [False, True])
+def test_megaround_cuda_equals_cpu(sharing, respect_busy, monkeypatch):
+    """The whole megaround, kernels on the card against the plain versions
+    on the CPU, from the same encoded state: claims, counts, need left,
+    iterations and the projected node state."""
+    _need_cuda()
+    import nhd_tpu_torch.core.node as node_mod
+    from nhd_tpu_torch.sim.workloads import cap_cluster, workload_mix
+    from nhd_tpu_torch.solver.device_state import DeviceClusterState
+    from nhd_tpu_torch.solver.encode import encode_cluster, encode_pods
+    from nhd_tpu_torch.solver.kernel import _MUTABLE, _pad_pow2
+
+    monkeypatch.setattr(node_mod, "ENABLE_NIC_SHARING", sharing)
+    monkeypatch.setenv("NHD_TPU_SPEC_ITERS", "8")
+    groups = ["default", "edge", "batch"]
+    cluster = encode_cluster(cap_cluster(40, groups), now=0.0)
+    buckets = list(encode_pods(workload_mix(400, groups), cluster.interner).values())
+    needs = [np.bincount(p.pod_type, minlength=_pad_pow2(p.n_types)).astype(np.int32)
+             for p in buckets]
+    out = []
+    for dev in ("cuda", "cpu"):
+        state = DeviceClusterState(cluster, dev)
+        res = state.megaround(buckets, needs, respect_busy)
+        out.append(([t.cpu() for t in res],
+                    [state._dev[n].cpu() for n in _MUTABLE]))
+    (got, got_state), (want, want_state) = out
+    for g, w in zip(got + got_state, want + want_state):
+        assert torch.equal(g, w)
+    assert int(want[3]) > 1 and (want[1] > 0).any()

@@ -1,7 +1,7 @@
 """The kernel sweep's cases (nhd_tpu_torch/kernels/sweep.py) on the CPU.
 
-The card holds nic_any_first and solve_planes against their plain versions
-on these cases (chip_smoke.py, tests/test_torch_cuda.py); here each case is
+The card holds nic_node_masks, nic_any_first, solve_planes and the claim
+kernels against their plain versions on these cases (chip_smoke.py, tests/test_torch_cuda.py); here each case is
 checked to be what the sweep's notes claim, and the plain versions are run
 on it, so a case that cannot reach a kernel's edge fails before any card
 time is spent.
@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from nhd_tpu_torch.kernels import PLANES, reference, sweep
+from nhd_tpu_torch import kernels
+from nhd_tpu_torch.kernels import PLAN, PLANES, reference, sweep
 
 
 def _t(arrays):
@@ -82,3 +83,102 @@ def test_plane_case_runs_the_plain_version(shape):
         assert not cand.any()
     else:
         assert cand.any()
+
+
+def test_node_sweep_covers_the_edges():
+    shapes = sweep.NODE_SWEEP
+    assert {1, 2, 3, 4} <= {s[4] for s in shapes} and max(s[4] for s in shapes) > 4
+    cas = {s[5] * s[6] for s in shapes}
+    assert 1 in cas and 4096 in cas and any(ca % 4 and ca % 32 for ca in cas)
+    assert max(s[1] for s in shapes) > 4                 # U past the registers
+    assert max(s[1] * s[2] for s in shapes) * 4 > 48 * 1024  # unstaged row
+    assert any(32 < s[1] * s[2] < 1000 for s in shapes)
+    assert {"oob", "onesw", "neg"} <= {s[7] for s in shapes}
+    # odd node counts: no strip of an even node count divides them
+    assert all(s[0] % 2 for s in shapes)
+
+
+@pytest.mark.parametrize("shape", sweep.NODE_SWEEP, ids=str)
+def test_node_case_runs_the_plain_version(shape):
+    N, U, K, S, G, C, A, fill = shape
+    args = sweep.node_case(sweep.NODE_SWEEP.index(shape), *shape)
+    nic_count, nic_sw, gpu_free_sw, combo, pick, need_max = args
+    assert nic_sw.shape == (N, U, K) and combo.shape == (C, G) and pick.shape == (A, G)
+    assert (nic_sw == -1).any()
+    valid, pci_ok = reference.nic_node_masks(*_t(args))
+    assert valid.shape == pci_ok.shape == (N, C * A)
+    assert pci_ok.any() and not pci_ok.all()
+    # a node with a negative switch entry fails every pick
+    neg = torch.from_numpy((gpu_free_sw < 0).any(1))
+    assert neg.any() and not pci_ok[neg].any()
+    if fill == "oob":
+        assert ((nic_sw >= S) | (nic_sw < -S)).any()
+    if fill == "onesw":
+        assert len(np.unique(nic_sw[nic_sw >= 0])) == 1
+    # the plain version's verdict at one element, by hand
+    rng = np.random.default_rng(0)
+    for n, ca in zip(rng.integers(0, N, 20), rng.integers(0, C * A, 20)):
+        c, a = divmod(int(ca), A)
+        assert bool(valid[n, ca]) == bool((need_max[c, a] <= nic_count[n]).all())
+        sw = [int(nic_sw[n, combo[c, g], pick[a, g]]) for g in range(G)]
+        ok = bool((gpu_free_sw[n] >= 0).all())
+        for s_g in sw:
+            idx = s_g + S if s_g < 0 else s_g
+            ok = ok and 0 <= idx < S and sw.count(s_g) <= gpu_free_sw[n, idx]
+        assert bool(pci_ok[n, ca]) == ok
+
+
+def spec_tensors(case):
+    """sweep.spec_case's arrays as CPU tensors (plain ints kept)."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) if isinstance(v, np.ndarray)
+            else v for k, v in case.items()}
+
+
+def test_spec_sweep_covers_the_edges():
+    shapes = sweep.SPEC_SWEEP
+    assert any(len(s[4]) == 1 for s in shapes) and any(len(s[4]) > 2 for s in shapes)
+    # buckets of different C and C*A: the tables' padded axes
+    assert any(len({b[1] for b in s[4]}) > 1 and len({b[1] * b[2] for b in s[4]}) > 1
+               for s in shapes)
+    assert any(s[0] < 256 for s in shapes) and any(s[0] > 512 for s in shapes)
+    assert {(a, b) for *_, a, b in shapes} == {(False, False), (True, False),
+                                               (False, True), (True, True)}
+
+
+@pytest.mark.parametrize("shape", sweep.SPEC_SWEEP, ids=str)
+def test_spec_case_runs_the_plain_versions(shape):
+    """elect, fill and apply in a row on one case: each elected node's
+    type has need and its cand, each type takes at most its need, the
+    need falls by the takes, and row ``it`` of the claims records exactly
+    the nodes that took copies."""
+    N = shape[0]
+    t = spec_tensors(sweep.spec_case(sweep.SPEC_SWEEP.index(shape), *shape))
+    need0 = t["status"][1:].clone()
+    kw = dict(sharing=t["sharing"], respect_busy=t["respect_busy"])
+    plan = kernels.spec_elect(*(t[k] for k in sweep.SPEC_ELECT_ARGS), **kw)
+    assert plan.shape == (len(PLAN), N) and plan.dtype == torch.int32
+    assert int(t["status"][0]) == 0
+    elect = plan[0]
+    has = elect >= 0
+    assert has.any() and not has.all()
+    assert bool((need0[elect[has].long()] > 0).all())
+    kernels.spec_fill(plan, t["status"])
+    take = plan[6]
+    assert take[~has].eq(0).all() and take.ge(0).all()
+    per_type = torch.zeros_like(need0).index_add_(0, elect[has].long(), take[has])
+    assert bool((per_type <= need0).all())
+    assert torch.equal(t["status"][1:], need0 - per_type)
+    assert int(t["status"][0]) == int(per_type.sum() > 0)
+    before = t["cpu_free"].clone()
+    kernels.spec_apply(plan, *(t[k] for k in sweep.SPEC_APPLY_ARGS),
+                       it=t["it"], **kw)
+    took = has & (take > 0)
+    assert took.any()
+    row = t["claims"][t["it"]]
+    assert row[~took].eq(-1).all()
+    tt = elect[took].long()
+    A_t, U = t["trow"][tt, 0], t["cpu_free"].shape[1]
+    word = tt * (1 << 21) + (plan[3][took] * U + plan[4][took]) * A_t + plan[5][took]
+    assert torch.equal(row[took], word.to(torch.int32))
+    assert torch.equal(t["counts"][t["it"]], torch.where(took, take, 0))
+    assert torch.equal(t["cpu_free"][~took], before[~took])
