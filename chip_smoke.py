@@ -626,7 +626,7 @@ def sweep_check(torch, dev, report):
         reference.spec_fill(plan, status.clone())
         calls.append(("spec_apply", {"plan": plan, **{k: t[k] for k in sweep.SPEC_APPLY_ARGS}},
                       dict(kw, it=case["it"])))
-        check_claims(torch, f"sweep (N, U, K, S, buckets, sharing, busy)={shape}",
+        check_claims(torch, f"sweep (N, U, K, S, buckets, sharing, busy, fill)={shape}",
                      calls, report, {"N": shape[0]}, timed=False)
     report["sweep"] = {
         "nic_node_masks": [list(s) for s in sweep.NODE_SWEEP],
@@ -645,8 +645,10 @@ def sweep_check(torch, dev, report):
         f"{sorted({s[4] for s in sweep.PLANE_SWEEP})}, tied skew, no feasible combo); "
         f"spec_elect, spec_fill, spec_apply exact on {len(sweep.SPEC_SWEEP)} shapes "
         "(1-3 buckets, N in "
-        f"{sorted({s[0] for s in sweep.SPEC_SWEEP})}, both NIC-sharing branches, "
-        "both busy rules)")
+        f"{sorted({s[0] for s in sweep.SPEC_SWEEP})}, type rows in "
+        f"{sorted({sum(b[0] for b in s[4]) for s in sweep.SPEC_SWEEP})}, U*K in "
+        f"{sorted({s[1] * s[2] for s in sweep.SPEC_SWEEP})}, both NIC-sharing branches, "
+        f"both busy rules, fills {sorted({s[7] for s in sweep.SPEC_SWEEP})})")
 
 
 def oracle_check(dev):

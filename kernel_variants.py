@@ -9,9 +9,12 @@ immediate return, which times the launch of the same grid and nothing
 else (the floor under every time chip_smoke.py reports). Each variant is
 built with build.py's nvcc flags, checked against the kernel's plain
 version (empty bodies excepted) and timed with chip_smoke.py's
-CUDA-event median at the main path's solve buckets (cfg4 and cfg3, G=1
-and G=2) and the wide bucket, in four passes that alternate the order of
-the variants. With ``--probe``, nic_any_first is also built with a
+CUDA-event median in four passes that alternate the order of the
+variants: the solve kernels at the main path's solve buckets (cfg4 and
+cfg3, G=1 and G=2) and the wide bucket, the claim kernels spec_elect and
+spec_apply on ``sweep.spec_case`` inputs at cfg4's and cfg3's megaround
+shapes (``CLAIM_CELLS``; spec_apply's in-place tensors restored before
+every launch). With ``--probe``, nic_any_first is also built with a
 %globaltimer stamp at each phase of each block (entry, headroom staged,
 nodes done, outputs written) and the per-phase means are printed.
 
@@ -33,7 +36,26 @@ EMPTY = {
                       "    if (T > 0) return;\n    const int NB = nodes_per_block;\n"),
     "solve_planes": ("    const int t = blockIdx.y;\n    const int sub",
                      "    if (T > 0) return;\n    const int t = blockIdx.y;\n    const int sub"),
+    "spec_elect": ("    if (blockIdx.x == 0 && threadIdx.x == 0) status[0] = 0;\n",
+                   "    if (N > 0) return;\n"),
+    "spec_apply": ("    extern __shared__ float s_delta_all[];",
+                   "    if (N > 0) return;\n    extern __shared__ float s_delta_all[];"),
 }
+WARPS8 = "constexpr int WARPS = 8;"
+#: the claim kernels' offsets in 32-bit or 64-bit arithmetic
+IDX32 = "using Idx = int;"
+IDX64 = "using Idx = long long;"
+#: spec_elect's argmax as two warp reductions, and as a shuffle butterfly
+SPEC_REDUX = """    const int top = __reduce_max_sync(FULL, best_key);
+    const int t = __reduce_min_sync(FULL, best_key == top ? best_t : INT32_MAX);
+"""
+SPEC_SHUFFLE = """    for (int o = 16; o > 0; o >>= 1) {
+        const int ok = __shfl_xor_sync(FULL, best_key, o);
+        const int ot = __shfl_xor_sync(FULL, best_t, o);
+        if (ok > best_key || (ok == best_key && ot < best_t)) { best_key = ok; best_t = ot; }
+    }
+    const int t = best_t;
+"""
 NIC_TARGET = "const long long want = ((long long)C * A <= 32 ? 1LL : 2LL) * sm_count(device);"
 PLANES_TARGET = "const long long want = 2LL * sm_count(device);"
 #: (kernel, variant) -> (text in the committed source, its replacement)
@@ -52,7 +74,26 @@ VARIANTS = {
     ("solve_planes", "empty"): EMPTY["solve_planes"],
     ("solve_planes", "4perSM"): (PLANES_TARGET,
                                  "const long long want = 4LL * sm_count(device);"),
+    ("spec_elect", "committed"): None,
+    ("spec_elect", "empty"): EMPTY["spec_elect"],
+    ("spec_elect", "warps8"): ("constexpr int WARPS = 4;", WARPS8),
+    ("spec_elect", "shuffle"): (SPEC_REDUX, SPEC_SHUFFLE),
+    ("spec_elect", "idx32"): (IDX64, IDX32),
+    ("spec_apply", "committed"): None,
+    ("spec_apply", "empty"): EMPTY["spec_apply"],
+    ("spec_apply", "warps4"): (WARPS8, "constexpr int WARPS = 4;"),
+    ("spec_apply", "idx64"): (IDX32, IDX64),
 }
+SOLVE = ("nic_node_masks", "nic_any_first", "solve_planes")
+CLAIM = ("spec_elect", "spec_apply")
+#: the claim kernels' inputs: (label, sweep.spec_case arguments) at the
+#: megaround shapes of cfg4 (cap_cluster: U=2, K=7, 14 switches; buckets
+#: G=1 with C=2, A=7 and G=2 with C=4, A=49, 8 padded rows each) and cfg3
+#: (bench_cluster: K=2, 4 switches; C*A of 4 and 16), 1024 node rows
+CLAIM_CELLS = (
+    ("cfg4 claims", (1024, 2, 7, 14, ((8, 2, 7), (8, 4, 49)), False, False)),
+    ("cfg3 claims", (1024, 2, 2, 4, ((8, 2, 2), (8, 4, 4)), False, False)),
+)
 PROBE_SLOTS = ("entry", "staged", "nodes", "written")
 #: the probe's stamps: (text after which a stamp goes, its slot)
 PROBE_AT = (
@@ -161,6 +202,37 @@ def caller(torch, fn, kernel, args, kw):
     return call
 
 
+def claim_inputs(torch, dev):
+    """[(label, {kernel: (args, kw, written)})] of the claim kernels at
+    ``CLAIM_CELLS``: spec_elect on the case, spec_apply on the plan the
+    plain versions elect and fill from it; *written* names the argument
+    positions a launch writes in place."""
+    import numpy as np
+
+    from nhd_tpu_torch.kernels import reference, sweep
+    from nhd_tpu_torch.kernels.abi import ABI
+
+    out = []
+    for seed, (label, shape) in enumerate(CLAIM_CELLS):
+        case = sweep.spec_case(seed, *shape)
+        t = {k: torch.from_numpy(np.array(v, copy=True)).to(dev)
+             for k, v in case.items() if isinstance(v, np.ndarray)}
+        kw = dict(sharing=case["sharing"], respect_busy=case["respect_busy"])
+        elect = tuple(t[k] for k in sweep.SPEC_ELECT_ARGS)
+        plan = reference.spec_elect(*(a.clone() for a in elect), **kw)
+        reference.spec_fill(plan, t["status"].clone())
+        staged = {
+            "spec_elect": (elect, kw),
+            "spec_apply": ((plan, *(t[k] for k in sweep.SPEC_APPLY_ARGS)),
+                           dict(kw, it=case["it"])),
+        }
+        out.append((label, {
+            k: (args, kw, [i for i, a in enumerate(ABI[k].inputs) if a.inplace])
+            for k, (args, kw) in staged.items()
+        }))
+    return out
+
+
 def buckets(torch, cs, dev):
     """[(label, staged kernel inputs)] at the main path's buckets and the wide one."""
     from nhd_tpu_torch.kernels import reference
@@ -224,28 +296,48 @@ def main():
     libs = build_all(sources, os.path.join("chiprun_out", "variants"))
     dev = torch.device("cuda", 0)
     report = {"device": cs.smi_line(), "times_ms": {}, "probe": {}}
+
+    def time_variants(label, kernel, args, kw, written=()):
+        """Check and time every variant of *kernel* on *args*; the
+        positions in *written* are restored before each launch and
+        compared after one."""
+        saved = [args[i].clone() for i in written]
+
+        def prep():
+            for i, v in zip(written, saved):
+                args[i].copy_(v)
+
+        work = [a.clone() for a in args]
+        want = getattr(reference, kernel)(*work, **kw)
+        want = want if isinstance(want, tuple) else () if want is None else (want,)
+        want = (*want, *(work[i] for i in written))
+        keys = [k for k in sources if k[0] == kernel]
+        calls = {k: caller(torch, entry(libs[k], kernel), kernel, args, kw)
+                 for k in keys}
+        for k, call in calls.items():
+            prep()
+            got = (*call(), *(args[i] for i in written))
+            torch.cuda.synchronize()
+            if k[1] != "empty" and not all(
+                    torch.equal(g, w) for g, w in zip(got, want, strict=True)):
+                raise SystemExit(f"{k} disagrees with the plain version at {label}")
+        times = {k: [] for k in keys}
+        for order in (keys, keys[::-1], keys, keys[::-1]):
+            for k in order:
+                times[k].append(cs.cuda_time_ms(torch, calls[k],
+                                                prep=prep if written else None))
+        for k in keys:
+            print(f"{label:11s} {kernel:14s} {k[1]:10s} "
+                  + " ".join(f"{x:.4f}" for x in times[k]), flush=True)
+            report["times_ms"][f"{label}|{kernel}|{k[1]}"] = times[k]
+        return calls
+
+    for label, staged in claim_inputs(torch, dev):
+        for kernel in CLAIM:
+            time_variants(label, kernel, *staged[kernel])
     for label, staged in buckets(torch, cs, dev):
-        for kernel in ("nic_node_masks", "nic_any_first", "solve_planes"):
-            args, kw = staged[kernel]
-            want = getattr(reference, kernel)(*args, **kw)
-            want = want if isinstance(want, tuple) else (want,)
-            keys = [k for k in sources if k[0] == kernel]
-            calls = {k: caller(torch, entry(libs[k], kernel), kernel, args, kw)
-                     for k in keys}
-            for k, call in calls.items():
-                got = call()
-                torch.cuda.synchronize()
-                if k[1] != "empty" and not all(
-                        torch.equal(g, w) for g, w in zip(got, want)):
-                    raise SystemExit(f"{k} disagrees with the plain version at {label}")
-            times = {k: [] for k in keys}
-            for order in (keys, keys[::-1], keys, keys[::-1]):
-                for k in order:
-                    times[k].append(cs.cuda_time_ms(torch, calls[k]))
-            for k in keys:
-                print(f"{label:9s} {kernel:14s} {k[1]:10s} "
-                      + " ".join(f"{x:.4f}" for x in times[k]), flush=True)
-                report["times_ms"][f"{label}|{kernel}|{k[1]}"] = times[k]
+        for kernel in SOLVE:
+            calls = time_variants(label, kernel, *staged[kernel])
             if probe and kernel == "nic_any_first":
                 key = ("nic_any_first", "probe")
                 phases = probe_phases(np, libs[key], calls[key], torch)

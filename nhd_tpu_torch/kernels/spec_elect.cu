@@ -16,27 +16,64 @@
 // The cand/pref/best_c/best_m/best_a planes are the solve's, read from the
 // flat buffer the bucket solves wrote (plane_off gives each type row's base
 // and plane stride). Output: the plan [7, N] (elect or -1, hi = pref 2,
-// cap, c, m, a, count = 0 for spec_fill to fill); status[0], the progress
-// flag, is cleared for spec_fill.
+// cap, c, m, a, count = 0 for spec_fill to fill); a node with no eligible
+// row writes -1 and zeros. status[0], the progress flag, is cleared for
+// spec_fill.
 //
-// Bound: bytes, and at the main path's sizes the launch. One thread per
-// node reads its 2 plane words per type row (coalesced across the warp),
-// then a few hundred bytes of table rows at its elected type. Division is
-// IEEE (no fast math in the build): the floor of a quotient must match
-// XLA's bit for bit.
+// Bound: bytes, and at the main path's sizes the launch and a chain of
+// dependent loads. The design keeps that chain short and spreads it over
+// the card:
+//   * a warp owns one node (WARPS nodes a block: 256 blocks at 1024 nodes),
+//     so the election runs on every SM, not on 8 of them. Four warps a
+//     block timed 0.0001-0.0003 ms under eight at cfg4's and cfg3's shapes
+//     on an H100 (kernel_variants.py, variant warps8);
+//   * lanes go across the type rows (a lane takes t = lane, lane + 32, ...)
+//     and read the per-type inputs (need, plane_off, trow) straight from
+//     global memory, where every warp of an SM finds them in L1. Staging
+//     them in shared memory first cost a block barrier: 0.0088 against
+//     0.0082 ms on an H100 at cfg4's and cfg3's shapes (kernel_variants.py);
+//   * each lane issues its cand, pref, best_c, best_m and best_a loads
+//     together, with no branch in front of them, and keeps the (key, t, c,
+//     m, a) of its first largest key; two warp reductions then give the
+//     largest key and, among the lanes holding it, the lowest t, which is
+//     the first maximum of jnp.argmax over the whole column, -1 keys
+//     included;
+//   * at the elected row, lanes go across u for the cpu, gpu and NIC-count
+//     terms. The free NICs of NUMA node u are counted by a ballot over the
+//     node's U*K rx headroom words, 32 slots a step, and a popcount of the
+//     lanes of u's segment. The per-u capacities meet in a min reduction,
+//     which does not depend on the order (no term is NaN);
+//   * index math is 64-bit (Idx): 32-bit offsets timed no faster at
+//     cfg4's and cfg3's shapes (variant idx32), so no size limit is needed.
+// Division is IEEE (no fast math in the build): the floor of a quotient
+// must match XLA's bit for bit. The key is computed in unsigned arithmetic,
+// so a pref large enough to wrap wraps as int32 tensors do.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 128;
+constexpr int WARPS = 4;                 // nodes (warps) a block
+constexpr int THREADS = 32 * WARPS;
+constexpr unsigned FULL = 0xffffffffu;
 constexpr float INF_CAP = 1048576.0f;  // 2^20
 constexpr int FLAG_NEEDS_GPU = 1, FLAG_MAP_PCI = 2, FLAG_HAS_NIC = 4;
+using Idx = long long;  // offsets into the node rows and the tables
 
 __device__ __forceinline__ float div_cap(float free_v, float dem)
 {
     return dem > 0.0f ? floorf(__fdiv_rn(free_v, fmaxf(dem, 1e-6f))) : INF_CAP;
+}
+
+// lanes [lo, hi) of a warp, clipped to [0, 32)
+__device__ __forceinline__ unsigned lane_range(int lo, int hi)
+{
+    lo = max(lo, 0);
+    hi = min(hi, 32);
+    if (lo >= hi) return 0u;
+    const unsigned below_hi = hi == 32 ? FULL : (1u << hi) - 1u;
+    return below_hi & ~((1u << lo) - 1u);
 }
 
 __global__ void __launch_bounds__(THREADS) spec_elect_kernel(
@@ -56,75 +93,103 @@ __global__ void __launch_bounds__(THREADS) spec_elect_kernel(
     int32_t* __restrict__ plan,               // [7, N]
     int TT, int N, int U, int K, int CM, int CAM, int sharing, int respect_busy)
 {
-    const int n = blockIdx.x * blockDim.x + threadIdx.x;
-    if (n == 0) status[0] = 0;
-    if (n >= N) return;
+    if (blockIdx.x == 0 && threadIdx.x == 0) status[0] = 0;
     const int32_t* need = status + 1;
+    const int lane = threadIdx.x & 31;
+    const int n = blockIdx.x * WARPS + (threadIdx.x >> 5);
+    if (n >= N) return;  // the whole warp
+    const bool smt_n = smt[n];
+    const int hp_n = hp_free[n];
 
-    int best_key = -1, elect = 0;
-    for (int t = 0; t < TT; ++t) {
+    // --- the election: lanes across type rows ---
+    int best_key = INT32_MIN, best_t = INT32_MAX, best_pref = 0;
+    int best_c = 0, best_m = 0, best_a = 0;
+    bool any_elig = false;
+    for (int t = lane; t < TT; t += 32) {
         const int nt = need[t];
-        if (nt <= 0) continue;
-        const long long base = plane_off[2 * t] + n;
-        const long long ps = plane_off[2 * t + 1];
-        if (planes[base + ps] == 0) continue;            // cand
-        const int key = planes[base + 2 * ps] * (1 << 24) + min(nt, 1 << 20);
-        if (key > best_key) { best_key = key; elect = t; }
+        const long long at = plane_off[2 * t] + n, ps = plane_off[2 * t + 1];
+        const int cand = planes[at + ps];
+        const int pref = planes[at + 2 * ps];
+        const int c = planes[at + 3 * ps];
+        const int m = planes[at + 4 * ps];
+        const int a = planes[at + 5 * ps];
+        const bool elig = cand != 0 && nt > 0;
+        const int key = elig
+            ? (int)((unsigned)pref * (1u << 24) + (unsigned)min(nt, 1 << 20)) : -1;
+        any_elig |= elig;
+        if (key > best_key) {  // strict: a lane's first maximum
+            best_key = key; best_t = t; best_pref = pref;
+            best_c = c; best_m = m; best_a = a;
+        }
     }
+    const int top = __reduce_max_sync(FULL, best_key);
+    const int t = __reduce_min_sync(FULL, best_key == top ? best_t : INT32_MAX);
+    // the lane that read row t holds its planes (its own first maximum)
+    const int owner = t & 31;
+    const int pref = __shfl_sync(FULL, best_pref, owner);
+    const int c = __shfl_sync(FULL, best_c, owner);
+    const int m = __shfl_sync(FULL, best_m, owner);
+    const int a = __shfl_sync(FULL, best_a, owner);
     int32_t* out = plan + n;
-    const size_t row = (size_t)N;
-    if (best_key < 0) {
-        out[0] = -1;
-        for (int r = 1; r < 7; ++r) out[r * row] = 0;
+    const Idx row = (Idx)N;
+    if (!__any_sync(FULL, any_elig)) {
+        if (lane < 7) out[lane * row] = lane == 0 ? -1 : 0;
         return;
     }
-    const int t = elect;
-    const long long base = plane_off[2 * t] + n;
-    const long long ps = plane_off[2 * t + 1];
-    const int pref = planes[base + 2 * ps];
-    const int c = planes[base + 3 * ps];
-    const int m = planes[base + 4 * ps];
-    const int a = planes[base + 5 * ps];
+
+    // --- the capacity at the elected (t, c, m, a): lanes across u ---
     const int A_t = trow[4 * t], C_t = trow[4 * t + 1];
     const int flags = trow[4 * t + 2], hp_t = trow[4 * t + 3];
     const int cb = min(max(c, 0), C_t - 1);
     const int mb = min(max(m, 0), U - 1);
     const int ab = min(max(a, 0), A_t - 1);
     const int ca = cb * A_t + ab;
-    const int s = smt[n] ? 0 : 1;
+    const int s = smt_n ? 0 : 1;
+    const int UK = U * K;
 
-    const float* g_row = cpu_g + (((size_t)s * TT + t) * CM + cb) * U;
-    const float* m_row = cpu_m + (((size_t)s * TT + t) * U + mb) * U;
-    const float* gg_row = gpu_g + ((size_t)t * CM + cb) * U;
-    const float* occ_row = nic_occ + ((size_t)t * CAM + ca) * U;
-    float cap_cpu = INF_CAP, cap_gpu = INF_CAP, cap_nic = INF_CAP;
-    for (int u = 0; u < U; ++u) {
-        const float dem = __fadd_rn(g_row[u], m_row[u]);
-        cap_cpu = fminf(cap_cpu, div_cap((float)cpu_free[(size_t)n * U + u], dem));
-        cap_gpu = fminf(cap_gpu, div_cap((float)gpu_free[(size_t)n * U + u], gg_row[u]));
+    const float* g_row = cpu_g + (((Idx)s * TT + t) * CM + cb) * U;
+    const float* m_row = cpu_m + (((Idx)s * TT + t) * U + mb) * U;
+    const float* gg_row = gpu_g + ((Idx)t * CM + cb) * U;
+    const float* occ_row = nic_occ + ((Idx)t * CAM + ca) * U;
+    const float* nf = nic_free + (Idx)n * UK * 2;
+    float cap = INF_CAP;
+    for (int u0 = 0; u0 < U; u0 += 32) {
+        const int u = u0 + lane;
+        int free_cnt = 0;
         if (!sharing) {
-            const float* nf = nic_free + ((size_t)n * U + u) * K * 2;
-            int free_cnt = 0;
-            for (int k = 0; k < K; ++k) free_cnt += nf[2 * k] > 0.0f;
-            cap_nic = fminf(cap_nic, div_cap((float)free_cnt, occ_row[u]));
+            // the slots of NUMA nodes u0 .. u0 + 31, 32 a step; lane u
+            // counts the free ones of its own segment [u*K, u*K + K)
+            const int hi = min(U, u0 + 32) * K;
+            for (int c0 = u0 * K; c0 < hi; c0 += 32) {
+                const int slot = c0 + lane;
+                const bool fr = slot < hi && nf[2 * slot] > 0.0f;
+                const unsigned bal = __ballot_sync(FULL, fr);
+                free_cnt += __popc(bal & lane_range(u * K - c0, u * K - c0 + K));
+            }
+        }
+        if (u < U) {
+            const Idx nu = (Idx)n * U + u;
+            const float dem = __fadd_rn(g_row[u], m_row[u]);
+            float cap_u = fminf(div_cap((float)cpu_free[nu], dem),
+                                div_cap((float)gpu_free[nu], gg_row[u]));
+            if (!sharing) cap_u = fminf(cap_u, div_cap((float)free_cnt, occ_row[u]));
+            cap = fminf(cap, cap_u);
         }
     }
-    float cap = fminf(cap_cpu, cap_gpu);
-    if (!sharing) cap = fminf(cap, cap_nic);
-    cap = fminf(cap, div_cap((float)hp_free[n], (float)hp_t));
+    for (int o = 16; o > 0; o >>= 1) cap = fminf(cap, __shfl_xor_sync(FULL, cap, o));
+    cap = fminf(cap, div_cap((float)hp_n, (float)hp_t));
     const bool one = (flags & FLAG_MAP_PCI)
         || (respect_busy && (flags & FLAG_NEEDS_GPU))
         || (sharing && (flags & FLAG_HAS_NIC));
     if (one) cap = fminf(cap, 1.0f);
     cap = fmaxf(cap, 0.0f);
 
-    out[0] = t;
-    out[row] = pref == 2 ? 1 : 0;
-    out[2 * row] = (int)cap;
-    out[3 * row] = c;
-    out[4 * row] = m;
-    out[5 * row] = a;
-    out[6 * row] = 0;
+    if (lane < 7) {
+        const int v = lane == 0 ? t : lane == 1 ? (pref == 2 ? 1 : 0)
+            : lane == 2 ? (int)cap : lane == 3 ? c : lane == 4 ? m
+            : lane == 5 ? a : 0;
+        out[lane * row] = v;
+    }
 }
 
 }  // namespace
@@ -141,7 +206,7 @@ extern "C" int nhd_spec_elect(
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if (N == 0) return 0;
-    const unsigned blocks = (unsigned)((N + THREADS - 1) / THREADS);
+    const unsigned blocks = (unsigned)((N + WARPS - 1) / WARPS);
     spec_elect_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
         (const int32_t*)planes, (const long long*)plane_off, (const int32_t*)trow,
         (const bool*)smt, (const int32_t*)cpu_free, (const int32_t*)gpu_free,

@@ -16,11 +16,19 @@ ids outside [-S, S) (the check fails), "onesw" puts every present NIC
 on one switch (share = G), "neg" makes gpu_free_sw entries negative often (the
 node fails every pick); every case has switch id -1 (the wrap to S-1).
 
-``SPEC_SWEEP`` rows are (N, U, K, S, buckets, sharing, respect_busy) of
-the claim kernels, ``buckets`` a tuple of (Tp, C, A): one and several
+``SPEC_SWEEP`` rows are (N, U, K, S, buckets, sharing, respect_busy, fill)
+of the claim kernels, ``buckets`` a tuple of (Tp, C, A): one and several
 buckets of different C and C*A (the tables' padded axes), node counts
 past one and several fill tiles of 256, both NIC-sharing branches and
-both busy rules.
+both busy rules, more than 32 global type rows (a lane of spec_elect takes
+a second row), U*K = 36 (a warp of spec_apply takes its slots in two
+steps, a NUMA node's segment straddling them) and 2000 switches (fewer
+warps a block of spec_apply, to fit their switch sums in 48 KB). ``fill`` "tie" gives every
+eligible row of a node the same key (the lowest row must win, across the
+32-row lane wrap too), "none" leaves every third node no candidate row
+(every eighth in the other fills but "rand"), "multi" asks for many copies of small demand on single-copy-free rows with
+half the NICs absent, so nodes take k > 1 copies and some take a copy whose
+NIC consumption exceeds their NUMA node's free NICs.
 
 ``NIC_SWEEP`` rows are (T, N, U, K, C, A, fill): picks per combo A across
 one and several 32-lane chunks (1, 7, 31, 32, 33, 49, 512), combos C from
@@ -75,11 +83,18 @@ NODE_SWEEP = (
 )
 
 SPEC_SWEEP = (
-    (77, 2, 3, 6, ((8, 2, 3),), False, False),
-    (1021, 2, 7, 14, ((4, 2, 7), (8, 4, 49)), False, False),
-    (1021, 2, 7, 14, ((4, 2, 7), (8, 4, 49)), True, False),
-    (300, 2, 2, 4, ((2, 2, 2), (4, 4, 4), (2, 8, 8)), False, True),
-    (513, 4, 3, 12, ((8, 4, 3), (4, 16, 9)), True, True),
+    (77, 2, 3, 6, ((8, 2, 3),), False, False, "rand"),
+    (1021, 2, 7, 14, ((4, 2, 7), (8, 4, 49)), False, False, "rand"),
+    (1021, 2, 7, 14, ((4, 2, 7), (8, 4, 49)), True, False, "rand"),
+    (300, 2, 2, 4, ((2, 2, 2), (4, 4, 4), (2, 8, 8)), False, True, "rand"),
+    (513, 4, 3, 12, ((8, 4, 3), (4, 16, 9)), True, True, "rand"),
+    (300, 2, 7, 14, ((16, 2, 7), (16, 4, 49), (8, 2, 2)), False, False, "none"),
+    (300, 2, 7, 14, ((32, 2, 7), (8, 4, 49)), False, True, "tie"),
+    (333, 2, 7, 14, ((8, 2, 7), (8, 4, 49)), False, False, "none"),
+    (333, 2, 3, 6, ((8, 2, 3), (4, 4, 9)), False, False, "multi"),
+    (257, 4, 9, 12, ((8, 2, 9), (4, 4, 81)), False, False, "multi"),
+    (257, 4, 9, 12, ((8, 2, 9),), True, True, "rand"),
+    (33, 2, 3, 2000, ((4, 2, 3),), False, False, "none"),
 )
 
 PLANE_SWEEP = (
@@ -197,7 +212,7 @@ def node_case(seed: int, N: int, U: int, K: int, S: int, G: int, C: int,
 
 
 def spec_case(seed: int, N: int, U: int, K: int, S: int, buckets, sharing: bool,
-              respect_busy: bool) -> Dict[str, object]:
+              respect_busy: bool, fill: str = "rand") -> Dict[str, object]:
     """One megaround iteration's inputs for the claim kernels, by argument
     name, laid out as solver/speculate.py lays them out: each bucket's
     [8, Tp, N] solve planes back to back in one flat buffer (cand, pref,
@@ -206,7 +221,8 @@ def spec_case(seed: int, N: int, U: int, K: int, S: int, buckets, sharing: bool,
     largest C and C*A, the node state on the request grid (integer cpu,
     gpu and hugepages; NIC headroom on a 0.5 Gbps grid, -1 where absent)
     and the status vector (progress, then every type row's need, some 0).
-    Also ``it`` and ``IT``, the iteration row and depth."""
+    Also ``it`` and ``IT``, the iteration row and depth. *fill* as the
+    ``SPEC_SWEEP`` notes say; "rand" draws nothing more."""
     rng = np.random.default_rng(seed)
     i32, f32 = np.int32, np.float32
     TT = sum(tp for tp, _, _ in buckets)
@@ -222,6 +238,11 @@ def spec_case(seed: int, N: int, U: int, K: int, S: int, buckets, sharing: bool,
         pl[3] = rng.integers(-1, c + 1, (tp, N))                  # best_c
         pl[4] = rng.integers(0, U + 1, (tp, N))                   # best_m
         pl[5] = rng.integers(0, a + 1, (tp, N))                   # best_a
+        if fill == "tie":  # one pref per node: a node's eligible keys tie
+            pl[1] = rng.random((tp, N)) < 0.7
+            pl[2] = np.where(pl[1] != 0, 1 + np.arange(N) % 2, 0)
+        if fill != "rand":  # nodes with no candidate row
+            pl[1:3, :, :: 3 if fill == "none" else 8] = 0
         planes.append(pl.ravel())
         plane_off[row:row + tp, 0] = base + np.arange(tp) * N
         plane_off[row:row + tp, 1] = tp * N
@@ -235,7 +256,7 @@ def spec_case(seed: int, N: int, U: int, K: int, S: int, buckets, sharing: bool,
     nic_free = (rng.integers(0, 200, (N, U, K, 2)) * 0.5).astype(f32)
     nic_free[rng.random((N, U, K)) < 0.2] = -1.0
     occ = rng.integers(0, 3, (TT, CAM, U)).astype(f32)
-    return dict(
+    case = dict(
         planes=np.concatenate(planes), plane_off=plane_off, trow=trow,
         smt=rng.random(N) < 0.7,
         cpu_free=rng.integers(-2, 40, (N, U)).astype(i32),
@@ -257,6 +278,19 @@ def spec_case(seed: int, N: int, U: int, K: int, S: int, buckets, sharing: bool,
         counts=np.zeros((4, N), i32),
         it=int(rng.integers(0, 4)), sharing=sharing, respect_busy=respect_busy,
     )
+    if fill == "tie":
+        case["status"][1:] = np.where(need > 0, 17, 0)
+    elif fill == "multi":
+        # no single-copy flag, small cpu demand, no gpu or hugepage demand:
+        # NICs bound the capacity, and half of them are absent
+        trow[:, 2:] = 0
+        case["status"][1:] = rng.integers(100, 400, TT)
+        case["cpu_free"] += 40
+        case["cpu_g"] = rng.integers(0, 2, (2, TT, CM, U)).astype(f32)
+        case["gpu_g"][:] = 0.0
+        nic_free[rng.random((N, U, K)) < 0.5] = -1.0
+        case["nic_occ"] = rng.integers(1, 3, (TT, CAM, U)).astype(f32)
+    return case
 
 
 #: argument names of the claim kernels, in their wrappers' order

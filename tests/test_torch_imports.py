@@ -1,7 +1,8 @@
-"""Import hygiene of the port: nhd_tpu_torch imports neither jax nor the
-reference package, statically (an AST walk over every module) and at run
-time (a fresh interpreter importing the round loop), and a CUDA request
-on a machine without CUDA raises instead of falling back."""
+"""Import hygiene of the port: nhd_tpu_torch and its scripts (chip_smoke.py,
+kernel_variants.py) import neither jax nor the reference package,
+statically (an AST walk over every module) and at run time (a fresh
+interpreter importing the round loop), and a CUDA request on a machine
+without CUDA raises instead of falling back."""
 
 import ast
 import subprocess
@@ -13,7 +14,10 @@ import torch
 
 from tests.conftest import subprocess_env
 
-PORT = Path(__file__).resolve().parent.parent / "nhd_tpu_torch"
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "nhd_tpu_torch"
+#: the port's scripts at the repository root
+SCRIPTS = ("chip_smoke.py", "kernel_variants.py")
 
 
 def _imported_roots(tree):
@@ -25,16 +29,27 @@ def _imported_roots(tree):
             yield node.module
 
 
+def _reference_imports(f):
+    return [f"{f.relative_to(ROOT)}: {mod}"
+            for mod in _imported_roots(ast.parse(f.read_text(), str(f)))
+            if mod.split(".")[0] in ("jax", "jaxlib", "nhd_tpu")]
+
+
 def test_no_jax_or_reference_imports_anywhere():
     files = sorted(PORT.rglob("*.py"))
     assert len(files) > 20
-    bad = []
-    for f in files:
-        for mod in _imported_roots(ast.parse(f.read_text(), str(f))):
-            root = mod.split(".")[0]
-            if root in ("jax", "jaxlib", "nhd_tpu"):
-                bad.append(f"{f.relative_to(PORT.parent)}: {mod}")
+    bad = [b for f in files for b in _reference_imports(f)]
     assert not bad, bad
+
+
+@pytest.mark.parametrize("script", SCRIPTS)
+def test_scripts_import_only_the_port(script):
+    """The scripts that drive the port on the card reach nhd_tpu_torch
+    (imported inside their functions) and nothing of jax or nhd_tpu."""
+    f = ROOT / script
+    mods = set(_imported_roots(ast.parse(f.read_text(), str(f))))
+    assert any(m.split(".")[0] == "nhd_tpu_torch" for m in mods)
+    assert not _reference_imports(f)
 
 
 def test_round_loop_imports_without_jax():

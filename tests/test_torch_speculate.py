@@ -78,6 +78,25 @@ def _mixed_caps(pkg):
     return nodes, _wl(pkg).workload_mix(120, ["default"]), 0.0, False
 
 
+def _wrap_ties(pkg):
+    """More than 32 global type rows, every need equal: 20 one-group types
+    (bucket rows 0-31) and 3 two-group ones (rows 32-35), 3 pods each, on
+    GPU nodes, so every candidate row of a node has the key 2^24 + 3 and
+    the lowest eligible row wins, across spec_elect's 32-row lane wrap."""
+    R, T = pkg.request, pkg.topology
+
+    def grp(proc):
+        return R.GroupRequest(proc=R.CpuRequest(proc, T.SmtMode.ON),
+                              misc=R.CpuRequest(0, T.SmtMode.ON), gpus=0,
+                              nic_rx_gbps=5.0, nic_tx_gbps=2.0)
+
+    types = [(grp(p),) for p in range(1, 21)] + [(grp(p), grp(2)) for p in (1, 2, 3)]
+    reqs = [R.PodRequest(groups=g, misc=R.CpuRequest(1, T.SmtMode.ON),
+                         hugepages_gb=1, map_mode=T.MapMode.NUMA)
+            for g in types for _ in range(3)]
+    return _wl(pkg).cap_cluster(6, G3[:1]), reqs, 0.0, False
+
+
 def _seeded(seed):
     def make(pkg):
         rq = random.Random(seed + 1000)
@@ -102,6 +121,7 @@ INSTANCES = {
     "certificate": lambda pkg: (_wl(pkg).bench_cluster(16, G3),
                                 _wl(pkg).workload_mix(300, G3), 0.0, False),
     "mixed_caps": _mixed_caps,
+    "wrap_ties": _wrap_ties,
     **{f"seed{s}": _seeded(s) for s in range(10)},
 }
 
@@ -163,7 +183,8 @@ def test_megaround_matches_reference_with_nic_sharing(name, monkeypatch):
     assert (want[1] > 0).any()
 
 
-@pytest.mark.parametrize("name", ["capacity", "pci_numa", "respect_busy", "seed3"])
+@pytest.mark.parametrize("name", ["capacity", "pci_numa", "respect_busy", "seed3",
+                                  "wrap_ties"])
 def test_claim_kernels_match_reference_iteration_by_iteration(name, monkeypatch):
     """Each claim kernel's plain version against the reference's loop
     body, one iteration at a time (the reference run with
@@ -222,6 +243,116 @@ def test_claim_kernels_match_reference_iteration_by_iteration(name, monkeypatch)
             break
         needs = [w_need[off[b]: off[b + 1]] for b in range(len(pods))]
     assert iterations >= 1
+
+
+def test_wrap_ties_instance_reaches_the_lane_wrap():
+    """The "wrap_ties" instance, which the two tests above hold to the
+    reference's megaround, reaches the election's edge: more than 32
+    global type rows, and at its first iteration nodes whose largest key
+    is held by a row below 32 and by one above; the lowest row wins."""
+    cluster, pods, needs, respect_busy = _encode("wrap_ties")
+    port = PtState(cluster, "cpu")
+    pts = [port.pod_tensors(p) for p in pods]
+    node = port._dev
+    tabs = pt_spec.spec_tables(pods, pts, cluster.U, cluster.K, port.Np,
+                               torch.device("cpu"))
+    for p, pt, view in zip(pods, pts, tabs.views):
+        solve_planes(p.G, cluster.U, cluster.K, [node[n] for n in _ARG_ORDER], pt,
+                     out=view)
+    need = torch.from_numpy(np.concatenate(needs).astype(np.int32))
+    assert need.shape[0] > 32
+    rows = tabs.plane_off[:, :1] + torch.arange(port.Np)[None, :]
+    cand = tabs.planes[rows + tabs.plane_off[:, 1:]] != 0
+    pref = tabs.planes[rows + 2 * tabs.plane_off[:, 1:]]
+    elig = cand & (need > 0)[:, None]
+    key = torch.where(elig, pref * (1 << 24) + need[:, None], -1)
+    top = key == key.max(0).values
+    wrap = elig.any(0) & top[:32].any(0) & top[32:].any(0)
+    assert int(wrap.sum()) >= cluster.n_nodes // 2
+    status = torch.cat([torch.ones(1, dtype=torch.int32), need])
+    plan = reference.spec_elect(
+        tabs.planes, tabs.plane_off, tabs.trow, node["smt"], node["cpu_free"],
+        node["gpu_free"], node["hp_free"], node["nic_free"], tabs.cpu_g,
+        tabs.cpu_m, tabs.gpu_g, tabs.nic_occ, status, sharing=False,
+        respect_busy=respect_busy)
+    first = top.int().argmax(0)
+    assert torch.equal(plan[0][wrap], first[wrap].int())
+
+
+def _sweep_tensors(case):
+    return {k: torch.from_numpy(np.array(v, copy=True)) if isinstance(v, np.ndarray)
+            else v for k, v in case.items()}
+
+
+@pytest.mark.parametrize("fill", ["tie", "multi"])
+def test_sweep_ties_and_consume_match_the_jax_step(fill):
+    """The claim kernels' edge cases on sweep inputs, plain versions
+    against a transcription, in jnp, of the reference's expressions
+    (not a call into the reference: a change there does not reach this
+    test): the election's key and jnp.argmax
+    (nhd_tpu/solver/speculate.py:303-311) where a node's eligible rows
+    tie, and the sharing-off NIC consumption (:496-501, with k * nic_occ
+    at the elected (c, a), :365-369) where nodes take several copies and
+    some consume more NICs than their NUMA node has free. The "wrap_ties"
+    instance holds the tie to the reference's megaround itself; the
+    consumption past the free NICs has no megaround instance, as the
+    solve elects only picks whose NICs are free and a copy past the
+    capacity is the fill's one copy at capacity 0."""
+    import jax.numpy as jnp
+
+    from nhd_tpu_torch.kernels import sweep
+
+    rows = [(i, s) for i, s in enumerate(sweep.SPEC_SWEEP) if s[7] == fill]
+    assert rows
+    for i, shape in rows:
+        N, U, K = shape[:3]
+        case = sweep.spec_case(i, *shape)
+        t = _sweep_tensors(case)
+        kw = dict(sharing=case["sharing"], respect_busy=case["respect_busy"])
+        plan = reference.spec_elect(*(t[k] for k in sweep.SPEC_ELECT_ARGS), **kw)
+
+        off = case["plane_off"]
+        at = off[:, :1] + np.arange(N)[None, :]
+        cand = case["planes"][at + off[:, 1:]] != 0
+        pref = case["planes"][at + 2 * off[:, 1:]]
+        need = jnp.asarray(case["status"][1:])
+        elig = jnp.asarray(cand) & (need > 0)[:, None]
+        key = jnp.where(elig, jnp.asarray(pref) * (1 << 24)
+                        + jnp.minimum(need, 1 << 20)[:, None], -1)
+        elect = np.asarray(jnp.argmax(key, axis=0))
+        has = np.asarray(elig.any(0))
+        assert np.array_equal(plan[0].numpy(), np.where(has, elect, -1)), shape
+        if fill == "tie":
+            key = np.asarray(key)
+            top = key == key.max(0)
+            tied = has & (top.sum(0) > 1)
+            assert tied.sum() > N // 4
+            # across the lane wrap: a tie between a row below 32 and one above
+            assert (tied & top[:32].any(0) & top[32:].any(0)).any()
+            continue
+
+        reference.spec_fill(plan, t["status"])
+        k = plan[6].numpy()
+        took = (plan[0].numpy() >= 0) & (k > 0)
+        e = np.maximum(plan[0].numpy(), 0)
+        trow = case["trow"]
+        cb = np.clip(plan[3].numpy(), 0, trow[e, 1] - 1)
+        ab = np.clip(plan[5].numpy(), 0, trow[e, 0] - 1)
+        occ = case["nic_occ"][e, cb * trow[e, 0] + ab]                   # [N, U]
+        nic_consume = jnp.asarray(np.where(took, k, 0).astype(np.float32))[:, None] * occ
+        nic_free = jnp.asarray(case["nic_free"])
+        unocc = nic_free[..., 0] > 0
+        used = unocc & (jnp.cumsum(unocc.astype(jnp.int32), axis=2)
+                        <= nic_consume[..., None])
+        want = np.asarray(jnp.where(used[..., None], 0.0, nic_free))
+        reference.spec_apply(plan, *(t[k] for k in sweep.SPEC_APPLY_ARGS),
+                             it=case["it"], **kw)
+        assert np.array_equal(t["nic_free"].numpy(), want), shape
+        free = np.asarray(unocc.sum(2))
+        assert (k[took] > 1).any()
+        assert (took[:, None] & (np.asarray(nic_consume) > free)).any()
+        assert (took[:, None] & (np.asarray(nic_consume) > 0)
+                & (np.asarray(nic_consume) < free)).any()
 
 
 def test_pack_roundtrip():

@@ -141,8 +141,19 @@ def test_spec_sweep_covers_the_edges():
     assert any(len({b[1] for b in s[4]}) > 1 and len({b[1] * b[2] for b in s[4]}) > 1
                for s in shapes)
     assert any(s[0] < 256 for s in shapes) and any(s[0] > 512 for s in shapes)
-    assert {(a, b) for *_, a, b in shapes} == {(False, False), (True, False),
-                                               (False, True), (True, True)}
+    assert {(s[5], s[6]) for s in shapes} == {(False, False), (True, False),
+                                              (False, True), (True, True)}
+    # a second type row per lane of spec_elect, ties across that wrap too
+    tt = {s: sum(b[0] for b in s[4]) for s in shapes}
+    assert any(tt[s] > 32 and len(s[4]) > 1 and s[7] != "tie" for s in shapes)
+    assert any(tt[s] > 32 and s[7] == "tie" for s in shapes)
+    # a second 32-slot step per warp of spec_apply, a NUMA segment across it
+    wide = [s for s in shapes if s[1] * s[2] > 32]
+    assert any(s[7] == "multi" for s in wide) and any(s[5] and s[6] for s in wide)
+    assert any(32 % s[2] for s in wide)
+    assert {"rand", "tie", "none", "multi"} == {s[7] for s in shapes}
+    # spec_apply's launcher limit: 8 warps of S float sums past 48 KB
+    assert any(8 * s[3] * 4 > 48 * 1024 for s in shapes)
 
 
 @pytest.mark.parametrize("shape", sweep.SPEC_SWEEP, ids=str)
@@ -182,3 +193,73 @@ def test_spec_case_runs_the_plain_versions(shape):
     assert torch.equal(row[took], word.to(torch.int32))
     assert torch.equal(t["counts"][t["it"]], torch.where(took, take, 0))
     assert torch.equal(t["cpu_free"][~took], before[~took])
+    fill = shape[7]
+    if fill == "none":
+        assert bool((elect[::3] == -1).all()) and bool((plan[1:, ::3] == 0).all())
+    if fill == "multi":
+        assert int(take.max()) > 1
+
+
+def _switch_sums(gpu_uk, nic_sw, S):
+    """[N, TT*CAM, S]: each table row's GPU demand per switch at each
+    node, the per-switch sums spec_apply forms before scaling by k."""
+    N = nic_sw.shape[0]
+    rows = gpu_uk.reshape(-1, gpu_uk.shape[-1]).astype(np.float64)
+    sw = nic_sw.reshape(N, -1)
+    onehot = (sw[..., None] == np.arange(S)).astype(np.float64)  # [N, UK, S]
+    return np.einsum("ri,nis->nrs", rows, onehot)
+
+
+def _assert_exact_switch_sums(gpu_uk, nic_sw, gpu_free_sw, k_max):
+    """The premise of spec_apply's switch deltas: integer entries, and
+    every per-switch sum of k * gpu_uk (k <= k_max), and the switch's
+    free count beside it, below 2^24, where float32 holds every integer."""
+    assert (gpu_uk >= 0).all() and (gpu_uk == np.floor(gpu_uk)).all()
+    sums = _switch_sums(gpu_uk, nic_sw, gpu_free_sw.shape[1])
+    assert sums.max() * k_max < 2 ** 24
+    assert np.abs(gpu_free_sw).max() + sums.max() * k_max < 2 ** 24
+
+
+@pytest.mark.parametrize("shape", sweep.SPEC_SWEEP, ids=str)
+def test_switch_sums_exact_on_the_sweep(shape):
+    """spec_apply adds k * gpu_uk per switch in another order than the
+    reference's einsum; on every sweep case the premise that makes any
+    order exact holds (a node takes at most its type's need)."""
+    case = sweep.spec_case(sweep.SPEC_SWEEP.index(shape), *shape)
+    k_max = max(int(case["status"][1:].max()), 1)
+    _assert_exact_switch_sums(case["gpu_uk"], case["nic_sw"], case["gpu_free_sw"], k_max)
+    if shape[7] == "multi":
+        assert _switch_sums(case["gpu_uk"], case["nic_sw"], shape[3]).max() > 1
+
+
+@pytest.mark.parametrize("map_mode", ["NUMA", "PCI"])
+def test_switch_sums_exact_on_a_cfg4_table(map_mode):
+    """The same premise on the main path's own tables: spec_tables of the
+    cfg4 batch (10,000 workload_mix pods) on cap_cluster nodes, whose
+    gpu_uk rows are gpu_dem * map_pci per chosen slot; no node takes more
+    copies than the batch has pods. The batch maps its pods by NUMA, so
+    its gpu_uk is all 0; the same batch mapped by PCI fills it."""
+    import dataclasses
+
+    from nhd_tpu_torch.core.topology import MapMode
+    from nhd_tpu_torch.sim.workloads import cap_cluster, workload_mix
+    from nhd_tpu_torch.solver.device_state import DeviceClusterState
+    from nhd_tpu_torch.solver.encode import encode_cluster, encode_pods
+    from nhd_tpu_torch.solver.speculate import spec_tables
+
+    groups = ["default", "edge", "batch"]
+    cluster = encode_cluster(cap_cluster(16, groups), now=0.0)
+    state = DeviceClusterState(cluster, "cpu")
+    reqs = [dataclasses.replace(r, map_mode=MapMode[map_mode])
+            for r in workload_mix(10_000, groups)]
+    buckets = list(encode_pods(reqs, cluster.interner).values())
+    tabs = spec_tables(buckets, [state.pod_tensors(p) for p in buckets], cluster.U,
+                       cluster.K, state.Np, torch.device("cpu"))
+    gpu_uk = tabs.gpu_uk.numpy()
+    assert gpu_uk.shape[-1] == 14                       # U*K of cap_cluster
+    assert (gpu_uk.max() > 0) == (map_mode == "PCI")
+    _assert_exact_switch_sums(gpu_uk, cluster.nic_sw, cluster.gpu_free_sw, 10_000)
+    # why it holds on the main path: gpu_uk is nonzero only on PCI-mapped
+    # rows, which spec_elect caps at one copy
+    pci = (tabs.trow[:, 2].numpy() & reference.FLAG_MAP_PCI) != 0
+    assert pci[(gpu_uk != 0).any(axis=(1, 2))].all()
