@@ -583,7 +583,8 @@ def wide_bucket(torch, dev):
 def sweep_check(torch, dev, report):
     """Every kernel against its plain version on every edge shape of
     kernels/sweep.py, exactly (the claim kernels each on its own copy of
-    the inputs, spec_fill and spec_apply fed the plain plan). These
+    the inputs, spec_fill and spec_apply fed the plain plan; spec_fill
+    also on the plans and needs of ``FILL_SWEEP``, drawn directly). These
     launches are not the main path's: the counts are reset before each
     timed schedule."""
     import numpy as np
@@ -628,11 +629,17 @@ def sweep_check(torch, dev, report):
                       dict(kw, it=case["it"])))
         check_claims(torch, f"sweep (N, U, K, S, buckets, sharing, busy, fill)={shape}",
                      calls, report, {"N": shape[0]}, timed=False)
+    for i, shape in enumerate(sweep.FILL_SWEEP):
+        plan, status = (up(a) for a in sweep.fill_case(i, *shape))
+        check_claims(torch, f"fill sweep (TT, N, fill)={shape}",
+                     [("spec_fill", {"plan": plan, "status": status}, {})],
+                     report, {"N": shape[1]}, timed=False)
     report["sweep"] = {
         "nic_node_masks": [list(s) for s in sweep.NODE_SWEEP],
         "nic_any_first": [list(s) for s in sweep.NIC_SWEEP],
         "solve_planes": [list(s) for s in sweep.PLANE_SWEEP],
         "claim_kernels": [repr(s) for s in sweep.SPEC_SWEEP],
+        "spec_fill": [list(s) for s in sweep.FILL_SWEEP],
     }
     log(f"sweep: nic_node_masks exact on {len(sweep.NODE_SWEEP)} shapes (G in "
         f"{sorted({s[4] for s in sweep.NODE_SWEEP})}, C*A in "
@@ -648,7 +655,11 @@ def sweep_check(torch, dev, report):
         f"{sorted({s[0] for s in sweep.SPEC_SWEEP})}, type rows in "
         f"{sorted({sum(b[0] for b in s[4]) for s in sweep.SPEC_SWEEP})}, U*K in "
         f"{sorted({s[1] * s[2] for s in sweep.SPEC_SWEEP})}, both NIC-sharing branches, "
-        f"both busy rules, fills {sorted({s[7] for s in sweep.SPEC_SWEEP})})")
+        f"both busy rules, fills {sorted({s[7] for s in sweep.SPEC_SWEEP})}); "
+        f"spec_fill exact on {len(sweep.FILL_SWEEP)} fill shapes (TT in "
+        f"{sorted({s[0] for s in sweep.FILL_SWEEP})}, N in "
+        f"{sorted({s[1] for s in sweep.FILL_SWEEP})}, fills "
+        f"{sorted({s[2] for s in sweep.FILL_SWEEP})})")
 
 
 def oracle_check(dev):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time variants of the port's CUDA kernels on one NVIDIA GPU.
 
-    python3 kernel_variants.py [--probe]
+    python3 kernel_variants.py [--probe] [--only=KERNEL[,KERNEL...]]
 
 A variant is a committed kernel source with one text substitution
 (``VARIANTS``): a tuning constant changed, or the kernel body cut to an
@@ -11,12 +11,14 @@ built with build.py's nvcc flags, checked against the kernel's plain
 version (empty bodies excepted) and timed with chip_smoke.py's
 CUDA-event median in four passes that alternate the order of the
 variants: the solve kernels at the main path's solve buckets (cfg4 and
-cfg3, G=1 and G=2) and the wide bucket, the claim kernels spec_elect and
-spec_apply on ``sweep.spec_case`` inputs at cfg4's and cfg3's megaround
-shapes (``CLAIM_CELLS``; spec_apply's in-place tensors restored before
-every launch). With ``--probe``, nic_any_first is also built with a
-%globaltimer stamp at each phase of each block (entry, headroom staged,
-nodes done, outputs written) and the per-phase means are printed.
+cfg3, G=1 and G=2) and the wide bucket, the claim kernels spec_elect,
+spec_fill and spec_apply on ``sweep.spec_case`` inputs at cfg4's and
+cfg3's megaround shapes (``CLAIM_CELLS``; spec_fill and spec_apply fed
+the plan the plain versions elect and fill, their in-place tensors
+restored before every launch). With ``--probe``, nic_any_first is also
+built with a %globaltimer stamp at each phase of each block (entry,
+headroom staged, nodes done, outputs written) and the per-phase means
+are printed. With ``--only``, just the named kernels are built and timed.
 
 Prints one line per (bucket, kernel, variant) and the card's name and
 power limit; writes chiprun_out/kernel_variants.json. Needs a GPU.
@@ -38,6 +40,8 @@ EMPTY = {
                      "    if (T > 0) return;\n    const int t = blockIdx.y;\n    const int sub"),
     "spec_elect": ("    if (blockIdx.x == 0 && threadIdx.x == 0) status[0] = 0;\n",
                    "    if (N > 0) return;\n"),
+    "spec_fill": ("    const int t = blockIdx.x;\n",
+                  "    if (N > 0) return;\n    const int t = blockIdx.x;\n"),
     "spec_apply": ("    extern __shared__ float s_delta_all[];",
                    "    if (N > 0) return;\n    extern __shared__ float s_delta_all[];"),
 }
@@ -56,6 +60,16 @@ SPEC_SHUFFLE = """    for (int o = 16; o > 0; o >>= 1) {
     }
     const int t = best_t;
 """
+#: spec_fill's block: 256 threads of 4 nodes, or 1024 of 1, 128 of 8, 32 of 32
+FILL_SHAPE = "constexpr int THREADS = 256;\nconstexpr int PER = 4; "
+FILL_SHAPES = {f"t{n}": (FILL_SHAPE, f"constexpr int THREADS = {n};\nconstexpr int PER = {1024 // n}; ")
+               for n in (1024, 128, 32)}
+#: spec_fill: the plan loads issued beside the need read, or after it
+FILL_LOADS = """    load_row(elect, v_elect, mine, N, -1, e);
+    load_row(hi, v_hi, mine, N, 0, h);
+    load_row(cap, v_cap, mine, N, 0, c);
+"""
+FILL_EXIT = "    if (need <= 0) return;  // spec_elect elected no node for this row\n"
 NIC_TARGET = "const long long want = ((long long)C * A <= 32 ? 1LL : 2LL) * sm_count(device);"
 PLANES_TARGET = "const long long want = 2LL * sm_count(device);"
 #: (kernel, variant) -> (text in the committed source, its replacement)
@@ -79,13 +93,19 @@ VARIANTS = {
     ("spec_elect", "warps8"): ("constexpr int WARPS = 4;", WARPS8),
     ("spec_elect", "shuffle"): (SPEC_REDUX, SPEC_SHUFFLE),
     ("spec_elect", "idx32"): (IDX64, IDX32),
+    ("spec_fill", "committed"): None,
+    ("spec_fill", "empty"): EMPTY["spec_fill"],
+    **{("spec_fill", k): v for k, v in FILL_SHAPES.items()},
+    ("spec_fill", "scalar"): ("constexpr bool VECTOR = true;",
+                              "constexpr bool VECTOR = false;"),
+    ("spec_fill", "needfirst"): (FILL_LOADS + FILL_EXIT, FILL_EXIT + FILL_LOADS),
     ("spec_apply", "committed"): None,
     ("spec_apply", "empty"): EMPTY["spec_apply"],
     ("spec_apply", "warps4"): (WARPS8, "constexpr int WARPS = 4;"),
     ("spec_apply", "idx64"): (IDX32, IDX64),
 }
 SOLVE = ("nic_node_masks", "nic_any_first", "solve_planes")
-CLAIM = ("spec_elect", "spec_apply")
+CLAIM = ("spec_elect", "spec_fill", "spec_apply")
 #: the claim kernels' inputs: (label, sweep.spec_case arguments) at the
 #: megaround shapes of cfg4 (cap_cluster: U=2, K=7, 14 switches; buckets
 #: G=1 with C=2, A=7 and G=2 with C=4, A=49, 8 padded rows each) and cfg3
@@ -204,8 +224,9 @@ def caller(torch, fn, kernel, args, kw):
 
 def claim_inputs(torch, dev):
     """[(label, {kernel: (args, kw, written)})] of the claim kernels at
-    ``CLAIM_CELLS``: spec_elect on the case, spec_apply on the plan the
-    plain versions elect and fill from it; *written* names the argument
+    ``CLAIM_CELLS``: spec_elect on the case, spec_fill on the plan and
+    status the plain spec_elect leaves, spec_apply on the plan the plain
+    versions elect and fill from it; *written* names the argument
     positions a launch writes in place."""
     import numpy as np
 
@@ -219,10 +240,13 @@ def claim_inputs(torch, dev):
              for k, v in case.items() if isinstance(v, np.ndarray)}
         kw = dict(sharing=case["sharing"], respect_busy=case["respect_busy"])
         elect = tuple(t[k] for k in sweep.SPEC_ELECT_ARGS)
-        plan = reference.spec_elect(*(a.clone() for a in elect), **kw)
-        reference.spec_fill(plan, t["status"].clone())
+        work = [a.clone() for a in elect]
+        plan = reference.spec_elect(*work, **kw)
+        fill = (plan.clone(), work[-1])  # status[0] cleared, as elect leaves it
+        reference.spec_fill(plan, work[-1].clone())
         staged = {
             "spec_elect": (elect, kw),
+            "spec_fill": (fill, {}),
             "spec_apply": ((plan, *(t[k] for k in sweep.SPEC_APPLY_ARGS)),
                            dict(kw, it=case["it"])),
         }
@@ -290,8 +314,12 @@ def main():
     from nhd_tpu_torch.kernels import reference
 
     probe = "--probe" in sys.argv[1:]
-    sources = {key: variant_source(*key) for key in VARIANTS}
-    if probe:
+    only = set(SOLVE + CLAIM)
+    for arg in sys.argv[1:]:
+        if arg.startswith("--only="):
+            only = set(arg.split("=", 1)[1].split(","))
+    sources = {key: variant_source(*key) for key in VARIANTS if key[0] in only}
+    if probe and "nic_any_first" in only:
         sources[("nic_any_first", "probe")] = probe_source()
     libs = build_all(sources, os.path.join("chiprun_out", "variants"))
     dev = torch.device("cuda", 0)
@@ -333,10 +361,11 @@ def main():
         return calls
 
     for label, staged in claim_inputs(torch, dev):
-        for kernel in CLAIM:
+        for kernel in (k for k in CLAIM if k in only):
             time_variants(label, kernel, *staged[kernel])
-    for label, staged in buckets(torch, cs, dev):
-        for kernel in SOLVE:
+    solve = [k for k in SOLVE if k in only]
+    for label, staged in buckets(torch, cs, dev) if solve else ():
+        for kernel in solve:
             calls = time_variants(label, kernel, *staged[kernel])
             if probe and kernel == "nic_any_first":
                 key = ("nic_any_first", "probe")

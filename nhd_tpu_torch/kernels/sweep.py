@@ -39,6 +39,20 @@ headroom read through L1) and picks that choose every slot (more than a
 lane keeps in registers). ``fill`` "none" fits no pick, "all" every pick,
 "dense" chooses every slot of every pick.
 
+``FILL_SWEEP`` rows are (TT, N, fill) of ``spec_fill`` alone, its plan
+rows and need drawn directly (``fill_case``), which reaches shapes the
+elect-fed ``SPEC_SWEEP`` does not: N under one warp, ragged int4 tails
+(N not a multiple of 4), one whole 1024-node tile, one node past it and
+many tiles (a running carry), TT of 1, 16 and 48. ``fill`` "every" has
+row 0 elect every node; "hi", "lo" and "interleave" make every winner
+pref 2, pref 1, or alternate along each row's winners; "exact", "below"
+and "above" set each row's need to its sum of capw, one below it, or far
+above it; "fair1" keeps need under the winner count (fair = 1); "cap0"
+zeroes cap (capw 1); "nowin" gives every odd row need and no winner;
+"dead" gives every even row need 0 though nodes elect it; "unelected"
+leaves nine nodes in ten with elect -1; "rand" draws need freely, a
+quarter of the rows 0.
+
 ``PLANE_SWEEP`` rows are (T, N, U, G, C, NCLS, fill): C of 1, 2, 4, 8, not
 a power of two, and past 32 (lanes loop over combos); "tie" gives every
 combo the same skew (the first maximum must win), "none" leaves no combo
@@ -106,6 +120,26 @@ PLANE_SWEEP = (
     (2, 333, 2, 6, 64, 4, "rand"),
     (2, 517, 2, 2, 4, 4, "tie"),
     (2, 517, 2, 2, 4, 4, "none"),
+)
+
+FILL_SWEEP = (
+    (1, 1, "every"),
+    (1, 31, "hi"),
+    (16, 31, "unelected"),
+    (16, 255, "lo"),
+    (16, 255, "nowin"),
+    (16, 1023, "interleave"),
+    (48, 1023, "dead"),
+    (16, 1024, "exact"),
+    (16, 1024, "below"),
+    (48, 1024, "rand"),
+    (16, 1025, "above"),
+    (16, 1025, "cap0"),
+    (1, 1025, "below"),
+    (48, 4097, "fair1"),
+    (16, 4097, "exact"),
+    (1, 65537, "every"),
+    (48, 65537, "interleave"),
 )
 
 
@@ -291,6 +325,76 @@ def spec_case(seed: int, N: int, U: int, K: int, S: int, buckets, sharing: bool,
         nic_free[rng.random((N, U, K)) < 0.5] = -1.0
         case["nic_occ"] = rng.integers(1, 3, (TT, CAM, U)).astype(f32)
     return case
+
+
+def fill_sums(cap1: np.ndarray, need: np.ndarray) -> np.ndarray:
+    """sum(capw) of one row whose winners have max(cap, 1) = *cap1*, at
+    each need in *need* (capw = min(max(cap, 1), ceil(need / n_win)))."""
+    fair = -(-np.asarray(need) // len(cap1))
+    return np.minimum(cap1[None, :], fair[:, None]).sum(1)
+
+
+def _need_at(cap1: np.ndarray, above: int) -> int:
+    """The largest need >= 1 with sum(capw) == need + *above* (the least
+    is n_win - above, where every capw is 1). It exists for above = 0,
+    and for above = 1 once the row has two winners: from need 1 (sum
+    n_win) the gap sum - need falls by exactly 1 a step, or rises."""
+    needs = np.arange(1, int(cap1.sum()) + 2)
+    hit = np.flatnonzero(fill_sums(cap1, needs) == needs + above)
+    return int(needs[hit[-1]])
+
+
+def fill_case(seed: int, TT: int, N: int, fill: str = "rand") -> Tuple[np.ndarray, np.ndarray]:
+    """(plan [7, N] int32, status [TT + 1] int32) of ``spec_fill``: elect
+    in [-1, TT), hi, cap in [0, 8) and each row's need as *fill* says (the
+    ``FILL_SWEEP`` notes), c/m/a random and the count row 0, as spec_elect
+    leaves it; status[0] 0, as spec_elect clears it."""
+    rng = np.random.default_rng(seed)
+    i32 = np.int32
+    elect = rng.integers(-1, TT, N)
+    if fill == "every":
+        elect[:] = 0
+    elif fill == "unelected":
+        elect[rng.random(N) < 0.9] = -1
+    elif fill == "nowin":
+        elect[(elect >= 0) & (elect % 2 == 1)] -= 1
+    hi = (rng.random(N) < 0.5).astype(i32)
+    if fill in ("hi", "lo"):
+        hi[:] = fill == "hi"
+    elif fill == "interleave":
+        for t in range(TT):
+            at = np.flatnonzero(elect == t)
+            hi[at] = (np.arange(len(at)) + t) % 2 == 0
+    cap = rng.integers(0, 8, N)
+    if fill == "cap0":
+        cap[:] = 0
+    need = np.zeros(TT, np.int64)
+    for t in range(TT):
+        cap1 = np.maximum(cap[elect == t], 1)
+        n_win = len(cap1)
+        top = int(cap1.sum()) if n_win else 8
+        need[t] = rng.integers(0, 2 * top + 6)
+        if fill == "rand" and rng.random() < 0.25:
+            need[t] = 0
+        elif fill == "nowin" and t % 2 == 1:
+            need[t] = rng.integers(1, 40)
+        elif fill == "dead" and t % 2 == 0:
+            need[t] = 0
+        elif not n_win:
+            continue
+        elif fill == "exact":
+            need[t] = _need_at(cap1, 0)
+        elif fill == "below":
+            need[t] = _need_at(cap1, 1 if n_win > 1 else 0)
+        elif fill == "above":
+            need[t] = 1_000_000 + top
+        elif fill == "fair1":
+            need[t] = rng.integers(1, n_win) if n_win > 1 else 1
+    plan = np.stack([
+        elect, hi, cap, rng.integers(0, 4, N), rng.integers(0, 2, N),
+        rng.integers(0, 8, N), np.zeros(N, np.int64),
+    ]).astype(i32)
+    return plan, np.concatenate([[0], need]).astype(i32)
 
 
 #: argument names of the claim kernels, in their wrappers' order

@@ -242,6 +242,28 @@ def test_claim_kernels_sweep_match_plain(shape):
         assert kernels.LAUNCHES[n] == v + 1
 
 
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("shape", sweep.FILL_SWEEP, ids=str)
+def test_spec_fill_sweep_matches_plain(shape, offset):
+    """spec_fill against its plain version on a plan and need drawn
+    directly; with *offset* 1 the plan starts one word past a 16-byte
+    boundary, so no row takes the int4 loads."""
+    _need_cuda()
+    plan, status = sweep.fill_case(sweep.FILL_SWEEP.index(shape), *shape)
+    buf = torch.zeros(plan.size + offset, dtype=torch.int32, device="cuda")
+    plan_k = buf[offset:].view(plan.shape)
+    plan_k.copy_(torch.from_numpy(plan))
+    status_k = torch.from_numpy(status).cuda()
+    plan_p, status_p = plan_k.clone(), status_k.clone()
+    before = kernels.LAUNCHES["spec_fill"]
+    kernels.spec_fill(plan_k, status_k)
+    reference.spec_fill(plan_p, status_p)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["spec_fill"] == before + 1
+    assert torch.equal(plan_k, plan_p)
+    assert torch.equal(status_k, status_p)
+
+
 @pytest.mark.parametrize("sharing", [False, True])
 @pytest.mark.parametrize("respect_busy", [False, True])
 def test_megaround_cuda_equals_cpu(sharing, respect_busy, monkeypatch):
