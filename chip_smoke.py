@@ -32,7 +32,25 @@ Phases (one line each; the last line is the contract line):
    (NIC-saturated);
 6. cfg4:10kx1k-cap, classic: phase 4 with ``NHD_TPU_SPECULATE=0`` on both
    sides (the classic rounds stay checked on the card);
-7. the kernels JSON line: per kernel its launches in phases 4-6 (counts
+7. the daemon: cfg4's pending set (nhd_tpu_torch/sim/pending.py: 10,000
+   Triad-config pods of workload_mix's three shapes on 1,000 cfg4 nodes of
+   a FakeClusterBackend) through the port's ``Scheduler(device="cuda")``
+   by its normal turn (node inventory, replay, ``check_pending_pods``
+   scans until nothing more binds); every kernel must launch; then the
+   same scenario on ``device="cpu"`` with speculation on (the card's
+   default): every pod's node, solved config and NAD annotation and the
+   bound count identical, the solver guard at full fidelity with no
+   fault, retry or degrade; wall, binds per second and the daemon's bind
+   latency histogram; then once more on the card under torch.profiler
+   (not counted): device busy against the daemon's wall;
+8. the solver guard on the card: ``audit_device_rows`` over every row of
+   cfg4's resident state after a schedule finds nothing (and the
+   16-row audit is timed); one injected ``dispatch`` fault in a classic
+   cfg4 schedule is retried once with every pod placed as the fault-free
+   run (``NHD_GUARD_RETRIES=2``: floor unmoved; ``=1``: floor at the
+   non-resident rung, whose solves still launch the kernels on the card);
+   the wall per round with the guard on against ``NHD_GUARD=0``;
+9. the kernels JSON line: per kernel its launches in phases 4-7 (counts
    set to 0 just before each timed schedule and read just after), its
    time, its plain version's time and its bound — the solve kernels at
    the cfg4 G=2 bucket, the claim kernels at cfg4's first megaround
@@ -64,6 +82,11 @@ N_TIMED = 30
 #: the cells' size: pods per batch, nodes per cluster; and the wide
 #: bucket's node count
 CELL_PODS, CELL_NODES, WIDE_N = 10_000, 1_000, 4096
+#: the daemon phase's pending set: cfg4 nodes and pods (DAEMON_CUT names
+#: a cut of the pod count, if one was made to stay in the time limit)
+DAEMON_NODES, DAEMON_PODS, DAEMON_CUT = 1_000, 10_000, None
+#: alternating guard-on / NHD_GUARD=0 schedule pairs timed in phase 8
+GUARD_COST_PAIRS = 5
 
 
 def card(torch):
@@ -719,20 +742,46 @@ def oracle_check(dev):
         f"serial oracle ({placed} placeable)")
 
 
+@contextlib.contextmanager
+def env(**values):
+    """Environment knobs set for the duration (None: unset)."""
+    old = {k: os.environ.get(k) for k in values}
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def profile_schedule(torch, sched, nodes, items, speculative):
     """One more schedule of the same batch (allocation state reset) under
-    torch.profiler: device busy time (sum of kernel and copy time on the
-    card) against the wall, and the largest device and host entries.
-    Runs after the counted run, so its launches are not counted."""
-    from torch.profiler import ProfilerActivity, profile
-
+    torch.profiler (device_profile). Runs after the counted run, so its
+    launches are not counted."""
     for n in nodes.values():
         n.reset_resources()
+    with env(NHD_TPU_SPECULATE=None if speculative else "0"):
+        return device_profile(
+            torch, lambda: sched.schedule(nodes, items, now=0.0))
+
+
+def device_profile(torch, fn):
+    """*fn* once under torch.profiler: device busy time (sum of kernel and
+    copy time on the card) against the wall, and the largest device and
+    host entries."""
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
-    with speculate_env(None if speculative else "0"), profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sched.schedule(nodes, items, now=0.0)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -759,21 +808,6 @@ def profile_schedule(torch, sched, nodes, items, speculative):
     }
 
 
-@contextlib.contextmanager
-def speculate_env(value):
-    """NHD_TPU_SPECULATE set to *value* (None: unset, the device's
-    default) for the duration."""
-    old = os.environ.pop("NHD_TPU_SPECULATE", None)
-    if value is not None:
-        os.environ["NHD_TPU_SPECULATE"] = value
-    try:
-        yield
-    finally:
-        os.environ.pop("NHD_TPU_SPECULATE", None)
-        if old is not None:
-            os.environ["NHD_TPU_SPECULATE"] = old
-
-
 def run_cell(torch, name, cluster_fn, report, launches_total, *, speculative):
     """Phases 4-6: warm + timed schedule on CUDA (speculation as the card's
     default has it, or off), then the CPU run with speculation set the same
@@ -787,7 +821,7 @@ def run_cell(torch, name, cluster_fn, report, launches_total, *, speculative):
     items = [BatchItem(("ns", f"p{i}"), r) for i, r in enumerate(reqs)]
     nodes = cluster_fn(CELL_NODES, GROUPS)
     sched = BatchScheduler(device=card(torch), respect_busy=False, register_pods=False)
-    with speculate_env(None if speculative else "0"):
+    with env(NHD_TPU_SPECULATE=None if speculative else "0"):
         sched.schedule(nodes, items, now=0.0)  # warm: builds, caches, allocator
         for n in nodes.values():
             n.reset_resources()
@@ -824,7 +858,7 @@ def run_cell(torch, name, cluster_fn, report, launches_total, *, speculative):
     log(f"{name} phases: {phases}")
 
     t1 = time.perf_counter()
-    with speculate_env("1" if speculative else "0"):
+    with env(NHD_TPU_SPECULATE="1" if speculative else "0"):
         cpu_res, cpu_stats = BatchScheduler(
             device="cpu", respect_busy=False, register_pods=False
         ).schedule(cluster_fn(CELL_NODES, GROUPS), items, now=0.0)
@@ -850,7 +884,7 @@ def run_cell(torch, name, cluster_fn, report, launches_total, *, speculative):
 
     # every solve and claim-kernel call of the batch: each kernel against
     # its plain version at this cell's shapes and states
-    with speculate_env(None if speculative else "0"):
+    with env(NHD_TPU_SPECULATE=None if speculative else "0"):
         again, _, cap = capture_schedule(torch, sched, nodes, items)
     if [(r.node, r.nic_list) for r in again] != [(r.node, r.nic_list) for r in results]:
         fail(f"{name}: a second cuda schedule of the batch placed differently")
@@ -892,6 +926,257 @@ def run_cell(torch, name, cluster_fn, report, launches_total, *, speculative):
     })
     report["cells"][name] = cell
     return placed
+
+
+def _daemon_run(device, n_pods):
+    """cfg4's pending set (sim/pending.py) on a fresh fake backend, driven
+    through the port's Scheduler on *device* by its normal turn. Returns
+    the drive's numbers and each pod's (node, solved config, NAD)."""
+    import queue
+
+    import nhd_tpu_torch.sim as sim
+    from nhd_tpu_torch.k8s.fake import FakeClusterBackend
+    from nhd_tpu_torch.k8s.interface import CFG_ANNOTATION, NAD_ANNOTATION
+    from nhd_tpu_torch.scheduler.core import Scheduler
+    from nhd_tpu_torch.scheduler.events import WatchQueue
+    from nhd_tpu_torch.sim import pending
+
+    backend = FakeClusterBackend()
+    pending.fill_cfg4(backend, sim, DAEMON_NODES, n_pods)
+    sched = Scheduler(backend, WatchQueue(), queue.Queue(),
+                      respect_busy=False, device=device)
+    got = pending.drive(sched)
+    got["batch_s"] = sum(sched.perf[k] for k in (
+        "solve_seconds_total", "select_seconds_total", "assign_seconds_total"))
+    outcome = {
+        key: (p.node, p.annotations.get(CFG_ANNOTATION),
+              p.annotations.get(NAD_ANNOTATION))
+        for key, p in sorted(backend.pods.items())
+    }
+    return got, outcome
+
+
+def daemon_phase(torch, report, launches_total, smi):
+    """Phase 7: cfg4's pending set through the port's daemon on the card
+    (counts set to 0 just before, read just after; every kernel must
+    launch), then the same scenario on the CPU with speculation on, as
+    the card's default has it: every pod's node and solved config the
+    same, the same bound count, and the guard at full fidelity with no
+    fault, retry or degrade."""
+    from nhd_tpu_torch import kernels
+    from nhd_tpu_torch.k8s.retry import API_COUNTERS
+    from nhd_tpu_torch.obs import histo
+    from nhd_tpu_torch.solver.guard import GUARD, RUNG_MESH, RUNG_NAMES
+
+    base = API_COUNTERS.snapshot()
+    # the daemon's own bind latency (batch admission to bound, per pod)
+    bind_h = histo.HISTOGRAMS["bind_latency_seconds"]
+    bind_h.reset()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    got, outcome = _daemon_run(card(torch), DAEMON_PODS)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    cum, _sum, _count = bind_h.snapshot()
+    edges = list(zip((*bind_h.buckets, float("inf")), cum))
+    bind_ms = {f"p{int(q * 100)}": histo.quantile_from_buckets(edges, q) * 1e3
+               for q in (0.5, 0.99)}
+    for k in kernels.KERNELS:
+        if launches[k] == 0:
+            fail(f"daemon: kernel {k} was never launched through the daemon")
+        launches_total[k] += launches[k]
+    now = API_COUNTERS.snapshot()
+    moved = {k: now[k] - base[k] for k in (
+        "guard_faults_total", "guard_retries_total", "guard_degradations_total")}
+    if GUARD.floor != RUNG_MESH or any(moved.values()):
+        fail(f"daemon: guard left full fidelity (floor {RUNG_NAMES[GUARD.floor]}, "
+             f"{moved})")
+    rate = got["bound"] / got["wall"]
+    log(f"daemon cuda: {DAEMON_NODES} nodes, {DAEMON_PODS} pending pods "
+        f"(cut: {DAEMON_CUT or 'none'}); bound {got['bound']} in "
+        f"{got['turns']} turns, wall={got['wall']:.4f}s ({rate:.0f} binds/s), "
+        f"of which the batches (solve, select, assign) {got['batch_s']:.4f}s; "
+        f"bind latency (histogram) p50={bind_ms['p50']:.1f}ms "
+        f"p99={bind_ms['p99']:.1f}ms; guard rung {RUNG_NAMES[GUARD.floor]}, {moved}; launches={launches}; "
+        f"{smi}")
+    t0 = time.perf_counter()
+    # the card's default runs the speculative round 0; the CPU run is
+    # asked for it, so both take the same rounds
+    with env(NHD_TPU_SPECULATE="1"):
+        cpu_got, cpu_outcome = _daemon_run("cpu", DAEMON_PODS)
+    cpu_wall = time.perf_counter() - t0
+    diff = [k for k in outcome if outcome[k] != cpu_outcome.get(k)]
+    if diff or cpu_got["bound"] != got["bound"]:
+        fail(f"daemon: {len(diff)} pods bound differently on cuda and cpu "
+             f"(first: {diff[:1]}), bound {got['bound']} vs {cpu_got['bound']}")
+    if got["bound"] == 0:
+        fail("daemon: nothing bound")
+    log(f"daemon cpu: bound {cpu_got['bound']} in {cpu_got['turns']} turns, "
+        f"wall={cpu_got['wall']:.4f}s (whole run {cpu_wall:.2f}s); every pod's "
+        "node, solved config and NAD identical to the cuda run")
+    # once more on the card under the profiler (not counted): the device's
+    # busy time against the daemon's wall
+    profile = device_profile(
+        torch, lambda: _daemon_run(card(torch), DAEMON_PODS))
+    log(f"daemon profile: wall={profile['wall_s']:.4f}s (fill, inventory and "
+        f"scans) device_busy={profile['device_busy_s']:.6f}s idle_share="
+        f"{profile['idle_share']}; top device: {profile['top_device'][:3]}")
+    report["daemon"] = {
+        "nodes": DAEMON_NODES, "pods": DAEMON_PODS, "cut": DAEMON_CUT,
+        "bound": got["bound"], "turns": got["turns"], "wall_s": got["wall"],
+        "batch_s": got["batch_s"], "binds_per_s": rate, "launches": launches,
+        "bind_latency_ms": bind_ms,
+        "guard": moved, "cpu_wall_s": cpu_got["wall"], "profile": profile,
+        "smi": smi,
+    }
+
+
+class _DispatchFault:
+    """Raise InjectedDeviceFault at the first *n* ``dispatch`` calls."""
+
+    def __init__(self, n):
+        self.left = n
+
+    def __call__(self, site, detail=""):
+        from nhd_tpu_torch.solver.guard import InjectedDeviceFault
+
+        if site == "dispatch" and self.left > 0:
+            self.left -= 1
+            raise InjectedDeviceFault(f"injected at {site} ({detail})")
+
+
+def guard_phase(torch, report, smi):
+    """Phase 8: the solver guard on the card. A full audit of cfg4's
+    resident state after a schedule must find nothing; the budgeted
+    batch-start audit (NHD_GUARD_AUDIT_ROWS=16) is timed; one injected
+    dispatch fault in a classic cfg4 schedule must retry once and place
+    every pod as the fault-free run, floor unmoved; with
+    NHD_GUARD_RETRIES=1 the same fault drops to the non-resident rung,
+    which still launches the kernels on the card and places the same;
+    then the wall per round with the guard on against NHD_GUARD=0."""
+    from nhd_tpu_torch import kernels
+    from nhd_tpu_torch.k8s.retry import API_COUNTERS
+    from nhd_tpu_torch.sim.workloads import cap_cluster, workload_mix
+    from nhd_tpu_torch.solver import BatchItem, BatchScheduler, guard
+    from nhd_tpu_torch.solver.encode import ClusterDelta
+    from nhd_tpu_torch.solver.guard import GUARD, RUNG_HOST, RUNG_MESH, RUNG_NAMES
+
+    items = [BatchItem(("ns", f"p{i}"), r)
+             for i, r in enumerate(workload_mix(CELL_PODS, GROUPS))]
+    out = {}
+
+    # the full audit and the budgeted one, after a schedule
+    nodes = cap_cluster(CELL_NODES, GROUPS)
+    sched = BatchScheduler(device=card(torch), respect_busy=False,
+                           register_pods=False)
+    ctx = sched.make_context(
+        nodes, now=0.0, delta=ClusterDelta(nodes, now=0.0, respect_busy=False))
+    sched.schedule(ctx.nodes, items, context=ctx)
+    ctx.dev._flush_staged()
+    t0 = time.perf_counter()
+    errs = guard.audit_device_rows(ctx.dev, range(ctx.dev.N))
+    full_ms = (time.perf_counter() - t0) * 1e3
+    if errs:
+        fail(f"guard: the full audit of cfg4's resident state found {errs[:2]}")
+    with env(NHD_GUARD_AUDIT_ROWS="16"):
+        budget_ms = []
+        for _ in range(N_TIMED):
+            t0 = time.perf_counter()
+            if GUARD.run_audit(ctx.dev):
+                fail("guard: a budgeted audit found a defect")
+            budget_ms.append((time.perf_counter() - t0) * 1e3)
+    out["audit_full_ms"] = full_ms
+    out["audit_16_rows_ms"] = statistics.median(budget_ms)
+    log(f"guard audit: every row of cfg4's resident state ({ctx.dev.N} rows, "
+        f"15 tensors) equals the host mirror, one pull, {full_ms:.3f}ms; "
+        f"NHD_GUARD_AUDIT_ROWS=16: median {out['audit_16_rows_ms']:.3f}ms "
+        f"over {N_TIMED}")
+    del ctx
+
+    def classic(**knobs):
+        with env(NHD_TPU_SPECULATE="0", **knobs):
+            return BatchScheduler(
+                device=card(torch), respect_busy=False, register_pods=False,
+            ).schedule(cap_cluster(CELL_NODES, GROUPS), items, now=0.0)
+
+    def placements(res):
+        return [(r.node, r.nic_list) for r in res]
+
+    clean, clean_stats = classic()
+    for retries, want_floor in (("2", RUNG_MESH), ("1", RUNG_HOST)):
+        GUARD.reset()
+        base = API_COUNTERS.snapshot()
+        inj = _DispatchFault(1)
+        guard.set_fault_injector(inj)
+        kernels.reset_launches()
+        try:
+            res, stats = classic(NHD_GUARD_RETRIES=retries)
+        finally:
+            guard.set_fault_injector(None)
+        launches = dict(kernels.LAUNCHES)
+        now = API_COUNTERS.snapshot()
+        moved = {k: now[k] - base[k] for k in (
+            "guard_faults_total", "guard_retries_total",
+            "guard_degradations_total", "guard_repairs_total")}
+        floor = GUARD.floor
+        if inj.left or moved["guard_retries_total"] != 1:
+            fail(f"guard: the injected dispatch fault was not retried once: {moved}")
+        if placements(res) != placements(clean):
+            fail(f"guard: placements after the injected fault (retries "
+                 f"{retries}) differ from the fault-free run")
+        if floor != want_floor:
+            fail(f"guard: floor {RUNG_NAMES[floor]} after one fault at "
+                 f"NHD_GUARD_RETRIES={retries}, expected {RUNG_NAMES[want_floor]}")
+        if any(v == 0 for k, v in launches.items() if k in kernels.SOLVE_KERNELS):
+            fail(f"guard: a solve kernel did not launch on the card at rung "
+                 f"{RUNG_NAMES[floor]}: {launches}")
+        log(f"guard fault (NHD_GUARD_RETRIES={retries}): one injected dispatch "
+            f"fault, {moved}, floor {RUNG_NAMES[floor]}, rounds "
+            f"{stats.rounds} (fault-free {clean_stats.rounds}), every pod placed "
+            f"as the fault-free run; solve kernels launched {launches}")
+        out[f"fault_retries_{retries}"] = {
+            "counters": moved, "floor": RUNG_NAMES[floor], "rounds": stats.rounds,
+            "launches": launches,
+        }
+    GUARD.reset()
+
+    # the guard's cost per round: every batch audits (interval 1, 16
+    # rows) and screens each pulled rank tensor, against NHD_GUARD=0.
+    # One warm scheduler per setting, the nodes built before the clock
+    # starts, classic cfg4 (3 rounds), alternating on/off; the first
+    # pair warms up and is not kept
+    scheds = {on: BatchScheduler(device=card(torch), respect_busy=False,
+                                 register_pods=False) for on in ("1", "0")}
+    walls = {"1": [], "0": []}
+    audits, runs = [], []
+    for rep in range(1 + GUARD_COST_PAIRS):
+        for on in ("1", "0"):
+            nodes = cap_cluster(CELL_NODES, GROUPS)
+            with env(NHD_GUARD=on, NHD_TPU_SPECULATE="0",
+                     NHD_GUARD_AUDIT_INTERVAL="1", NHD_GUARD_AUDIT_ROWS="16"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _res, stats = scheds[on].schedule(nodes, items, now=0.0)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            if rep == 0:
+                continue
+            walls[on].append(wall / stats.rounds * 1e3)
+            if on == "1":
+                audits.append(stats.phases.get("guard_audit", 0.0) * 1e3)
+            runs.append({"guard": on, "wall_s": wall, "rounds": stats.rounds,
+                         "phases_s": stats.phases})
+    GUARD.reset()
+    out.update({"round_ms_guard_on": walls["1"], "round_ms_guard_off": walls["0"],
+                "batch_start_audit_ms": audits, "cost_runs": runs, "smi": smi})
+    log(f"guard cost: classic cfg4 wall per round over {GUARD_COST_PAIRS} "
+        f"alternating pairs, median guard on "
+        f"{statistics.median(walls['1']):.2f}ms vs NHD_GUARD=0 "
+        f"{statistics.median(walls['0']):.2f}ms (on: "
+        f"{[round(w, 2) for w in walls['1']]}, off: "
+        f"{[round(w, 2) for w in walls['0']]}); batch-start audit "
+        f"{[round(a, 3) for a in audits]}ms; {smi}")
+    report["guard"] = out
 
 
 def main():
@@ -975,7 +1260,12 @@ def main():
             fail(f"{cell} is capacity-matched: every pod must place")
     claim_headline = report["kernels"]["cfg4:10kx1k-cap megaround"]
 
-    # 7. kernels line
+    # 7. the daemon: cfg4's pending set through the system's own entry point
+    daemon_phase(torch, report, launches_total, smi)
+    # 8. the solver guard on the card
+    guard_phase(torch, report, smi)
+
+    # 9. kernels line
     meta = {
         "nic_node_masks": ("nhd_tpu_torch/kernels/nic_node_masks.cu",
                            "nhd_tpu/solver/kernel.py:136"),

@@ -13,4 +13,6 @@ This package imports ``torch`` and ``numpy`` and never ``jax`` or
 
 from nhd_tpu_torch.device import resolve_device
 
-__all__ = ["resolve_device"]
+NHD_SCHED_NAME = "nhd-scheduler"
+
+__all__ = ["NHD_SCHED_NAME", "resolve_device"]

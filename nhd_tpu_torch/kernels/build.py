@@ -134,12 +134,26 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+class KernelLaunchError(RuntimeError):
+    """A kernel's C entry point returned a cudaError code: the launcher's
+    own refusal of its sizes (``cudaErrorInvalidValue``) or what
+    ``cudaGetLastError`` reported after the launch. ``code`` is the
+    cudaError value; the solver guard classifies by it
+    (solver/guard.py)."""
+
+    def __init__(self, name: str, code: int, msg: str):
+        super().__init__(f"CUDA kernel {name} failed to launch: {msg} ({code})")
+        self.kernel = name
+        self.code = code
+
+
 def launch(name: str, *args) -> None:
-    """Call kernel *name*'s C entry point; raise on a launch error (a
-    refused launch never runs, and a later synchronize would not say so)."""
+    """Call kernel *name*'s C entry point; raise KernelLaunchError on a
+    launch error (a refused launch never runs, and a later synchronize
+    would not say so)."""
     lib = load(name)
     entry = ABI[name].entry
     rc = getattr(lib, entry)(*args)
     if rc != 0:
         msg = getattr(lib, entry + "_error")(rc).decode()
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({rc})")
+        raise KernelLaunchError(name, rc, msg)

@@ -27,9 +27,18 @@ greedy claim loop and the host re-verifies its claims through the same
 native apply; whatever the native core rejects retries in classic
 rounds. A saturation certificate can end the batch after round 0.
 
-Not in this slice, each with its gate closed: the solver fault guard,
-the mesh, streaming tiles, the AOT cache, and the reference's small-round
-CPU routing — on the card that routing would be a hidden CPU fallback.
+Every round's dispatch runs under the solver fault guard
+(solver/guard.py), as in the reference: a batch-start audit of the
+resident rows, a screen of every pulled rank tensor, and a bounded
+re-dispatch of the round from host truth after a transient fault. The
+ladder has two rungs here: the resident tensors on the device, then a
+non-resident solve on the SAME device (``solve_bucket_ranked`` uploads
+the host arrays every round and still launches the kernels), with no
+megaround. Nothing in the guard moves work to the CPU.
+
+Not in this slice, each with its gate closed: the mesh (and its rung),
+streaming tiles, the AOT cache, and the reference's small-round CPU
+routing — on the card that routing would be a hidden CPU fallback.
 """
 
 from __future__ import annotations
@@ -61,7 +70,20 @@ from nhd_tpu_torch.solver.fast_assign import (
     FastCluster,
     apply_record_to_topology,
 )
-from nhd_tpu_torch.solver.kernel import _pad_pow2, bucket_tractable, rank_budget
+from nhd_tpu_torch.solver.guard import (
+    GUARD,
+    RUNG_HOST,
+    RUNG_SINGLE,
+    DeviceCorruptionError,
+    classify_device_fault,
+)
+from nhd_tpu_torch.solver.kernel import (
+    _pad_pow2,
+    bucket_tractable,
+    rank_budget,
+    ranked_shape_key,
+    solve_bucket_ranked,
+)
 from nhd_tpu_torch.solver.matcher import decode_mapping
 from nhd_tpu_torch.solver.oracle import find_node as oracle_find_node
 from nhd_tpu_torch.solver.speculate import (
@@ -122,7 +144,7 @@ class ScheduleContext:
     nodes: Dict[str, "HostNode"]
     cluster: "ClusterArrays"
     fast: Optional["FastCluster"]
-    dev: "DeviceClusterState"
+    dev: Optional["DeviceClusterState"]  # None = the non-resident rung
     now: float
     delta: Optional["ClusterDelta"] = None
 
@@ -181,6 +203,14 @@ class GcPin:
 
 
 _GC_PIN_MIN_ITEMS = 4096
+
+
+def _rung_of(dev) -> int:
+    """The ladder rung a solve attempt runs at, read off its device
+    state (solver/guard.py): resident tensors on the device, or the
+    non-resident solve on the same device. The mesh rung comes with
+    multi-GPU."""
+    return RUNG_HOST if dev is None else RUNG_SINGLE
 
 
 def _unique_rows(cols):
@@ -645,11 +675,102 @@ class BatchScheduler:
             if self.use_fast
             else None
         )
-        dev = DeviceClusterState(
-            cluster, self.device,
-            capacity=delta.capacity if delta is not None else None,
+        dev = (
+            self._build_dev(
+                cluster, delta.capacity if delta is not None else None
+            )
+            if self._guard_posture() else None
         )
         return ScheduleContext(nodes, cluster, fast, dev, now, delta)
+
+    def _guard_posture(self) -> bool:
+        """Whether a fresh build keeps resident device state: always,
+        unless the guard's floor has condemned the resident plane
+        (solver/guard.py ladder). Either way the solve runs on
+        ``self.device``."""
+        return not GUARD.active() or GUARD.allow_device()
+
+    def _build_dev(self, cluster, capacity):
+        """Construct resident device state under the guard's fault
+        boundary: the build itself copies every node tensor to the
+        device, and on a device that cannot take them it faults exactly
+        like a solve would, so a transient build failure condemns the
+        resident plane straight to the non-resident rung and returns
+        None. With the guard off (or a terminal fault) it raises."""
+        try:
+            return DeviceClusterState(cluster, self.device, capacity=capacity)
+        except Exception as exc:
+            if not GUARD.active() or not classify_device_fault(exc):
+                raise
+            self.logger.error(
+                "solver guard: device-state build failed; condemning to "
+                f"the non-resident rung: {exc!r}"
+            )
+            GUARD.condemn_device(exc)
+            return None
+
+    def _reposture_dev(self, ctx: ScheduleContext) -> None:
+        """Rebuild a persistent context's device state when the guard's
+        floor moved between batches: degradation drops the resident
+        tensors, re-promotion after clean probe rounds re-derives them
+        from host truth. A no-op when the posture already matches."""
+        use_dev = self._guard_posture()
+        if use_dev == (ctx.dev is not None):
+            return
+        capacity = ctx.delta.capacity if ctx.delta is not None else None
+        ctx.dev = self._build_dev(ctx.cluster, capacity) if use_dev else None
+        if ctx.dev is not None:
+            GUARD.note_repair()
+
+    def _guard_recover(self, dev, cluster, context):
+        """Condemn + rebuild the resident state after a transient fault,
+        at the guard's (possibly degraded) allowed rung: the resident
+        tensors re-derive wholesale from the host ClusterArrays. Returns
+        the replacement (None = the non-resident rung) and re-points a
+        persistent context at it so later batches inherit the posture."""
+        new = None
+        if dev is not None and GUARD.allow_device():
+            capacity = (
+                context.delta.capacity
+                if context is not None and context.delta is not None
+                else None
+            )
+            new = self._build_dev(cluster, capacity)
+            if new is not None:
+                GUARD.note_repair()
+        elif dev is not None:
+            self.logger.error(
+                "solver guard: resident device state condemned; this "
+                "batch continues on the non-resident solve path"
+            )
+        if context is not None:
+            context.dev = new
+        return new
+
+    def _guard_audit(self, dev, cluster, context, stats):
+        """Batch-start resident-state audit (solver/guard.py): flush any
+        staged claim rows (the device may legitimately lag them), then
+        bit-exact spot-check the budgeted row sample against the host
+        mirror. Corruption repairs in place (rebuild_resident — host
+        truth wins) before any solve reads the poisoned rows. A device
+        fault inside the audit itself takes the same recover path as a
+        round fault. Returns the (possibly replaced) device state."""
+        t0 = time.perf_counter()
+        try:
+            dev._flush_staged()
+            errs = GUARD.run_audit(dev)
+            if errs:
+                for e in errs[:4]:
+                    self.logger.error(f"resident-state audit: {e}")
+                dev.rebuild_resident()
+                GUARD.note_repair()
+            return dev
+        except Exception as exc:
+            if GUARD.on_fault(exc, rung=_rung_of(dev), attempt=1) != "retry":
+                raise
+            return self._guard_recover(dev, cluster, context)
+        finally:
+            stats.phase_add("guard_audit", time.perf_counter() - t0)
 
     def refresh_context(
         self, ctx: ScheduleContext, *, now: Optional[float] = None,
@@ -664,6 +785,11 @@ class BatchScheduler:
             raise ValueError("refresh_context needs a delta-built context")
         if now is None:
             now = time.monotonic()
+        if GUARD.active():
+            # guard posture drift: a degradation (or re-promotion after
+            # clean probe rounds) between batches rebuilds the resident
+            # plane at the allowed rung before this batch's rows land
+            self._reposture_dev(ctx)
         delta.refresh(now)
         ctx.now = now
         if delta.consume_full():
@@ -675,9 +801,8 @@ class BatchScheduler:
                 )
                 if self.use_fast else None
             )
-            ctx.dev = DeviceClusterState(
-                ctx.cluster, self.device, capacity=delta.capacity
-            )
+            if ctx.dev is not None:
+                ctx.dev = self._build_dev(ctx.cluster, delta.capacity)
             return ctx
         rows = delta.drain_dirty()
         if rows.size and ctx.fast is not None:
@@ -691,7 +816,8 @@ class BatchScheduler:
             else:
                 for i in rows.tolist():
                     ctx.fast.refresh_node(i)
-        ctx.dev.scatter_rows(rows)  # also syncs row-count growth
+        if ctx.dev is not None:
+            ctx.dev.scatter_rows(rows)  # also syncs row-count growth
         return ctx
 
     @_gc_pinned
@@ -788,7 +914,17 @@ class BatchScheduler:
         else:
             fast = None
             submit_fast = self.use_fast and apply
-            dev = DeviceClusterState(cluster, self.device)
+            # the guard's degradation floor applies here too
+            # (_guard_posture), and a build that faults condemns to the
+            # non-resident rung instead of failing the batch (_build_dev)
+            dev = self._build_dev(cluster, None) if self._guard_posture() else None
+        guard_on = GUARD.active()
+        if guard_on and dev is not None and GUARD.audit_due():
+            # periodic + on-suspicion resident-state audit BEFORE any
+            # solve of this batch reads the resident rows: a corrupted
+            # row repairs from host truth here, so the batch's binds are
+            # identical to a fault-free run
+            dev = self._guard_audit(dev, cluster, context, stats)
         records: Dict[int, AssignRecord] = {}
         busy_nodes: set = set()
         all_buckets = None
@@ -801,9 +937,11 @@ class BatchScheduler:
         # speculative round 0 (solver/speculate.py): the device runs the
         # whole greedy claim loop and the host re-verifies its claims
         # through the normal native apply. Off under a live (non-uniform)
-        # scoring matrix: its claims would bypass the policy ranking
+        # scoring matrix: its claims would bypass the policy ranking. The
+        # megaround runs on resident tensors only
         spec_ok = (
             apply
+            and dev is not None
             and speculate_enabled(self.device)
             and not scoring_active()
         )
@@ -818,6 +956,20 @@ class BatchScheduler:
                 pod_index=full.pod_index[mask],
             )
 
+        def _stamp(exc: BaseException, G, pods) -> None:
+            """Attribute a dispatch/pull fault to its bucket's shape key
+            (the dispatch's own, kernel.ranked_shape_key) for the
+            guard's per-shape fault count; best effort, since some
+            exception types refuse new attributes."""
+            Np_k = dev.Np if dev is not None else _pad_pow2(cluster.n_nodes)
+            try:
+                exc._nhd_shape_key = ranked_shape_key(
+                    G, cluster.U, cluster.K, min(R, Np_k),
+                    _pad_pow2(pods.n_types), Np_k,
+                )
+            except (AttributeError, TypeError):
+                pass  # slotted / C-extension exception types
+
         def _dispatch_solves():
             launched = []
             for G, full in all_buckets.items():
@@ -825,19 +977,41 @@ class BatchScheduler:
                 if not mask.any():
                     continue
                 pods = _membership(full, mask)
-                launched.append((G, pods, HostPull(dev.solve_ranked(pods, R))))
+                try:
+                    out = (
+                        dev.solve_ranked(pods, R) if dev is not None
+                        else solve_bucket_ranked(
+                            cluster, pods, R, device=self.device
+                        )
+                    )
+                except Exception as exc:
+                    _stamp(exc, G, pods)
+                    raise
+                launched.append((G, pods, HostPull(out)))
             return launched
 
         def _prelaunch() -> float:
             """Launch round r+1's solves now: the staged claim rows reach
             the device first (same stream), so the host phases that
-            follow overlap the next round's kernels."""
-            nonlocal prelaunched
+            follow overlap the next round's kernels. A prelaunch fault
+            costs only the pipelining: the resident state recovers now
+            and the next round dispatches fresh under its own boundary."""
+            nonlocal prelaunched, spec_ok, dev
             is_pending[:] = False
             is_pending[pending] = True
             t_pl = time.perf_counter()
-            prelaunched = _dispatch_solves()
-            stats.count_add("prelaunched_rounds", 1)
+            try:
+                prelaunched = _dispatch_solves()
+                stats.count_add("prelaunched_rounds", 1)
+            except Exception as exc:
+                if not guard_on or GUARD.on_fault(
+                    exc, rung=_rung_of(dev), attempt=1,
+                    shape_key=getattr(exc, "_nhd_shape_key", ""),
+                ) != "retry":
+                    raise
+                prelaunched = None
+                spec_ok = False
+                dev = self._guard_recover(dev, cluster, context)
             dt = time.perf_counter() - t_pl
             stats.phase_add("prelaunch", dt)
             return dt
@@ -879,49 +1053,102 @@ class BatchScheduler:
             is_pending[:] = False
             is_pending[pending] = True
 
-            # (pod index, node index, bucket G, type, rank position)
-            claims: List[Tuple[int, int, int, int, int]] = []
-            bucket_out = {}
-            spec = None
-            claims_np = counts_np = None
-            spec_round = spec_ok and round_no == 0
-            if prelaunched is not None:
-                launched = prelaunched
-                prelaunched = None
-            else:
-                if spec_round:
-                    t_sp = time.perf_counter()
-                    spec = self._speculate_dispatch(dev, all_buckets, is_pending)
-                    stats.phase_add("spec_dispatch", time.perf_counter() - t_sp)
-                    launched = []
-                if spec is None:
-                    # nothing to speculate: classic round
-                    spec_round = False
-                    launched = _dispatch_solves()
-            if submit_fast:
-                submit_fast = False
-                fast_future = _fc_executor().submit(
-                    FastCluster, nodes, cluster.U, cluster.K,
-                    arrays=cluster, static_cache=self._fc_static,
-                )
-            if fast_future is not None:
-                t_j = time.perf_counter()
-                fast = fast_future.result()
-                fast_future = None
-                stats.phase_add("fast_join", time.perf_counter() - t_j)
-            if spec_round:
-                # the megaround's results, copied since dispatch
-                t_pull = time.perf_counter()
-                claims_np = spec.claims.numpy()
-                counts_np = spec.counts.numpy()
-                spec_need_left = int(spec.need_left.numpy().sum())
-                spec_it = int(spec.iters_used.numpy())
-                stats.phase_add("spec_pull", time.perf_counter() - t_pull)
-                stats.count_add("spec_iterations", spec_it)
-            for G, pods, pull in launched:
-                # one pull per bucket: the packed [9, Tp, R] ranking
-                arr = pull.numpy()
-                bucket_out[G] = (pods, RankHost(*arr[:, : pods.n_types]))
+            # ---- solve phase, under the guard's fault boundary ------
+            # Any exception out of a device dispatch, a pull or the
+            # rank-tensor screen is classified (solver/guard.py); a
+            # transient fault condemns the device state, rebuilds it from
+            # host truth at a (possibly degraded) rung, and re-dispatches
+            # the whole round — none of this round's claims has been
+            # applied yet, so a retried round never binds wrongly or in
+            # part. Terminal faults and an exhausted ladder raise.
+            guard_attempts = 0
+            while True:
+                # (pod index, node index, bucket G, type, rank position)
+                claims: List[Tuple[int, int, int, int, int]] = []
+                bucket_out = {}
+                spec = None
+                claims_np = counts_np = None
+                try:
+                    spec_round = spec_ok and round_no == 0
+                    if prelaunched is not None:
+                        launched = prelaunched
+                        prelaunched = None
+                    else:
+                        if spec_round:
+                            t_sp = time.perf_counter()
+                            spec = self._speculate_dispatch(
+                                dev, all_buckets, is_pending
+                            )
+                            stats.phase_add(
+                                "spec_dispatch", time.perf_counter() - t_sp
+                            )
+                            launched = []
+                        if spec is None:
+                            # nothing to speculate: classic round
+                            spec_round = False
+                            launched = _dispatch_solves()
+                    if submit_fast:
+                        submit_fast = False
+                        fast_future = _fc_executor().submit(
+                            FastCluster, nodes, cluster.U, cluster.K,
+                            arrays=cluster, static_cache=self._fc_static,
+                        )
+                    if fast_future is not None:
+                        t_j = time.perf_counter()
+                        fast = fast_future.result()
+                        fast_future = None
+                        stats.phase_add("fast_join", time.perf_counter() - t_j)
+                    if spec_round:
+                        # the megaround's results, copied since dispatch
+                        t_pull = time.perf_counter()
+                        claims_np = spec.claims.numpy()
+                        counts_np = spec.counts.numpy()
+                        spec_need_left = int(spec.need_left.numpy().sum())
+                        spec_it = int(spec.iters_used.numpy())
+                        stats.phase_add(
+                            "spec_pull", time.perf_counter() - t_pull
+                        )
+                        stats.count_add("spec_iterations", spec_it)
+                    for G, pods, pull in launched:
+                        try:
+                            # one pull per bucket: the packed [9, Tp, R]
+                            # ranking
+                            arr = pull.numpy()
+                            if guard_on:
+                                # value-domain screen BEFORE any winner
+                                # materializes (the int analog of a
+                                # NaN/inf screen, solver/guard.py)
+                                npad = (
+                                    dev.Np if dev is not None
+                                    else _pad_pow2(cluster.n_nodes)
+                                )
+                                defect = GUARD.screen_rank(arr, npad)
+                                if defect:
+                                    raise DeviceCorruptionError(
+                                        f"rank-tensor screen: {defect}"
+                                    )
+                        except Exception as exc:
+                            _stamp(exc, G, pods)
+                            raise
+                        bucket_out[G] = (pods, RankHost(*arr[:, : pods.n_types]))
+                    break
+                except Exception as exc:
+                    if not guard_on:
+                        raise
+                    guard_attempts += 1
+                    if GUARD.on_fault(
+                        exc, rung=_rung_of(dev), attempt=guard_attempts,
+                        shape_key=getattr(exc, "_nhd_shape_key", ""),
+                    ) != "retry":
+                        raise
+                    # a faulted batch never speculates again: the classic
+                    # round's host re-verification is the conservative
+                    # posture while the device plane is suspect
+                    spec_ok = False
+                    prelaunched = None
+                    dev = self._guard_recover(dev, cluster, context)
+            if guard_on:
+                GUARD.note_round_clean()
             stats.solve_seconds += time.perf_counter() - t0
 
             t0 = time.perf_counter()
@@ -1037,7 +1264,8 @@ class BatchScheduler:
                 stats.phase_add("native_assign", time.perf_counter() - t_na)
                 # bind stamp = native-verify completion
                 stats.round_end_seconds.append(time.perf_counter() - t_batch)
-                dev.stage_rows(node_claimed)
+                if dev is not None:
+                    dev.stage_rows(node_claimed)
 
                 # a winner leaves pending when its assignment succeeded OR
                 # it was the first claim its node processed (ran against
@@ -1326,7 +1554,7 @@ class BatchScheduler:
                     refresh_node_row(cluster, n, node_list[n], now=now)
                     if not self.respect_busy:
                         cluster.busy[n] = False
-            if apply:
+            if dev is not None and apply:
                 dev.stage_rows(node_claimed)
             stats.assign_seconds += time.perf_counter() - t0
             stats.round_end_seconds.append(time.perf_counter() - t_batch)
@@ -1340,9 +1568,18 @@ class BatchScheduler:
 
         if prelaunched is not None:
             # the batch ended with a launch in flight (its pods all
-            # settled): wait for it so no copy outlives the call
-            for _G, _pods, pull in prelaunched:
-                pull.numpy()
+            # settled): wait for it so no copy outlives the call. Every
+            # claim is applied by now, so a transient fault here costs
+            # only the resident state, which recovers for the next batch
+            try:
+                for _G, _pods, pull in prelaunched:
+                    pull.numpy()
+            except Exception as exc:
+                if not guard_on or GUARD.on_fault(
+                    exc, rung=_rung_of(dev), attempt=1,
+                ) != "retry":
+                    raise
+                self._guard_recover(dev, cluster, context)
 
         # fast path: one final sync of the HostNode mirror + topology fills
         if fast is not None:

@@ -131,6 +131,12 @@ class DeviceClusterState:
     def _scatter(self, names, rows: np.ndarray) -> None:
         """Copy *rows* of the named host arrays into the resident tensors
         in place, one ``index_copy_`` per tensor on the current stream."""
+        from nhd_tpu_torch.solver import guard
+
+        # the reference's detail string names its padded index width
+        guard.maybe_inject(
+            "upload", f"scatter_W{_pad_pow2(len(rows))}_N{self.Np}"
+        )
         idx = to_device(rows.astype(np.int64), self.device)
         for name in names:
             src = getattr(self.cluster, name)[rows]
@@ -215,6 +221,9 @@ class DeviceClusterState:
             "B" + "_".join(f"G{g}T{t}" for g, t in shapes)
             + f"_U{self.cluster.U}_K{self.cluster.K}_N{self.Np}",
         )
+        from nhd_tpu_torch.solver import guard
+
+        guard.maybe_inject("megaround", f"B{len(bucket_pods)}_N{self.Np}")
         try:
             return run_megaround(
                 self._dev, bucket_pods,

@@ -508,7 +508,7 @@ def reset_delta_metrics() -> None:
 
 
 def _counters():
-    from nhd_tpu_torch.obs.counters import API_COUNTERS
+    from nhd_tpu_torch.k8s.retry import API_COUNTERS
 
     return API_COUNTERS
 

@@ -315,8 +315,17 @@ def dispatch_ranked(G, U, K, R, Tp, Np, node: Sequence[Tensor],
                     pod: PodTensors) -> Tensor:
     """Solve + rank for one padded shape: the single seam the host path
     and the device-resident path share. Records the dispatch under the
-    reference's shape key (a first-seen key is a new shape)."""
-    JIT_STATS.record_use("solve_ranked", ranked_shape_key(G, U, K, R, Tp, Np))
+    reference's shape key (a first-seen key is a new shape), and is the
+    solver guard's ``dispatch`` fault-injection site (solver/guard.py).
+    The reference also checks the guard's shape quarantine here, to skip
+    its AOT program cache; the port builds each kernel once from source
+    and has no per-shape program to skip (the AOT slice adds both)."""
+    from nhd_tpu_torch.solver import guard
+
+    key_str = ranked_shape_key(G, U, K, R, Tp, Np)
+    JIT_STATS.record_use("solve_ranked", key_str)
+    # chaos fault-injection seam (solver/guard.py): no-op in production
+    guard.maybe_inject("dispatch", key_str)
     return rank_planes(R, solve_planes(G, U, K, node, pod), node)
 
 
