@@ -50,10 +50,34 @@ Phases (one line each; the last line is the contract line):
    run (``NHD_GUARD_RETRIES=2``: floor unmoved; ``=1``: floor at the
    non-resident rung, whose solves still launch the kernels on the card);
    the wall per round with the guard on against ``NHD_GUARD=0``;
-9. the kernels JSON line: per kernel its launches in phases 4-7 (counts
-   set to 0 just before each timed schedule and read just after), its
-   time, its plain version's time and its bound — the solve kernels at
-   the cfg4 G=2 bucket, the claim kernels at cfg4's first megaround
+9. cfg5:100kx10k-stream through the streaming tiler (bench.py
+   cfg5, run_stream): 100,000 workload_mix pods (groups
+   default/edge/batch/fed1/fed2) on 10,000 cap_cluster nodes, not cut.
+   (a) ``StreamingScheduler(device="cuda", tile_nodes=16384,
+   chunk_pods=100_000, placement="routed")`` after a warm run on a
+   throwaway cluster: wall, pods/s, p99 bind, rounds, megaround
+   iterations and phases; then the same batch on ``device="cpu"`` with
+   ``NHD_TPU_SPECULATE=1`` and through the untiled
+   ``BatchScheduler(device="cuda")``: every pod's node, mapping and NICs
+   identical to the card's. (b) the same cell at ``tile_nodes=4096``: three
+   tiles and three worker threads launching on the card; placements equal
+   to the CPU run of the same tiling, the launch counts equal to the sum
+   of what each tile sub-call's thread launched, both walls. (c) every
+   solve and claim-kernel call of (a) copied and held to its plain
+   version at the tile's size (Np=16,384); the first solve of each bucket
+   and the first megaround iteration timed beside the kernel's empty-body
+   launch on the same grid (kernel_variants.py's ``empty`` variant) and
+   its bound. (d) 10,000 cfg4 nodes and 2,000 Triad pods (cut from
+   100,000: this part tests the daemon's routing past NHD_STREAM_NODES)
+   through ``Scheduler(device="cuda")``: the tiler engaged, every kernel
+   launched, every pod's node, solved config and NAD identical to a
+   ``device="cpu"`` run with speculation on and the same tile. (e) (a)
+   once more under torch.profiler, not counted: device busy against the
+   wall;
+10. the kernels JSON line: per kernel its launches in phases 4-7 and 9
+   (counts set to 0 just before each counted run and read just after),
+   its time, its plain version's time and its bound — the solve kernels
+   at the cfg4 G=2 bucket, the claim kernels at cfg4's first megaround
    iteration. A bound counts the bytes and operations of the real type
    and node rows only (padded rows are sliced off and need no work); a
    claim kernel's counts what its iteration's data needs (the live type
@@ -87,6 +111,17 @@ CELL_PODS, CELL_NODES, WIDE_N = 10_000, 1_000, 4096
 DAEMON_NODES, DAEMON_PODS, DAEMON_CUT = 1_000, 10_000, None
 #: alternating guard-on / NHD_GUARD=0 schedule pairs timed in phase 8
 GUARD_COST_PAIRS = 5
+#: phase 9, cfg5:100kx10k-stream (bench.py): pods, nodes, groups, the
+#: tiler's accelerator tile and chunk, the split tile of part (b), and the
+#: warm run's pods (bench.py run_stream's)
+FED_PODS, FED_NODES = 100_000, 10_000
+FED_GROUPS = ["default", "edge", "batch", "fed1", "fed2"]
+FED_TILE, FED_CHUNK, FED_SPLIT_TILE, FED_WARM_PODS = 16384, 100_000, 4096, 4096
+#: phase 9 (d): the daemon past NHD_STREAM_NODES, and the cut it makes
+STREAM_DAEMON_NODES, STREAM_DAEMON_PODS = 10_000, 2_000
+STREAM_DAEMON_CUT = ("pods cut from 100,000 to 2,000: this part tests the "
+                     "routing past NHD_STREAM_NODES; per-pod daemon host "
+                     "work is phase 7's subject")
 
 
 def card(torch):
@@ -312,11 +347,36 @@ def stage(kernel_mod, reference, node, pod):
     }
 
 
-def check_kernels(torch, label, node, pod, report, real, *, timed=True):
+def floor_ms(torch, floors, name, args, kw, prep=None):
+    """Median time of kernel *name*'s empty-body variant (``floors``, from
+    ``build_floors``) launched on the same grid as *args* give it."""
+    import kernel_variants as kv
+
+    return cuda_time_ms(torch, kv.caller(torch, floors[name], name, args, kw),
+                        prep=prep)
+
+
+def build_floors():
+    """{kernel: entry point} of each kernel built with an empty body
+    (kernel_variants.py's ``empty`` variants), one nvcc per source, all
+    started together, into the git-ignored build directory."""
+    import kernel_variants as kv
+
+    from nhd_tpu_torch import kernels
+    from nhd_tpu_torch.kernels import build
+
+    libs = kv.build_all({(k, "empty"): kv.variant_source(k, "empty")
+                         for k in kernels.KERNELS},
+                        os.path.join(str(build.BUILD_DIR), "floors"))
+    return {k: kv.entry(libs[(k, "empty")], k) for k in kernels.KERNELS}
+
+
+def check_kernels(torch, label, node, pod, report, real, *, timed=True,
+                  floors=None):
     """One solve's kernels against their plain versions on the card, on
-    the same inputs; with *timed*, also their times and bounds. *real*:
-    the real type and node counts {"T": ..., "N": ...} of the padded
-    tensors."""
+    the same inputs; with *timed*, also their times and bounds (and, with
+    *floors*, the empty-body launch on the same grid). *real*: the real
+    type and node counts {"T": ..., "N": ...} of the padded tensors."""
     from nhd_tpu_torch import kernels
     from nhd_tpu_torch.kernels import reference
     from nhd_tpu_torch.solver import kernel as kernel_mod
@@ -345,9 +405,13 @@ def check_kernels(torch, label, node, pod, report, real, *, timed=True):
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "bytes": moved, "ops": ops,
         })
+        floor = ""
+        if floors is not None:
+            out[name]["floor_ms"] = floor_ms(torch, floors, name, args, kw)
+            floor = f", empty launch {out[name]['floor_ms']:.4f} ms"
         log(f"kernel {name} @ {label}: exact; {ms:.4f} ms (plain "
             f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms by {bound_by}, "
-            f"{moved} B, {ops} ops)")
+            f"{moved} B, {ops} ops{floor})")
     report["kernels"][label] = out
     return out
 
@@ -461,11 +525,12 @@ def run_claim(torch, fn, name, snap, kw):
     return t
 
 
-def check_claims(torch, label, calls, report, real, *, timed):
+def check_claims(torch, label, calls, report, real, *, timed, floors=None):
     """Each captured claim-kernel call, kernel and plain version on two
     copies of its inputs: every tensor the call writes must be equal.
     With *timed*, the first call of each kernel is also timed (its
-    in-place inputs restored before every launch) and bounded."""
+    in-place inputs restored before every launch) and bounded, and with
+    *floors* its empty-body launch on the same grid timed too."""
     from nhd_tpu_torch import kernels
     from nhd_tpu_torch.kernels import reference
     from nhd_tpu_torch.kernels.abi import ABI
@@ -500,10 +565,17 @@ def check_claims(torch, label, calls, report, real, *, timed):
         bound_ms, bound_by, moved, ops = claim_bound(name, t, real, kw)
         out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
-                     "bytes": moved, "ops": ops}
+                     "bytes": moved, "ops": ops,
+                     "largest_buffer": max(v.numel() for v in snap.values())}
+        floor = ""
+        if floors is not None:
+            out[name]["floor_ms"] = floor_ms(torch, floors, name, args, kw,
+                                             prep=prep)
+            floor = f", empty launch {out[name]['floor_ms']:.4f} ms"
         log(f"kernel {name} @ {label} iteration 0: exact; {ms:.4f} ms (plain "
             f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms by {bound_by}, "
-            f"{moved} B, {ops} ops)")
+            f"{moved} B, {ops} ops{floor}; largest buffer "
+            f"{out[name]['largest_buffer']} elements)")
     if timed:
         report["kernels"][label] = out
     return out
@@ -863,15 +935,7 @@ def run_cell(torch, name, cluster_fn, report, launches_total, *, speculative):
             device="cpu", respect_busy=False, register_pods=False
         ).schedule(cluster_fn(CELL_NODES, GROUPS), items, now=0.0)
     cpu_wall = time.perf_counter() - t1
-    diff = [
-        i for i, (a, b) in enumerate(zip(results, cpu_res))
-        if (a.node, None if a.mapping is None else dict(a.mapping), a.nic_list)
-        != (b.node, None if b.mapping is None else dict(b.mapping), b.nic_list)
-    ]
-    if diff:
-        i = diff[0]
-        fail(f"{name}: {len(diff)} pods placed differently on cuda and cpu "
-             f"(first: {results[i]} vs {cpu_res[i]})")
+    same_placements(name, results, cpu_res, "the CPU run")
     if placed == 0:
         fail(f"{name}: nothing placed")
     if (cpu_stats.rounds, cpu_stats.counters.get("spec_iterations", 0)) != (
@@ -928,24 +992,33 @@ def run_cell(torch, name, cluster_fn, report, launches_total, *, speculative):
     return placed
 
 
-def _daemon_run(device, n_pods):
+def _daemon_run(device, n_pods, n_nodes=DAEMON_NODES, tile=None):
     """cfg4's pending set (sim/pending.py) on a fresh fake backend, driven
-    through the port's Scheduler on *device* by its normal turn. Returns
-    the drive's numbers and each pod's (node, solved config, NAD)."""
+    through the port's Scheduler on *device* by its normal turn (with
+    *tile*, the streaming tile the daemon uses past NHD_STREAM_NODES).
+    Returns the drive's numbers and each pod's (node, solved config,
+    NAD)."""
     import queue
 
     import nhd_tpu_torch.sim as sim
     from nhd_tpu_torch.k8s.fake import FakeClusterBackend
     from nhd_tpu_torch.k8s.interface import CFG_ANNOTATION, NAD_ANNOTATION
-    from nhd_tpu_torch.scheduler.core import Scheduler
+    from nhd_tpu_torch.scheduler import core
     from nhd_tpu_torch.scheduler.events import WatchQueue
     from nhd_tpu_torch.sim import pending
 
     backend = FakeClusterBackend()
-    pending.fill_cfg4(backend, sim, DAEMON_NODES, n_pods)
-    sched = Scheduler(backend, WatchQueue(), queue.Queue(),
-                      respect_busy=False, device=device)
-    got = pending.drive(sched)
+    pending.fill_cfg4(backend, sim, n_nodes, n_pods)
+    sched = core.Scheduler(backend, WatchQueue(), queue.Queue(),
+                           respect_busy=False, device=device)
+    saved = core.STREAM_TILE_NODES
+    core.STREAM_TILE_NODES = tile or saved
+    try:
+        got = pending.drive(sched)
+    finally:
+        core.STREAM_TILE_NODES = saved
+    got["streamed"] = sched._stream is not None
+    got["tile_nodes"] = (sched._stream.tile_nodes if got["streamed"] else None)
     got["batch_s"] = sum(sched.perf[k] for k in (
         "solve_seconds_total", "select_seconds_total", "assign_seconds_total"))
     outcome = {
@@ -1029,6 +1102,276 @@ def daemon_phase(torch, report, launches_total, smi):
         "guard": moved, "cpu_wall_s": cpu_got["wall"], "profile": profile,
         "smi": smi,
     }
+
+
+def fed_items(n, key="ns"):
+    from nhd_tpu_torch.sim.workloads import workload_mix
+    from nhd_tpu_torch.solver import BatchItem
+
+    return [BatchItem((key, f"p{i}"), r)
+            for i, r in enumerate(workload_mix(n, FED_GROUPS))]
+
+
+def fed_nodes(n=None):
+    from nhd_tpu_torch.sim.workloads import cap_cluster
+
+    return cap_cluster(FED_NODES if n is None else n, FED_GROUPS)
+
+
+def streamer(device, tile):
+    """The tiler as bench.py run_stream drives it on an accelerator."""
+    from nhd_tpu_torch.solver import StreamingScheduler
+
+    return StreamingScheduler(device=device, tile_nodes=tile,
+                              chunk_pods=FED_CHUNK, placement="routed",
+                              respect_busy=False, register_pods=False)
+
+
+@contextlib.contextmanager
+def spans(stream_sched):
+    """Wrap a StreamingScheduler's tile sub-calls, tile context builds and
+    chunk encodes for the duration. Yields the dict they fill: "calls",
+    one (thread, what that thread launched during the sub-call, wall s)
+    per sub-call; "contexts" and "encodes", the wall of each build and
+    each chunk encode."""
+    import threading
+
+    from nhd_tpu_torch import kernels
+    from nhd_tpu_torch.solver import encode
+
+    got = {"calls": [], "contexts": [], "encodes": []}
+    batch = stream_sched.batch
+    sub, make, enc = batch.schedule, batch.make_context, encode.encode_pods
+
+    def timed(fn, key):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                got[key].append(time.perf_counter() - t0)
+        return run
+
+    def spy(*args, **kw):
+        before = kernels.thread_launches()
+        t0 = time.perf_counter()
+        try:
+            return sub(*args, **kw)
+        finally:
+            after = kernels.thread_launches()
+            got["calls"].append((threading.get_ident(),
+                                 {n: after[n] - before[n] for n in kernels.KERNELS},
+                                 time.perf_counter() - t0))
+
+    batch.schedule, batch.make_context = spy, timed(make, "contexts")
+    encode.encode_pods = timed(enc, "encodes")
+    try:
+        yield got
+    finally:
+        del batch.schedule, batch.make_context
+        encode.encode_pods = enc
+
+
+def wall_split(wall, got):
+    """Where a tiler run's wall went, from ``spans``: the tile context
+    builds, the chunk encodes, the sub-calls (summed over threads) and the
+    tiler's own host work (the rest of a one-tile run)."""
+    ctx, enc = sum(got["contexts"]), sum(got["encodes"])
+    calls = sum(w for _t, _c, w in got["calls"])
+    return {"context_build_s": ctx, "chunk_encode_s": enc, "subcalls_s": calls,
+            "tiler_rest_s": wall - ctx - enc - calls}
+
+
+def placed_as(results):
+    return [(r.node, None if r.mapping is None else dict(r.mapping), r.nic_list)
+            for r in results]
+
+
+def same_placements(label, got, want, what):
+    got, want = placed_as(got), placed_as(want)
+    diff = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    if diff or len(got) != len(want):
+        i = diff[0] if diff else None
+        fail(f"{label}: {len(diff)} pods placed differently from {what} "
+             f"(first: {None if i is None else (got[i], want[i])})")
+
+
+def counted(torch, fn):
+    """(fn's result, wall seconds, launches) with the counts set to 0 just
+    before and read just after."""
+    from nhd_tpu_torch import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, dict(kernels.LAUNCHES)
+
+
+def stream_phase(torch, report, launches_total, smi):
+    """Phase 9: cfg5 through the streaming tiler on the card (module
+    docstring, parts a-e)."""
+    from nhd_tpu_torch import kernels
+    from nhd_tpu_torch.solver import BatchScheduler
+
+    dev = card(torch)
+    out = {"pods": FED_PODS, "nodes": FED_NODES, "smi": smi}
+    items = fed_items(FED_PODS)
+
+    def launched_all(label, launches):
+        missing = [k for k in kernels.KERNELS if launches[k] == 0]
+        if missing:
+            fail(f"{label}: kernels {missing} were never launched")
+        for k, v in launches.items():
+            launches_total[k] += v
+
+    def summary(label, res, stats, wall, launches):
+        placed = sum(1 for r in res if r.node)
+        p99 = stats.bind_latency_percentile(res, 99)
+        phases = " ".join(f"{k}={v:.3f}s" for k, v in sorted(stats.phases.items()))
+        log(f"{label}: placed {placed}/{len(res)} wall={wall:.4f}s "
+            f"({placed / wall:.0f} pods/s) p99_bind={p99:.4f}s rounds={stats.rounds} "
+            f"megaround iterations={stats.counters.get('spec_iterations', 0)} "
+            f"launches={launches}; phases: {phases}")
+        return {"placed": placed, "wall_s": wall, "pods_per_s": placed / wall,
+                "p99_bind_s": p99, "rounds": stats.rounds,
+                "megaround_iterations": stats.counters.get("spec_iterations", 0),
+                "phases_s": stats.phases, "counters": stats.counters,
+                "launches": launches}
+
+    # (a) one 16,384-node tile, as run_stream drives an accelerator
+    t0 = time.perf_counter()
+    nodes = fed_nodes()
+    build_s = time.perf_counter() - t0
+    streamer(dev, FED_TILE).schedule(fed_nodes(), fed_items(FED_WARM_PODS, "w"),
+                                     now=0.0)
+    sched = streamer(dev, FED_TILE)
+    with spans(sched) as got_a:
+        (res, stats), wall, launches = counted(
+            torch, lambda: sched.schedule(nodes, items, now=0.0))
+    launched_all("cfg5 (a)", launches)
+    a = summary(f"cfg5 (a) cuda, tile {FED_TILE}, {FED_NODES} nodes "
+                f"(cluster built in {build_s:.1f}s)", res, stats, wall, launches)
+    if a["placed"] != FED_PODS:
+        fail(f"cfg5 is capacity-matched: placed {a['placed']}/{FED_PODS}")
+    a["split_s"] = wall_split(wall, got_a)
+    log("cfg5 (a) wall split: " + " ".join(
+        f"{k}={v:.4f}" for k, v in a["split_s"].items()))
+    t0 = time.perf_counter()
+    with env(NHD_TPU_SPECULATE="1"):
+        cpu_res, cpu_stats = streamer("cpu", FED_TILE).schedule(
+            fed_nodes(), items, now=0.0)
+    a["cpu_wall_s"] = time.perf_counter() - t0
+    same_placements("cfg5 (a)", res, cpu_res, "the CPU run")
+    del cpu_res
+    (ub_res, ub_stats), a["untiled_wall_s"], _ = counted(
+        torch, lambda: BatchScheduler(device=dev, respect_busy=False,
+                                      register_pods=False).schedule(
+            fed_nodes(), items, now=0.0))
+    same_placements("cfg5 (a)", res, ub_res, "the untiled BatchScheduler on cuda")
+    del ub_res
+    log(f"cfg5 (a): every pod's node, mapping and NICs identical on cuda, on the "
+        f"CPU (speculation on; {a['cpu_wall_s']:.2f}s with the cluster build) and "
+        f"through the untiled BatchScheduler on cuda ({a['untiled_wall_s']:.2f}s "
+        f"with the cluster build); {smi}")
+    out["a"] = a
+
+    # (b) three tiles, three workers launching on the card
+    rem = FED_NODES % FED_SPLIT_TILE
+    streamer(dev, FED_SPLIT_TILE).schedule(
+        fed_nodes(FED_SPLIT_TILE + rem), fed_items(FED_WARM_PODS, "w"), now=0.0)
+    split = streamer(dev, FED_SPLIT_TILE)
+    nodes_b = fed_nodes()
+    with spans(split) as got_b:
+        (res_b, stats_b), wall_b, launches_b = counted(
+            torch, lambda: split.schedule(nodes_b, items, now=0.0))
+    del nodes_b
+    launched_all("cfg5 (b)", launches_b)
+    calls = got_b["calls"]
+    summed = {k: sum(c[k] for _t, c, _w in calls) for k in kernels.KERNELS}
+    if summed != launches_b:
+        fail(f"cfg5 (b): launch counts {launches_b} differ from the sum over "
+             f"the tile sub-calls {summed}")
+    threads = len({t for t, c, _w in calls if any(c.values())})
+    if threads < 2:
+        fail(f"cfg5 (b): the tiles launched from {threads} thread(s)")
+    b = summary(f"cfg5 (b) cuda, tile {FED_SPLIT_TILE} ({-(-FED_NODES // FED_SPLIT_TILE)} "
+                f"tiles)", res_b, stats_b, wall_b, launches_b)
+    b["split_s"] = wall_split(wall_b, got_b)
+    b["subcall_s"] = [w for _t, _c, w in calls]
+    log("cfg5 (b) spans (summed over threads): " + " ".join(
+        f"{k}={v:.4f}" for k, v in b["split_s"].items() if k != "tiler_rest_s")
+        + f"; sub-calls {[round(w, 4) for w in b['subcall_s']]}s")
+    t0 = time.perf_counter()
+    with env(NHD_TPU_SPECULATE="1"):
+        cpu_b, _ = streamer("cpu", FED_SPLIT_TILE).schedule(fed_nodes(), items, now=0.0)
+    b["cpu_wall_s"] = time.perf_counter() - t0
+    same_placements("cfg5 (b)", res_b, cpu_b, "the CPU run of the same tiling")
+    del cpu_b, res_b
+    b.update({"subcalls": len(calls), "threads": threads})
+    log(f"cfg5 (b): {len(calls)} tile sub-calls on {threads} threads launched "
+        f"{summed} in all, equal to the counts; placements identical to the CPU "
+        f"run; walls: cuda {wall_b:.4f}s (one tile: {wall:.4f}s), cpu "
+        f"{b['cpu_wall_s']:.2f}s with the cluster build; {smi}")
+    out["b"] = b
+
+    # (c) every kernel at the tile's size, on (a)'s own inputs
+    floors = build_floors()
+    again, _, cap = capture_schedule(torch, sched, nodes, items)
+    same_placements("cfg5 (c)", again, res, "the counted cuda run")
+    del again
+    timed_g = set()
+    for i, (G, real, node, pod) in enumerate(cap.solves):
+        first = G not in timed_g
+        timed_g.add(G)
+        check_kernels(torch, f"cfg5 solve {i} G={G} T={real['T']} N={real['N']} "
+                      f"(Np={node[0].shape[0]})", node, pod, report, real,
+                      timed=first, floors=floors if first else None)
+    real = {"N": cap.megarounds[0][4]}
+    check_claims(torch, "cfg5 megaround", cap.claims, report, real, timed=True,
+                 floors=floors)
+    log(f"cfg5 (c) kernels vs plain: all {len(cap.solves)} solves and "
+        f"{len(cap.claims)} claim-kernel calls of the batch, exact")
+    out["c"] = {"solves": len(cap.solves), "claim_calls": len(cap.claims)}
+    del cap
+
+    # (d) the daemon past NHD_STREAM_NODES
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    got, outcome = _daemon_run(dev, STREAM_DAEMON_PODS, STREAM_DAEMON_NODES)
+    torch.cuda.synchronize()
+    launches_d = dict(kernels.LAUNCHES)
+    if not got["streamed"]:
+        fail("cfg5 (d): the daemon did not build its streaming tiler")
+    launched_all("cfg5 (d)", launches_d)
+    with env(NHD_TPU_SPECULATE="1"):
+        cpu_got, cpu_outcome = _daemon_run("cpu", STREAM_DAEMON_PODS,
+                                           STREAM_DAEMON_NODES, got["tile_nodes"])
+    diff = [k for k in outcome if outcome[k] != cpu_outcome.get(k)]
+    if diff or cpu_got["bound"] != got["bound"] or not got["bound"]:
+        fail(f"cfg5 (d): {len(diff)} pods bound differently on cuda and cpu "
+             f"(first: {diff[:1]}), bound {got['bound']} vs {cpu_got['bound']}")
+    log(f"cfg5 (d) daemon: {STREAM_DAEMON_NODES} cfg4 nodes, {STREAM_DAEMON_PODS} "
+        f"pending pods ({STREAM_DAEMON_CUT}); streaming tiler engaged (tile "
+        f"{got['tile_nodes']}), bound {got['bound']} in {got['turns']} turns, "
+        f"wall={got['wall']:.4f}s, batches {got['batch_s']:.4f}s, "
+        f"launches={launches_d}; every pod's node, solved config and NAD "
+        f"identical to the cpu run (wall {cpu_got['wall']:.4f}s); {smi}")
+    out["d"] = {"bound": got["bound"], "turns": got["turns"], "wall_s": got["wall"],
+                "batch_s": got["batch_s"], "launches": launches_d,
+                "cpu_wall_s": cpu_got["wall"], "cut": STREAM_DAEMON_CUT}
+
+    # (e) (a) once more under the profiler, not counted
+    for n in nodes.values():
+        n.reset_resources()
+    profile = device_profile(torch, lambda: streamer(dev, FED_TILE).schedule(
+        nodes, items, now=0.0))
+    log(f"cfg5 (e) profile: wall={profile['wall_s']:.4f}s device_busy="
+        f"{profile['device_busy_s']:.6f}s idle_share={profile['idle_share']}; "
+        f"top device: {profile['top_device']}; top host: {profile['top_host']}")
+    out["e"] = profile
+    report["stream"] = out
 
 
 class _DispatchFault:
@@ -1264,8 +1607,10 @@ def main():
     daemon_phase(torch, report, launches_total, smi)
     # 8. the solver guard on the card
     guard_phase(torch, report, smi)
+    # 9. cfg5 through the streaming tiler
+    stream_phase(torch, report, launches_total, smi)
 
-    # 9. kernels line
+    # 10. kernels line
     meta = {
         "nic_node_masks": ("nhd_tpu_torch/kernels/nic_node_masks.cu",
                            "nhd_tpu/solver/kernel.py:136"),

@@ -27,10 +27,19 @@ on the CPU. For CUDA tensors it checks shapes, types and contiguity
 against the kernel's interface table (``abi.ABI``), launches the kernel
 on PyTorch's current stream, adds one to ``LAUNCHES[name]`` and raises if
 the launch failed: there is no fallback.
+
+Threads: the streaming tiler (solver/streaming.py) launches from several
+worker threads at once. The counts are kept under a lock, and each
+thread also keeps its own (``thread_launches``), so a caller can hold the
+total to the sum of what each sub-call launched. A worker thread that
+never picked a stream launches on the device's default stream, as every
+other thread does, so the launches of different tiles are ordered on the
+card; the build is under ``build._LOCK``.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -51,11 +60,30 @@ assert set(KERNELS) == set(SOLVE_KERNELS + CLAIM_KERNELS)
 #: launches per kernel since the last reset_launches() — counted where a
 #: wrapper launches its kernel and nowhere else
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+_COUNT_LOCK = threading.Lock()
+_THREAD = threading.local()
 
 
 def reset_launches() -> None:
-    for name in KERNELS:
-        LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in KERNELS:
+            LAUNCHES[name] = 0
+
+
+def thread_launches() -> Dict[str, int]:
+    """The calling thread's launches per kernel since the thread started
+    (never reset): the difference of two readings is what the thread
+    launched between them."""
+    return dict(getattr(_THREAD, "counts", None) or dict.fromkeys(KERNELS, 0))
+
+
+def _count(name: str) -> None:
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+    counts = getattr(_THREAD, "counts", None)
+    if counts is None:
+        counts = _THREAD.counts = dict.fromkeys(KERNELS, 0)
+    counts[name] += 1
 
 
 def _on_cpu(t: Tensor) -> bool:
@@ -112,7 +140,7 @@ def _launch(name: str, inputs: Sequence[Tensor], sizes: Dict[str, int],
         *(sizes[s] for s in spec.sizes),
         dev.index, _stream(dev),
     )
-    LAUNCHES[name] += 1
+    _count(name)
     return outs
 
 

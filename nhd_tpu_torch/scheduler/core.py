@@ -19,9 +19,9 @@ device seams rewired (everything else is the reference's text):
 * The mesh knob (``--mesh``/``NHD_MESH``): ``auto``, ``off`` and ``1``
   resolve to no mesh; a count above 1 raises NotImplementedError until
   the multi-GPU slice (ROADMAP Queue 1 item 7).
-* Past ``NHD_STREAM_NODES`` nodes the batch raises NotImplementedError
-  until the streaming slice (ROADMAP Queue 1 item 5), instead of solving
-  the whole cluster some other way.
+* Past ``NHD_STREAM_NODES`` nodes the batch solves through the port's
+  streaming tiler (solver/streaming.py) on the scheduler's device, with
+  no mesh argument.
 """
 
 from __future__ import annotations
@@ -101,8 +101,8 @@ def _stream_tile_nodes(device) -> int:
         return STREAM_TILE_NODES
     # both defaults are the reference's measured configurations (bench.py
     # run_stream: 16384 = one-flush federation tile on the accelerator,
-    # 4096 = the best pipelined CPU tiling), kept until the streaming
-    # slice measures the card
+    # 4096 = the best pipelined CPU tiling), kept until a measured cell
+    # on the card argues for another (chip_smoke.py phase 9 times both)
     return 16384 if device.type == "cuda" else 4096
 
 
@@ -908,12 +908,18 @@ class Scheduler(threading.Thread):
         nodes_view = self._solve_nodes()
         batch_items = [item for _, item in prepared]
         if len(nodes_view) > STREAM_NODE_THRESH:
-            raise NotImplementedError(
-                f"{len(nodes_view)} nodes is past NHD_STREAM_NODES="
-                f"{STREAM_NODE_THRESH} (tile of "
-                f"{_stream_tile_nodes(self.device)}): the port has no "
-                "streaming tiler until its slice (ROADMAP Queue 1 item 5)"
-            )
+            from nhd_tpu_torch.solver.streaming import StreamingScheduler
+
+            if self._stream is None:
+                self._stream = StreamingScheduler(
+                    tile_nodes=_stream_tile_nodes(self.device),
+                    chunk_pods=STREAM_CHUNK_PODS,
+                    placement=STREAM_PLACEMENT,
+                    respect_busy=self.batch.respect_busy,
+                    persistent=DELTA_STATE,
+                    device=self.device,
+                )
+            results, bstats = self._stream.schedule(nodes_view, batch_items)
         else:
             context = self._delta_context(nodes_view)
             if context is not None:

@@ -1,8 +1,9 @@
 """Matchers and batch scheduling on PyTorch.
 
 ``find_node`` here is the serial oracle, as in the reference package;
-the batched matcher is ``nhd_tpu_torch.solver.matcher`` (``find_nodes``)
-and the round loop ``BatchScheduler``.
+the batched matcher is ``nhd_tpu_torch.solver.matcher`` (``find_nodes``),
+the round loop ``BatchScheduler`` and the node-axis tiler
+``StreamingScheduler``.
 """
 
 from nhd_tpu_torch.solver.batch import (
@@ -14,6 +15,7 @@ from nhd_tpu_torch.solver.batch import (
 )
 from nhd_tpu_torch.solver.matcher import find_nodes
 from nhd_tpu_torch.solver.oracle import MatchResult, OracleMatcher, find_node
+from nhd_tpu_torch.solver.streaming import StreamingScheduler
 
 __all__ = [
     "BatchAssignment",
@@ -23,6 +25,7 @@ __all__ = [
     "MatchResult",
     "OracleMatcher",
     "ScheduleContext",
+    "StreamingScheduler",
     "find_node",
     "find_nodes",
 ]

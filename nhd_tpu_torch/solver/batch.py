@@ -37,8 +37,8 @@ the host arrays every round and still launches the kernels), with no
 megaround. Nothing in the guard moves work to the CPU.
 
 Not in this slice, each with its gate closed: the mesh (and its rung),
-streaming tiles, the AOT cache, and the reference's small-round CPU
-routing — on the card that routing would be a hidden CPU fallback.
+the AOT cache, and the reference's small-round CPU routing — on the
+card that routing would be a hidden CPU fallback.
 """
 
 from __future__ import annotations
@@ -829,13 +829,26 @@ class BatchScheduler:
         now: Optional[float] = None,
         apply: bool = True,
         context: Optional[ScheduleContext] = None,
+        encoded: Optional[Dict[int, "PodTypeArrays"]] = None,
+        offer: Optional[Sequence[int]] = None,
     ) -> Tuple[List[BatchAssignment], BatchStats]:
         """Place every item it can; mutates ``nodes`` when ``apply``.
 
         Items without a topology get a synthetic one (sim.requests), so
         physical assignment always runs. With ``context`` (from
         make_context over the same ``nodes``) the per-call encode and
-        device upload are skipped."""
+        device upload are skipped.
+
+        ``encoded``/``offer`` (the reference's): reuse a prior encode_pods
+        of the FULL ``items`` list (built against the context cluster's
+        interner) and restrict the schedulable set to the ``offer``
+        indices — the streaming tiler (solver/streaming.py) encodes each
+        pod chunk once and offers shrinking subsets of it to successive
+        tiles. Every round's membership view and the megaround's per-type
+        need come from the offered pending set; the type rows, and so the
+        device uploads cached per requests list, stay the full encode's.
+        With ``offer``, result slots outside the offer are None; the
+        caller reads only the offered indices."""
         from nhd_tpu_torch.sim.requests import request_to_topology
 
         stats = BatchStats()
@@ -869,7 +882,7 @@ class BatchScheduler:
         _sched_modes = (MapMode.NUMA, MapMode.PCI)
         _U, _K = cluster.U, cluster.K
         t_pre = time.perf_counter()
-        for i in range(len(items)):
+        for i in range(len(items)) if offer is None else offer:
             r = items[i].request
             if r.map_mode not in _sched_modes:
                 continue
@@ -1028,9 +1041,10 @@ class BatchScheduler:
             t0 = time.perf_counter()
             if all_buckets is None:
                 # type-level tensors never change across rounds: encode
-                # the whole pending set once, filter membership below
+                # the whole pending set once (or reuse the caller's
+                # chunk-wide encode), filter membership below
                 pend_list = pending.tolist()
-                all_buckets = encode_pods(
+                all_buckets = encoded if encoded is not None else encode_pods(
                     [items[i].request for i in pend_list],
                     cluster.interner,
                     indices=pend_list,
@@ -1634,7 +1648,7 @@ class BatchScheduler:
             )
 
         t_bf = time.perf_counter()
-        for i in range(len(items)):
+        for i in range(len(items)) if offer is None else offer:
             if results[i] is None:
                 results[i] = BatchAssignment(items[i].key, None)
         stats.phase_add("backfill", time.perf_counter() - t_bf)

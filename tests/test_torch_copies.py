@@ -74,17 +74,21 @@ DIFFERS = {
                           "_mod_label; the static-analysis package is not "
                           "ported",
     "scheduler/core.py": "device seams: Scheduler(device=), the mesh knob, "
-                         "the stream tile size and the streaming branch",
+                         "the stream tile size, and the streaming tiler "
+                         "built on the scheduler's device with no mesh",
     "solver/__init__.py": "exports the port's batched matcher, not the JAX "
                           "one",
     "solver/batch.py": "the round loop on torch tensors and HostPull; no "
-                       "mesh, streaming offer or CPU routing",
+                       "mesh or CPU routing",
     "solver/device_state.py": "resident torch tensors, updated in place",
     "solver/guard.py": "CUDA fault classification, one-pull audit, no AOT "
                        "retirement",
     "solver/kernel.py": "the solve through the hand-written CUDA kernels",
     "solver/speculate.py": "the megaround's loop on the host around the "
                            "claim kernels",
+    "solver/streaming.py": "no JAX-CPU mesh gate; the default worker count "
+                           "comes from the scheduler's device type, not a "
+                           "global backend probe",
     "utils/__init__.py": "no force_cpu_backend: the port has no JAX backend "
                          "to pin",
 }

@@ -294,3 +294,40 @@ def test_megaround_cuda_equals_cpu(sharing, respect_busy, monkeypatch):
     for g, w in zip(got + got_state, want + want_state):
         assert torch.equal(g, w)
     assert int(want[3]) > 1 and (want[1] > 0).any()
+
+
+@pytest.mark.parametrize("placement", ["first-fit", "routed"])
+def test_streaming_cuda_equals_cpu(placement, monkeypatch):
+    """A cfg5-shaped federation (120 cap_cluster nodes in tiles of 40,
+    1,200 workload_mix pods, 5 groups) through the tiler with three
+    workers launching on the card, against the CPU run of the same tiling:
+    every pod's node, mapping and NICs equal; the launch counts equal the
+    sum of what each tile sub-call launched, and every kernel launched."""
+    _need_cuda()
+    from chip_smoke import spans
+    from nhd_tpu_torch.sim.workloads import cap_cluster, workload_mix
+    from nhd_tpu_torch.solver import BatchItem, StreamingScheduler
+
+    groups = ["default", "edge", "batch", "fed1", "fed2"]
+    items = [BatchItem(("ns", f"p{i}"), r)
+             for i, r in enumerate(workload_mix(1200, groups))]
+    monkeypatch.setenv("NHD_TPU_SPECULATE", "1")
+    out = {}
+    for dev, workers in (("cuda", "3"), ("cpu", "1")):
+        monkeypatch.setenv("NHD_STREAM_WORKERS", workers)
+        sched = StreamingScheduler(device=dev, tile_nodes=40, chunk_pods=500,
+                                   placement=placement, respect_busy=False,
+                                   register_pods=False)
+        kernels.reset_launches()
+        with spans(sched) as got:
+            res, stats = sched.schedule(cap_cluster(120, groups), items, now=0.0)
+        torch.cuda.synchronize()
+        out[dev] = [(r.node, r.mapping, r.nic_list) for r in res]
+        if dev == "cuda":
+            total = dict(kernels.LAUNCHES)
+            summed = {n: sum(c[n] for _t, c, _w in got["calls"])
+                      for n in kernels.KERNELS}
+            assert total == summed
+            assert all(v > 0 for v in total.values()), total
+            assert stats.scheduled == 1200
+    assert out["cuda"] == out["cpu"]

@@ -2,8 +2,8 @@
 JAX daemon (nhd_tpu/scheduler/core.py) on the fake cluster backend.
 
 Each scenario of tests/test_scheduler.py's fake-backend lifecycle
-(all but streaming, :157, and the kube backend gate, :443) runs as one
-script through both packages: the reference's ``Scheduler`` on the JAX
+(all but the kube backend gate, :443) runs as one script through both
+packages, streaming past ``NHD_STREAM_NODES`` (:157) included: the reference's ``Scheduler`` on the JAX
 CPU backend and the port's ``Scheduler(device="cpu")``, each on its own
 ``FakeClusterBackend`` built by the same script. Both runs must end
 identically — each pod's node, phase, solved config and NAD
@@ -421,6 +421,24 @@ def s_run_once_rpc(pkg, mp):
     return backend, sched, {"reply": reply.get_nowait()}
 
 
+def s_streams_past_node_threshold(pkg, mp):
+    """Past NHD_STREAM_NODES the daemon solves through the streaming
+    tiler (one tile worker on both sides: the parity cases keep the
+    tiler's threads out of the comparison)."""
+    mp.setenv("NHD_STREAM_WORKERS", "1")
+    mp.setattr(pkg.core, "STREAM_NODE_THRESH", 1)
+    backend = make_backend(pkg, n_nodes=3)
+    backend.create_pod("triad-0", cfg_text=pod_cfg(pkg))
+    backend.create_pod("triad-1", cfg_text=pod_cfg(pkg))
+    sched = make_scheduler(pkg, backend)
+    sched.check_pending_pods()
+    assert sched._stream is not None, "streaming path not engaged"
+    for name in ("triad-0", "triad-1"):
+        assert backend.pods[("default", name)].node is not None
+    assert sched.perf["scheduled_total"] == 2
+    return backend, sched, {"stream": type(sched._stream).__name__}
+
+
 def s_cfg4_pending_set(pkg, mp):
     """cfg4's pending set at 100 nodes × 1,000 pods through the normal
     turn (sim/pending.py): the same binds, configs and mirror."""
@@ -459,8 +477,8 @@ SCENARIOS = {
         s_triadset_reconciliation, s_duplicate_create, s_rpc_stats,
         s_unschedulable, s_foreign_scheduler, s_targeted_delete,
         s_uncordon_needs_taint, s_group_label_removal, s_threaded_lifecycle,
-        s_triadset_status, s_run_once_rpc, s_cfg4_pending_set,
-        s_cfg4_pending_set_speculative,
+        s_triadset_status, s_run_once_rpc, s_streams_past_node_threshold,
+        s_cfg4_pending_set, s_cfg4_pending_set_speculative,
     )
 }
 
@@ -509,16 +527,3 @@ def test_port_mesh_knob_is_one_device(spec, refused):
     else:
         assert resolve_mesh_spec(spec) is None
         Scheduler(FakeClusterBackend(), mesh=spec, device="cpu")
-
-
-def test_port_refuses_past_the_stream_threshold(monkeypatch):
-    """Past NHD_STREAM_NODES the port's batch raises (no streaming tiler
-    yet) and binds nothing, instead of solving the whole cluster."""
-    pkg = _pkg("nhd_tpu_torch")
-    monkeypatch.setattr(pkg.core, "STREAM_NODE_THRESH", 1)
-    backend = make_backend(pkg, n_nodes=3)
-    backend.create_pod("triad-0", cfg_text=pod_cfg(pkg))
-    sched = make_scheduler(pkg, backend)
-    with pytest.raises(NotImplementedError, match="streaming"):
-        sched.check_pending_pods()
-    assert backend.pods[("default", "triad-0")].node is None
