@@ -74,8 +74,32 @@ Phases (one line each; the last line is the contract line):
    ``device="cpu"`` run with speculation on and the same tile. (e) (a)
    once more under torch.profiler, not counted: device busy against the
    wall;
-10. the kernels JSON line: per kernel its launches in phases 4-7 and 9
-   (counts set to 0 just before each counted run and read just after),
+10. the CLI over HTTP: the port's ``StubApiServer`` (k8s/apistub.py), in
+   this process, holds 1,000 cfg4 nodes with NFD labels and a ConfigMap
+   for each of 2,000 pods of workload_mix's three Triad shapes (cut from
+   10,000: each pod costs three HTTP writes on a threading stub). (b)
+   ``python -m nhd_tpu_torch.cli --device cuda`` runs as a subprocess
+   whose in-cluster REST client points at the stub, with
+   ``NHD_MIN_BUSY_SECS=0``, a metrics port and a journal. Once it is up
+   (its pod watch streams and /metrics answers) the pods are created
+   through the stub, each announced on the pod watch, at most 200 not
+   yet bound at a time, so they reach the scheduler through the
+   admission front door; until every pod is bound (or binds stop for
+   40 s). /metrics is scraped mid-run and at the end, then SIGINT (the
+   CLI's clean exit): exit code 0, the journal written, and the
+   kernels' launches the CLI process counted, each above 0; every pod
+   bound; binds/s, each pod's create-to-bind p50/p99, the admission,
+   guard and jit families, the wall. (c) the same CLI with ``--device
+   cpu`` against a fresh stub: every pod bound, and every pod of the
+   batches both journals record alike from the first on on the same
+   node with the same solved config and NAD. (d) (b)'s journal replayed
+   in this process through ``replay_journal``, fold by fold as recorded,
+   on cuda (its launches a separate reading, each above 0) and on the
+   CPU, (c)'s on cuda, and the golden journal (tests/fixtures/journal)
+   on both: 0 divergences and equal decisions;
+11. the kernels JSON line: per kernel its launches in phases 4-7, 9 and
+   10 (counts set to 0 just before each counted run and read just after;
+   phase 10's are the CLI process's own, from its start to its exit),
    its time, its plain version's time and its bound — the solve kernels
    at the cfg4 G=2 bucket, the claim kernels at cfg4's first megaround
    iteration. A bound counts the bytes and operations of the real type
@@ -122,6 +146,23 @@ STREAM_DAEMON_NODES, STREAM_DAEMON_PODS = 10_000, 2_000
 STREAM_DAEMON_CUT = ("pods cut from 100,000 to 2,000: this part tests the "
                      "routing past NHD_STREAM_NODES; per-pod daemon host "
                      "work is phase 7's subject")
+#: phase 10, the CLI over HTTP: cfg4 nodes and Triad pods on the stub
+#: API server, the cut, how long binds must stop before the run is over
+#: (longer than the daemon's 30 s idle before a periodic scan; once
+#: every pod is bound, a short settle), the CLI's own time limit, and
+#: the wait for its first bind after the first pod
+CLI_NODES, CLI_PODS = 1_000, 2_000
+CLI_CUT = ("pods cut from 10,000 to 2,000: each pod costs three HTTP writes "
+           "(annotate, bind, event) on a threading stub; phase 7 keeps the "
+           "10,000-pod set on the fake backend")
+CLI_QUIET_S, CLI_SETTLE_S, CLI_RUN_S, CLI_FIRST_BIND_S = 40.0, 2.0, 300, 120.0
+#: phase 10: the wait for the CLI to come up, and the most pods created
+#: and not yet bound at a time, below the admission queue's tenant lane
+#: cap (NHD_ADMIT_TENANT_CAP, 256) so the front door sheds none
+CLI_READY_S, CLI_BACKLOG = 180.0, 200
+ROOT = os.path.dirname(os.path.abspath(__file__))
+GOLDEN_JOURNAL = os.path.join(ROOT, "tests", "fixtures", "journal",
+                              "golden_churn.journal.jsonl")
 
 
 def card(torch):
@@ -1522,6 +1563,478 @@ def guard_phase(torch, report, smi):
     report["guard"] = out
 
 
+def stub_cluster(n_nodes, n_pods):
+    """A started StubApiServer holding *n_nodes* cfg4 nodes (NFD labels
+    from the port's sim, groups default/edge/batch in turn, 256 GiB of
+    hugepages) and one ConfigMap for each of *n_pods* pods of
+    workload_mix's three Triad shapes; and those pods, not yet created,
+    as ``(name, add_pod keywords)`` in creation order: each with its
+    node group in the nhd_groups annotation and ``schedulerName:
+    nhd-scheduler``, the pending set of sim/pending.py as a real API
+    server would receive it."""
+    import nhd_tpu_torch.sim as sim
+    from nhd_tpu_torch.k8s.apistub import StubApiServer
+    from nhd_tpu_torch.k8s.interface import CFG_TYPE_ANNOTATION, GROUPS_ANNOTATION
+    from nhd_tpu_torch.sim import pending
+
+    stub = StubApiServer().start()
+    for i in range(n_nodes):
+        spec = sim.SynthNodeSpec(name=f"node{i:05d}",
+                                 groups=pending.GROUPS[i % len(pending.GROUPS)],
+                                 **pending.CFG4_NODE)
+        hp = f"{spec.hugepages_gb}Gi"
+        stub.add_node(spec.name, labels=sim.make_node_labels(spec),
+                      internal_ip=f"10.0.{i >> 8}.{i & 255}",
+                      hugepages_capacity=hp, hugepages_allocatable=hp)
+    cfgs = pending.pod_configs(sim.make_triad_config)
+    pods = []
+    for i in range(n_pods):
+        name = f"pod-{i:05d}"
+        stub.add_configmap(f"{name}-cfg", "default",
+                           {"triad.cfg": cfgs[i % len(cfgs)]})
+        group = pending.GROUPS[(i // len(cfgs)) % len(pending.GROUPS)]
+        pods.append((name, dict(uid=f"uid-{i:05d}", configmap=f"{name}-cfg",
+                                scheduler="nhd-scheduler",
+                                annotations={GROUPS_ANNOTATION: group,
+                                             CFG_TYPE_ANNOTATION: "triad"})))
+    return stub, pods
+
+
+def create_pod(stub, name, kw):
+    """Create one pod as the API server does: stored, then announced on
+    the pod watch (the stream's copy taken now, before any bind)."""
+    import copy
+
+    pod = stub.add_pod(name, **kw)
+    stub.queue_watch_event("/api/v1/pods", "ADDED", copy.deepcopy(pod))
+
+
+def quantiles_ms(values):
+    """p50/p99 (nearest rank) of *values*, seconds, in ms."""
+    import math
+
+    v = sorted(values)
+    return {f"p{q}": v[max(math.ceil(q / 100 * len(v)) - 1, 0)] * 1e3
+            for q in (50, 99)} if v else {"p50": None, "p99": None}
+
+
+def log_tail(path, n=40):
+    with open(path) as fh:
+        lines = fh.read().splitlines()
+    return f" (log {path}, last lines:\n" + "\n".join(lines[-n:]) + ")"
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def scrape(port):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=10) as r:
+        return r.read().decode()
+
+
+def bind_quantiles_ms(text):
+    """p50/p99 of ``nhd_bind_latency_seconds`` from a /metrics text, by
+    the same interpolation the repo's scrapes use (a quantile past the
+    top finite edge reads as that edge), its count, and how many binds
+    lie past the top finite edge."""
+    from nhd_tpu_torch.obs.histo import quantile_from_buckets
+
+    edges = []
+    for line in text.splitlines():
+        if line.startswith('nhd_bind_latency_seconds_bucket{le="'):
+            le = line.split('"')[1]
+            edges.append((float("inf") if le == "+Inf" else float(le),
+                          int(float(line.split()[-1]))))
+    count = edges[-1][1] if edges else 0
+    above = count - edges[-2][1] if len(edges) > 1 else 0
+    return ({f"p{int(q * 100)}": quantile_from_buckets(edges, q) * 1e3
+             for q in (0.5, 0.99)}, count, above)
+
+
+def request_kinds(requests):
+    """The stub's request log counted by method and resource (watch
+    streams apart), in order of count."""
+    counts = {}
+    for method, path, _ctype, _body in requests:
+        parts = [p for p in path.split("?")[0].split("/") if p]
+        if "watch=true" in path:
+            kind = "watch " + parts[-1]
+        elif parts[-1] in ("binding", "events", "nodes", "pods", "triadsets"):
+            kind = parts[-1]
+        else:
+            kind = parts[-2] if len(parts) > 1 else parts[-1]
+            kind = {"pods": "pod", "configmaps": "configmap",
+                    "nodes": "node"}.get(kind, kind)
+        key = f"{method} {kind}"
+        counts[key] = counts.get(key, 0) + 1
+    return dict(sorted(counts.items(), key=lambda kv: -kv[1]))
+
+
+def families(text, *prefixes):
+    return [line for line in text.splitlines()
+            if line.startswith(prefixes)]
+
+
+def scrape_until_answered(port, done, out):
+    """The mid-run scrape, on its own thread: /metrics goes through the
+    scheduler thread's RPC queue, which answers 503 after 5 s while that
+    thread is committing a batch; try once a second until it answers or
+    the run is over, and keep the answer or the last error."""
+    tries = 0
+    while not done.is_set():
+        tries += 1
+        try:
+            out["text"] = scrape(port)
+            break
+        except OSError as exc:
+            out["error"] = f"{exc}"
+        done.wait(1.0)
+    out["tries"] = tries
+
+
+def cli_ready(stub, port):
+    """The CLI has finished starting: its pod watch streams (the relist
+    that seeds it is done) and /metrics answers (the scheduler thread
+    finished its startup scan and serves its RPC queue)."""
+    if not stub.watch_connects.get("/api/v1/pods"):
+        return False
+    try:
+        scrape(port)
+    except OSError:
+        return False
+    return True
+
+
+def run_cli(device, n_nodes, n_pods, workdir, label, log_dir="chiprun_out"):
+    """Phase 10 (b)/(c): ``python -m nhd_tpu_torch.cli`` on *device*
+    against a fresh stub holding the nodes. Once the CLI is up, the
+    pods are created through the stub, each announced on the pod watch,
+    at most CLI_BACKLOG created and not yet bound at a time; until every
+    pod is bound (and a short settle) or binds stop for CLI_QUIET_S.
+    /metrics is scraped from the first bind on (until answered) and at
+    the end, then SIGINT, the CLI's clean exit. Returns what the run
+    showed, the kernels' launches the CLI printed at its exit, and each
+    pod's (node, solved config, NAD) as the stub holds them."""
+    import signal
+    import threading
+
+    from nhd_tpu_torch.k8s.interface import CFG_ANNOTATION, NAD_ANNOTATION
+
+    stub, pods = stub_cluster(n_nodes, n_pods)
+    jdir = os.path.join(workdir, f"journal-{label}")
+    os.makedirs(log_dir, exist_ok=True)
+    log_path = os.path.join(log_dir, f"cli-{label}.log")
+    port = free_port()
+    child_env = dict(
+        os.environ,
+        KUBERNETES_SERVICE_HOST="127.0.0.1",
+        KUBERNETES_SERVICE_PORT=str(stub.port),
+        KUBERNETES_SERVICE_SCHEME="http",
+        NHD_K8S_TOKEN_FILE=os.path.join(workdir, "no-token"),
+        NHD_MIN_BUSY_SECS="0",
+        # the card's default made explicit, so the CPU run takes the same
+        # rounds (the speculative round 0) as the card's
+        NHD_TPU_SPECULATE="1",
+        PYTHONPATH=os.pathsep.join(
+            [ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]),
+    )
+    cmd = [sys.executable, "-m", "nhd_tpu_torch.cli", "--device", device,
+           "--rpc-port", "0", "--metrics-port", str(port), "--journal", jdir,
+           "--run-seconds", str(CLI_RUN_S)]
+    out = {"device": device, "cmd": " ".join(cmd[1:]), "backlog": CLI_BACKLOG}
+    if signal.getsignal(signal.SIGINT) is signal.SIG_IGN:
+        # a SIGINT ignored by whatever started this script would be
+        # inherited: the CLI's clean exit is its KeyboardInterrupt
+        signal.signal(signal.SIGINT, signal.default_int_handler)
+    with open(log_path, "w") as fh:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            cmd, stdout=fh, stderr=subprocess.STDOUT, text=True, env=child_env,
+            cwd=ROOT,
+        )
+        done, mid = threading.Event(), {}
+        scraper = threading.Thread(target=scrape_until_answered,
+                                   args=(port, done, mid), daemon=True)
+        try:
+            while not cli_ready(stub, port):
+                if proc.poll() is not None:
+                    fail(f"cli {label}: exited early with {proc.returncode}"
+                         f"{log_tail(log_path)}")
+                if time.perf_counter() - t0 > CLI_READY_S:
+                    fail(f"cli {label}: not up within {CLI_READY_S:.0f}s"
+                         f"{log_tail(log_path)}")
+                time.sleep(0.1)
+            feed0 = time.perf_counter()
+            created, bound_at = {}, {}
+            seen = fed = 0
+            first = last = None
+            while True:
+                now = time.perf_counter()
+                n = len(stub.bindings)
+                for _ns, name, _body in stub.bindings[seen:n]:
+                    bound_at.setdefault(name, now)
+                if n != seen:
+                    seen, last = n, now
+                    if first is None:
+                        first = now
+                        scraper.start()
+                while fed < n_pods and fed - len(bound_at) < CLI_BACKLOG:
+                    name, kw = pods[fed]
+                    created[name] = time.perf_counter()
+                    create_pod(stub, name, kw)
+                    fed += 1
+                if proc.poll() is not None:
+                    fail(f"cli {label}: exited early with {proc.returncode}"
+                         f"{log_tail(log_path)}")
+                if first is None and now - feed0 > CLI_FIRST_BIND_S:
+                    fail(f"cli {label}: no bind within {CLI_FIRST_BIND_S:.0f}s "
+                         f"of the first pod{log_tail(log_path)}")
+                # every pod bound: no scan can decide anything more, so
+                # the journal is complete; else give the daemon's periodic
+                # scan (after 30 s idle) its chance at what is left
+                if last is not None and (
+                        now - last >= CLI_QUIET_S
+                        or (len(bound_at) == n_pods and now - last >= CLI_SETTLE_S)):
+                    break
+                time.sleep(0.02)
+            done.set()
+            scraper.join(timeout=30)
+            end = scrape(port)
+            proc.send_signal(signal.SIGINT)
+            rc = proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            stub.stop()
+        wall = time.perf_counter() - t0
+    with open(log_path) as fh:
+        text = fh.read()
+    if rc != 0:
+        fail(f"cli {label}: exit code {rc} after SIGINT{log_tail(log_path)}")
+    written = [line for line in text.splitlines() if "journal written to" in line]
+    if not written:
+        fail(f"cli {label}: no 'journal written to' line{log_tail(log_path)}")
+    out["journal"] = written[-1].split("journal written to", 1)[1].strip()
+    printed = [line for line in text.splitlines()
+               if line.startswith("kernel launches: ")]
+    if len(printed) != 1:
+        fail(f"cli {label}: no 'kernel launches' line{log_tail(log_path)}")
+    out["launches"] = json.loads(printed[0].split(": ", 1)[1])
+    out["rpc_line"] = next((line.split(": ", 1)[-1] for line in text.splitlines()
+                            if "stats RPC" in line), "no stats RPC line")
+    out["bound"], out["total"], out["fed"] = len(bound_at), n_pods, fed
+    out["ready_s"], out["first_bind_s"] = feed0 - t0, first - feed0
+    out["bind_span_s"] = last - first
+    out["binds_per_s"] = (seen - 1) / (last - first) if last > first else None
+    # every pod's create to its bind, stamped in this process by the poll
+    # (20 ms): what a pod's owner waits
+    out["bind_ms"] = quantiles_ms([bound_at[k] - created[k] for k in bound_at])
+    out["wall_s"] = wall
+    hist, count, above = bind_quantiles_ms(end)
+    out["metrics_bind_ms"] = {**hist, "count": count, "past_top_edge": above}
+    out["mid_scrape"] = (
+        f"{bind_quantiles_ms(mid['text'])[1]} binds counted"
+        if "text" in mid else f"unanswered ({mid.get('error')})"
+    ) + f", {mid.get('tries', 0)} tries"
+    out["requests"] = request_kinds(stub.requests)
+    out["admission"] = families(end, "nhd_admission_")
+    out["guard"] = families(end, "nhd_guard_")
+    out["jit"] = families(end, "nhd_jit_")
+    outcome = {
+        key: (p["spec"].get("nodeName"),
+              p["metadata"]["annotations"].get(CFG_ANNOTATION),
+              p["metadata"]["annotations"].get(NAD_ANNOTATION))
+        for key, p in sorted(stub.pods.items())
+    }
+    return out, outcome
+
+
+def metrics_bind_text(got):
+    m = got["metrics_bind_ms"]
+    if m["past_top_edge"]:
+        return (f"/metrics histogram saturated: {m['past_top_edge']} of "
+                f"{m['count']} binds past its top finite edge, not a reading")
+    return (f"/metrics histogram p50={m['p50']:.1f}ms p99={m['p99']:.1f}ms "
+            f"over {m['count']} binds")
+
+
+def journal_batches(path):
+    """The batches a CLI journal recorded, in the order the scheduler
+    folded them out of its admission queue: each the (ns, pod) it
+    solved together (the port's replay folds them so)."""
+    from nhd_tpu_torch.obs.journal import load_journal
+    from nhd_tpu_torch.sim.replay import recorded_folds
+
+    return recorded_folds(load_journal(path)[1])
+
+
+def replay(torch, label, path, device, counted=False):
+    """Phase 10 (d): one journal through the port's replay_journal on
+    *device*, under the knobs its genesis recorded (the busy window,
+    read once at import, set on the node module for the run). Returns
+    its decision signatures, the wall and (counted) the kernels'
+    launches in the run."""
+    from nhd_tpu_torch import kernels
+    from nhd_tpu_torch.core import node as node_mod
+    from nhd_tpu_torch.obs.journal import load_journal
+    from nhd_tpu_torch.sim.replay import _decision_sig, replay_journal
+
+    genesis = next(e for e in load_journal(path)[1] if e["ev"] == "genesis")
+    knobs = {k: v for k, v in (genesis.get("knobs") or {}).items()
+             if not k.startswith("NHD_JOURNAL")}
+    saved = node_mod.MIN_BUSY_SECS
+    node_mod.MIN_BUSY_SECS = float(knobs.get("NHD_MIN_BUSY_SECS") or 30)
+    try:
+        with env(**knobs):
+            if counted:
+                torch.cuda.synchronize()
+                kernels.reset_launches()
+            t0 = time.perf_counter()
+            result = replay_journal([path], device=device)
+            if counted:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES) if counted else None
+    finally:
+        node_mod.MIN_BUSY_SECS = saved
+    if result.diverged:
+        fail(f"replay {label} on {device}: {len(result.divergences)} "
+             f"divergence(s), first {result.first_divergence}")
+    if not result.recorded:
+        fail(f"replay {label}: the journal recorded no decisions")
+    sig = [(d.get("ns"), d.get("pod"), _decision_sig(d)) for d in result.replayed]
+    log(f"replay {label} on {device}: {len(result.replayed)} decisions against "
+        f"{len(result.recorded)} recorded, 0 divergences, knob drift "
+        f"{sorted(result.knob_drift) or 'none'}, wall={wall:.3f}s"
+        + (f", launches={launches}" if counted else ""))
+    return sig, wall, launches
+
+
+def same_prefix(batches, other):
+    """How many batches, from the first, the two runs decided alike."""
+    k = 0
+    while k < min(len(batches), len(other)) and batches[k] == other[k]:
+        k += 1
+    return k
+
+
+def compare_runs(got, outcome, cpu, cpu_outcome):
+    """Phase 10 (c): the cuda and the cpu CLI runs. Both bind every pod;
+    the batches both journals record alike from the first on, in the
+    same order and from the same cluster, leave the same state, so every
+    pod in them must sit on the same node with the same solved config
+    and NAD (past the first batch that differs, the states may differ).
+    Returns the verdict and both runs' batches."""
+    for run in (got, cpu):
+        if run["bound"] != CLI_PODS:
+            fail(f"cli {run['device']}: bound {run['bound']}/{CLI_PODS}")
+    batches = journal_batches(got["journal"])
+    cpu_batches = journal_batches(cpu["journal"])
+    k = same_prefix(batches, cpu_batches)
+    keys = [key for b in batches[:k] for key in b]
+    diff = [key for key in keys if outcome[key] != cpu_outcome[key]]
+    if diff:
+        fail(f"cli: {len(diff)} of {len(keys)} pods in the batches both "
+             f"runs share bound differently on cuda and cpu (first: "
+             f"{diff[0]}: {outcome[diff[0]]} vs {cpu_outcome[diff[0]]})")
+    if k == len(batches) == len(cpu_batches):
+        compared = (f"same batches ({k}): every pod's node, solved config "
+                    "and NAD identical on cuda and cpu")
+    else:
+        compared = (f"the admission timing split the pods differently: "
+                    f"cuda {len(batches)} batches, cpu {len(cpu_batches)}; "
+                    f"the first {k} alike, and their {len(keys)} pods' "
+                    "node, solved config and NAD identical; past them "
+                    "each run's journal is replayed on the other device "
+                    "in (d)")
+    log(f"cli cuda vs cpu: {compared}; cuda batch sizes "
+        f"{[len(b) for b in batches]}; cpu batch sizes "
+        f"{[len(b) for b in cpu_batches]}")
+    return compared, batches, cpu_batches
+
+
+def cli_phase(torch, report, launches_total, smi):
+    """Phase 10: the CLI over HTTP on the card, the same on the CPU, and
+    the journals replayed (module docstring)."""
+    import tempfile
+
+    from nhd_tpu_torch import kernels
+
+    with tempfile.TemporaryDirectory(prefix="nhd-cli-") as work:
+        got, outcome = run_cli("cuda", CLI_NODES, CLI_PODS, work, "cuda")
+        log(f"cli cuda: {CLI_NODES} nodes, {CLI_PODS} pods created over HTTP "
+            f"as watch events, at most {CLI_BACKLOG} unbound at a time (cut: "
+            f"{CLI_CUT}); up {got['ready_s']:.2f}s after start; bound "
+            f"{got['bound']}/{got['total']}, first bind "
+            f"{got['first_bind_s']:.3f}s after the first pod, "
+            f"{got['binds_per_s'] or 0:.1f} binds/s (first to last bind "
+            f"{got['bind_span_s']:.3f}s), create-to-bind p50="
+            f"{got['bind_ms']['p50']:.1f}ms p99={got['bind_ms']['p99']:.1f}ms "
+            f"(stamped by this script's 20 ms poll); {metrics_bind_text(got)} "
+            f"(mid-run scrape: {got['mid_scrape']}), wall={got['wall_s']:.2f}s; "
+            f"{smi}")
+        log(f"cli cuda: stats RPC plane: {got['rpc_line']}")
+        log(f"cli cuda: HTTP requests the stub served: {got['requests']}")
+        log(f"cli cuda /metrics admission: {'; '.join(got['admission'])}")
+        log(f"cli cuda /metrics guard: {'; '.join(got['guard'])}")
+        log(f"cli cuda /metrics jit: {'; '.join(got['jit'])}")
+        log(f"cli cuda: kernel launches the CLI process printed at its exit: "
+            f"{got['launches']}; {smi}")
+        if got["bound"] != CLI_PODS:
+            fail(f"cli cuda: bound {got['bound']}/{CLI_PODS}")
+        if sorted(got["launches"]) != sorted(kernels.KERNELS):
+            fail(f"cli cuda: launch counts for {sorted(got['launches'])}")
+        for k in kernels.KERNELS:
+            if got["launches"][k] == 0:
+                fail(f"cli cuda: kernel {k} was never launched")
+            launches_total[k] += got["launches"][k]
+        cpu, cpu_outcome = run_cli("cpu", CLI_NODES, CLI_PODS, work, "cpu")
+        log(f"cli cpu: up {cpu['ready_s']:.2f}s, bound {cpu['bound']}/"
+            f"{cpu['total']}, {cpu['binds_per_s'] or 0:.1f} binds/s, "
+            f"create-to-bind p50={cpu['bind_ms']['p50']:.1f}ms "
+            f"p99={cpu['bind_ms']['p99']:.1f}ms, wall={cpu['wall_s']:.2f}s, "
+            f"launches {cpu['launches']}")
+        compared, batches, cpu_batches = compare_runs(got, outcome, cpu,
+                                                      cpu_outcome)
+        # (d) replays: (b)'s journal on the card (its launches a separate,
+        # in-process reading) and on the CPU, (c)'s on the card: each
+        # run's live decisions re-derived on the other device from the
+        # same batches; the golden journal on both
+        sig, wall, launches = replay(torch, "cli journal", got["journal"],
+                                     card(torch), counted=True)
+        for k in kernels.KERNELS:
+            if launches[k] == 0:
+                fail(f"cli replay: kernel {k} was never launched")
+        cpu_sig, cpu_wall, _ = replay(torch, "cli journal", got["journal"], "cpu")
+        if sig != cpu_sig:
+            fail("cli replay: decisions differ between cuda and cpu")
+        _, cross_wall, _ = replay(torch, "cpu cli journal", cpu["journal"],
+                                  card(torch))
+        gold, gold_wall, _ = replay(torch, "golden", GOLDEN_JOURNAL, card(torch))
+        gold_cpu, _, _ = replay(torch, "golden", GOLDEN_JOURNAL, "cpu")
+        if gold != gold_cpu:
+            fail("golden replay: decisions differ between cuda and cpu")
+        log(f"cli journal's in-process cuda replay launches (not the CLI "
+            f"run's): {launches}; {smi}")
+    report["cli"] = {
+        "nodes": CLI_NODES, "pods": CLI_PODS, "cut": CLI_CUT, "cuda": got,
+        "cpu": cpu, "compared": compared, "batches": [len(b) for b in batches],
+        "cpu_batches": [len(b) for b in cpu_batches], "replay_s": wall,
+        "replay_cpu_s": cpu_wall, "cpu_journal_on_card_s": cross_wall,
+        "golden_replay_s": gold_wall,
+        "replay_launches": launches, "smi": smi,
+    }
+
+
 def main():
     try:
         import torch
@@ -1610,7 +2123,10 @@ def main():
     # 9. cfg5 through the streaming tiler
     stream_phase(torch, report, launches_total, smi)
 
-    # 10. kernels line
+    # 10. the CLI over HTTP on the card
+    cli_phase(torch, report, launches_total, smi)
+
+    # 11. kernels line
     meta = {
         "nic_node_masks": ("nhd_tpu_torch/kernels/nic_node_masks.cu",
                            "nhd_tpu/solver/kernel.py:136"),

@@ -13,6 +13,8 @@ This package imports ``torch`` and ``numpy`` and never ``jax`` or
 
 from nhd_tpu_torch.device import resolve_device
 
+__version__ = "0.1.0"
+
 NHD_SCHED_NAME = "nhd-scheduler"
 
-__all__ = ["NHD_SCHED_NAME", "resolve_device"]
+__all__ = ["NHD_SCHED_NAME", "__version__", "resolve_device"]

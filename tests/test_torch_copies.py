@@ -30,14 +30,20 @@ VERBATIM = (
     "core/node.py",
     "core/request.py",
     "core/topology.py",
+    "ingress/__init__.py",
+    "ingress/admission.py",
     "k8s/__init__.py",
+    "k8s/apistub.py",
     "k8s/fake.py",
     "k8s/interface.py",
+    "k8s/kube.py",
     "k8s/lease.py",
+    "k8s/restclient.py",
     "k8s/retry.py",
     "obs/__init__.py",
     "obs/artifact.py",
     "obs/chrome.py",
+    "obs/fleet.py",
     "obs/histo.py",
     "obs/jitstats.py",
     "obs/journal.py",
@@ -47,6 +53,10 @@ VERBATIM = (
     "policy/classes.py",
     "policy/preempt.py",
     "policy/scoring.py",
+    "rpc/__init__.py",
+    "rpc/metrics.py",
+    "rpc/nhd_stats_pb2.py",
+    "rpc/server.py",
     "sanitizer/__init__.py",
     "sanitizer/runtime.py",
     "scheduler/__init__.py",
@@ -68,6 +78,11 @@ VERBATIM = (
 DIFFERS = {
     "__init__.py": "the port's package docstring; exports resolve_device "
                    "beside NHD_SCHED_NAME",
+    "cli.py": "--device (default cuda, resolved before any thread starts, "
+              "non-zero exit without a GPU) passed to the scheduler, "
+              "explain and replay; no JAX_PLATFORMS block; --prewarm exits "
+              "2 until the compile cache is ported; a clean exit prints the "
+              "kernels' launch counts",
     "native/__init__.py": "the port's own loader: builds native/nhd_assign.cc "
                           "into the port's build directory",
     "sanitizer/races.py": "keeps its own copy of analysis/lockgraph.py's "
@@ -76,6 +91,11 @@ DIFFERS = {
     "scheduler/core.py": "device seams: Scheduler(device=), the mesh knob, "
                          "the stream tile size, and the streaming tiler "
                          "built on the scheduler's device with no mesh",
+    "sim/replay.py": "replay_journal(device=) and the replay engine build "
+                     "their Scheduler on that device (default cuda); a "
+                     "CLI journal replays fold by fold as its admission "
+                     "queue folded it, each watched pod under its recorded "
+                     "uid",
     "solver/__init__.py": "exports the port's batched matcher, not the JAX "
                           "one",
     "solver/batch.py": "the round loop on torch tensors and HostPull; no "
@@ -92,6 +112,12 @@ DIFFERS = {
     "utils/__init__.py": "no force_cpu_backend: the port has no JAX backend "
                          "to pin",
 }
+
+
+#: non-Python files the port carries byte for byte (the generated
+#: ``nhd_stats_pb2.py`` registers this file's descriptor in protobuf's
+#: default pool, so both packages' copies must be the same file)
+SAME_BYTES = ("rpc/nhd_stats.proto", "rpc/nhd_stats_pb2.py")
 
 
 def _as_reference(text: str) -> str:
@@ -124,3 +150,8 @@ def test_declared_differences_do_differ(rel):
     port = (PORT / rel).read_text()
     ref = (REF / rel).read_text()
     assert _as_reference(port) != ref
+
+
+@pytest.mark.parametrize("rel", SAME_BYTES)
+def test_byte_identical_files(rel):
+    assert (PORT / rel).read_bytes() == (REF / rel).read_bytes()

@@ -331,3 +331,34 @@ def test_streaming_cuda_equals_cpu(placement, monkeypatch):
             assert all(v > 0 for v in total.values()), total
             assert stats.scheduled == 1200
     assert out["cuda"] == out["cpu"]
+
+
+def test_cli_fake_demo_on_cuda():
+    """``python -m nhd_tpu_torch.cli --fake --device cuda``: the demo
+    TriadSet binds 4/6 across the 4 nodes inside 15 s on the card, as the
+    JAX CLI binds it with the default 30 s busy back-off, and the clean
+    exit prints a launch count above 0 for each of the six kernels."""
+    _need_cuda()
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    r = subprocess.run(
+        [sys.executable, "-m", "nhd_tpu_torch.cli", "--fake", "--device",
+         "cuda", "--rpc-port", "0", "--run-seconds", "15"],
+        capture_output=True, text=True, timeout=180, env=env, cwd=root,
+    )
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "demo summary: 4/6 pods bound across 4 nodes" in r.stdout, r.stdout
+    import json
+
+    printed = [line for line in r.stdout.splitlines()
+               if line.startswith("kernel launches: ")]
+    assert len(printed) == 1, r.stdout
+    got = json.loads(printed[0].split(": ", 1)[1])
+    assert sorted(got) == sorted(kernels.KERNELS), got
+    assert all(n > 0 for n in got.values()), got

@@ -1,8 +1,9 @@
 """Import hygiene of the port: nhd_tpu_torch and its scripts (chip_smoke.py,
 kernel_variants.py) import neither jax nor the reference package,
 statically (an AST walk over every module) and at run time (a fresh
-interpreter importing the round loop), and a CUDA request on a machine
-without CUDA raises instead of falling back."""
+interpreter importing the round loop, and one importing the CLI and its
+planes), and a CUDA request on a machine without CUDA raises instead of
+falling back."""
 
 import ast
 import subprocess
@@ -57,6 +58,29 @@ def test_round_loop_imports_without_jax():
         "import sys\n"
         "import nhd_tpu_torch.solver.batch, nhd_tpu_torch.solver.matcher\n"
         "import nhd_tpu_torch.kernels.build\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'nhd_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], env=subprocess_env(),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_daemon_planes_import_without_jax():
+    """The CLI and its planes (real backend, gRPC and metrics, admission,
+    replay, fleet payload) import in a fresh interpreter with nothing of
+    jax or nhd_tpu behind them."""
+    code = (
+        "import sys\n"
+        "import nhd_tpu_torch.cli, nhd_tpu_torch.rpc.metrics\n"
+        "import nhd_tpu_torch.rpc.server, nhd_tpu_torch.ingress\n"
+        "import nhd_tpu_torch.k8s.kube, nhd_tpu_torch.k8s.restclient\n"
+        "import nhd_tpu_torch.k8s.apistub, nhd_tpu_torch.sim.replay\n"
+        "import nhd_tpu_torch.obs.fleet\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'nhd_tpu'))\n"
         "print(bad)\n"
