@@ -76,8 +76,9 @@ Phases (one line each; the last line is the contract line):
    wall;
 10. the CLI over HTTP: the port's ``StubApiServer`` (k8s/apistub.py), in
    this process, holds 1,000 cfg4 nodes with NFD labels and a ConfigMap
-   for each of 2,000 pods of workload_mix's three Triad shapes (cut from
-   10,000: each pod costs three HTTP writes on a threading stub). (b)
+   for each of 1,500 pods of workload_mix's three Triad shapes (cut from
+   10,000: each pod costs three HTTP writes on a threading stub; 2,000
+   until phases 11-12 joined). (b)
    ``python -m nhd_tpu_torch.cli --device cuda`` runs as a subprocess
    whose in-cluster REST client points at the stub, with
    ``NHD_MIN_BUSY_SECS=0``, a metrics port and a journal. Once it is up
@@ -97,9 +98,38 @@ Phases (one line each; the last line is the contract line):
    on cuda (its launches a separate reading, each above 0) and on the
    CPU, (c)'s on cuda, and the golden journal (tests/fixtures/journal)
    on both: 0 divergences and equal decisions;
-11. the kernels JSON line: per kernel its launches in phases 4-7, 9 and
-   10 (counts set to 0 just before each counted run and read just after;
-   phase 10's are the CLI process's own, from its start to its exit),
+11. the device-fault storm on the card (nhd_tpu_torch/sim/storm.py, in
+   this process, with ``--device-plane --bind-parity``, ``NHD_PIPELINE=1``
+   and speculation on): (a) the reference's matrix, profile
+   ``device-faults``, seeds 0-2, 40 steps, 4 nodes; (b) one seed at phase
+   7's width, 1,000 nodes (resident rows Np = 1,024); each matrix once
+   on cuda and once on the CPU. Every cell: its bound set equal to its
+   own fault-free control on cuda and to the CPU run of the seed, its
+   fault tallies by site, bit flips and churn restarts equal to the CPU
+   run's, the end-state audit bit-exact, no guard give-up; over the
+   matrix at least one fault at each of ``dispatch``, ``upload`` and
+   ``megaround`` and one bit flip. (c) the negative control: flips only
+   with ``NHD_GUARD=0`` on cuda must leave corruption the audit reports
+   and no repair. Every kernel launches in the phase;
+12. the kernel cache (nhd_tpu_torch/solver/aot.py) on the card, each
+   probe a fresh ``python -m nhd_tpu_torch.solver.aot --first-bind-probe
+   --device cuda`` in a temporary ``NHDC_AOT_DIR``: (a) cold, empty,
+   ``--save`` (nvcc builds all six libraries inside the bind); (b) a
+   restart without prewarm; (c) a restart with ``--prewarm`` (no build,
+   no library load inside the bind); (d) a copy with one library
+   truncated and one meta's fingerprint edited, ``--prewarm``: both
+   quarantined (kept under ``quarantine/``), rebuilt, the pod bound;
+   (e) the storm of tests/test_aot.py:151 (seed 11, 60 steps, ``light``)
+   recorded here, then in a fresh process prewarmed and replayed: the
+   jit-stats compiles flat, no library built or loaded, hits grown; (f)
+   the CLI with ``--prewarm`` on phase 10's 1,000-node stub, twice (the
+   first start records what it serves, the second warms it), 200 pods
+   each: its prewarm line and its time to come up beside phase 10's,
+   with the start-up steps read from its log;
+13. the kernels JSON line: per kernel its launches in phases 4-7 and
+   9-12 (counts set to 0 just before each counted run and read just
+   after; phase 10's and the subprocesses of 12 are those processes'
+   own, from start to exit),
    its time, its plain version's time and its bound — the solve kernels
    at the cfg4 G=2 bucket, the claim kernels at cfg4's first megaround
    iteration. A bound counts the bytes and operations of the real type
@@ -151,15 +181,28 @@ STREAM_DAEMON_CUT = ("pods cut from 100,000 to 2,000: this part tests the "
 #: (longer than the daemon's 30 s idle before a periodic scan; once
 #: every pod is bound, a short settle), the CLI's own time limit, and
 #: the wait for its first bind after the first pod
-CLI_NODES, CLI_PODS = 1_000, 2_000
-CLI_CUT = ("pods cut from 10,000 to 2,000: each pod costs three HTTP writes "
+CLI_NODES, CLI_PODS = 1_000, 1_500
+CLI_CUT = ("pods cut from 10,000 to 1,500: each pod costs three HTTP writes "
            "(annotate, bind, event) on a threading stub; phase 7 keeps the "
-           "10,000-pod set on the fake backend")
+           "10,000-pod set on the fake backend; 2,000 until phases 11-12 "
+           "joined the smoke")
 CLI_QUIET_S, CLI_SETTLE_S, CLI_RUN_S, CLI_FIRST_BIND_S = 40.0, 2.0, 300, 120.0
 #: phase 10: the wait for the CLI to come up, and the most pods created
 #: and not yet bound at a time, below the admission queue's tenant lane
 #: cap (NHD_ADMIT_TENANT_CAP, 256) so the front door sheds none
 CLI_READY_S, CLI_BACKLOG = 180.0, 200
+#: phase 11: the device-fault matrices (label, seeds, nodes, steps): the
+#: reference's (Makefile:17-18, tools/chaos_storm.py:434) and one seed at
+#: phase 7's cluster width; the knobs of --device-plane and the card's
+#: defaults made explicit, so the CPU runs take the same rounds
+CHAOS_CELLS = (("device-faults 4 nodes", 3, 4, 40),
+               ("device-faults 1000 nodes", 1, 1_000, 40))
+CHAOS_ENV = dict(NHD_TPU_DEVICE_STATE="1", NHD_GUARD_AUDIT_INTERVAL="1",
+                 NHD_GUARD_AUDIT_ROWS="0", NHD_PIPELINE="1",
+                 NHD_TPU_SPECULATE="1", NHD_MESH="off")
+CHAOS_CONTROL_STEPS = 25
+#: phase 12 (f): pods fed to each --prewarm start of the CLI
+PREWARM_CLI_PODS = 200
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_JOURNAL = os.path.join(ROOT, "tests", "fixtures", "journal",
                               "golden_churn.journal.jsonl")
@@ -1625,11 +1668,22 @@ def log_tail(path, n=40):
 
 
 def free_port():
+    """A port free on every interface, below Linux's ephemeral range
+    (32768 and up): a port the kernel handed out and took back could be
+    handed again to the CLI's own gRPC server (``--rpc-port 0``) before
+    the metrics server binds it."""
+    import random
     import socket
 
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    start = random.randrange(20000, 32000)
+    for port in range(start, start + 500):
+        with socket.socket() as s:
+            try:
+                s.bind(("", port))
+            except OSError:
+                continue
+            return port
+    fail("no free port below the ephemeral range for /metrics")
 
 
 def scrape(port):
@@ -1713,7 +1767,8 @@ def cli_ready(stub, port):
     return True
 
 
-def run_cli(device, n_nodes, n_pods, workdir, label, log_dir="chiprun_out"):
+def run_cli(device, n_nodes, n_pods, workdir, label, log_dir="chiprun_out",
+            extra_args=(), extra_env=None):
     """Phase 10 (b)/(c): ``python -m nhd_tpu_torch.cli`` on *device*
     against a fresh stub holding the nodes. Once the CLI is up, the
     pods are created through the stub, each announced on the pod watch,
@@ -1746,16 +1801,17 @@ def run_cli(device, n_nodes, n_pods, workdir, label, log_dir="chiprun_out"):
         PYTHONPATH=os.pathsep.join(
             [ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]),
     )
+    child_env.update(extra_env or {})
     cmd = [sys.executable, "-m", "nhd_tpu_torch.cli", "--device", device,
            "--rpc-port", "0", "--metrics-port", str(port), "--journal", jdir,
-           "--run-seconds", str(CLI_RUN_S)]
+           "--run-seconds", str(CLI_RUN_S), *extra_args]
     out = {"device": device, "cmd": " ".join(cmd[1:]), "backlog": CLI_BACKLOG}
     if signal.getsignal(signal.SIGINT) is signal.SIG_IGN:
         # a SIGINT ignored by whatever started this script would be
         # inherited: the CLI's clean exit is its KeyboardInterrupt
         signal.signal(signal.SIGINT, signal.default_int_handler)
     with open(log_path, "w") as fh:
-        t0 = time.perf_counter()
+        t0, t0_wall = time.perf_counter(), time.time()
         proc = subprocess.Popen(
             cmd, stdout=fh, stderr=subprocess.STDOUT, text=True, env=child_env,
             cwd=ROOT,
@@ -1833,6 +1889,10 @@ def run_cli(device, n_nodes, n_pods, workdir, label, log_dir="chiprun_out"):
                             if "stats RPC" in line), "no stats RPC line")
     out["bound"], out["total"], out["fed"] = len(bound_at), n_pods, fed
     out["ready_s"], out["first_bind_s"] = feed0 - t0, first - feed0
+    out["startup_s"] = startup_marks(text, t0_wall)
+    out["prewarm_line"] = next(
+        (line.split(": ", 1)[-1] for line in text.splitlines()
+         if "prewarm: " in line), None)
     out["bind_span_s"] = last - first
     out["binds_per_s"] = (seen - 1) / (last - first) if last > first else None
     # every pod's create to its bind, stamped in this process by the poll
@@ -1856,6 +1916,34 @@ def run_cli(device, n_nodes, n_pods, workdir, label, log_dir="chiprun_out"):
         for key, p in sorted(stub.pods.items())
     }
     return out, outcome
+
+
+#: CLI log lines that mark its start-up steps, in order
+STARTUP_MARKS = (
+    ("imports", "nhd_tpu_torch version"),
+    ("device", "solver device: "),
+    ("prewarm", "prewarm: "),
+    ("serving", "stats RPC"),
+)
+
+
+def startup_marks(text, t0_wall):
+    """Seconds from the CLI's spawn to the first log line of each start-up
+    step (``STARTUP_MARKS``; the log's millisecond timestamps, read
+    against the wall clock at spawn)."""
+    import datetime
+
+    marks = {}
+    for line in text.splitlines():
+        for name, marker in STARTUP_MARKS:
+            if name not in marks and marker in line:
+                try:
+                    stamp = datetime.datetime.strptime(
+                        line[:23], "%Y-%m-%d %H:%M:%S,%f").timestamp()
+                except ValueError:
+                    continue
+                marks[name] = stamp - t0_wall
+    return marks
 
 
 def metrics_bind_text(got):
@@ -2035,6 +2123,341 @@ def cli_phase(torch, report, launches_total, smi):
     }
 
 
+def storm_matrix(device, seeds, nodes, steps, path):
+    """One device-faults matrix through the port's storm (sim/storm.py),
+    in this process, under phase 11's posture; returns its summary and,
+    on the card, the kernels' launches (counts set to 0 just before)."""
+    import torch
+
+    from nhd_tpu_torch import kernels
+    from nhd_tpu_torch.sim import storm
+
+    with env(**CHAOS_ENV):
+        if device == "cuda":
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+        t0 = time.perf_counter()
+        rc = storm.main([
+            "--profiles", "device-faults", "--seeds", str(seeds),
+            "--steps", str(steps), "--nodes", str(nodes), "--device-plane",
+            "--bind-parity", "--device", device, "--json-out", path,
+        ])
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES) if device == "cuda" else None
+    with open(path) as fh:
+        summary = json.load(fh)
+    if rc != 0 or not summary["ok"]:
+        bad = [(c["seed"], c["violations"][:3], c["stuck_pods"][:3])
+               for c in summary["cells"] if not c["ok"]]
+        fail(f"storm on {device} ({nodes} nodes): failed cells {bad}")
+    summary["wall_s"] = wall
+    return summary, launches
+
+
+def chaos_phase(torch, report, launches_total, smi):
+    """Phase 11: the device-fault storm on the card (module docstring)."""
+    import tempfile
+
+    from nhd_tpu_torch import kernels
+    from nhd_tpu_torch.k8s.retry import API_COUNTERS
+    from nhd_tpu_torch.sim.chaos import ChaosSim
+    from nhd_tpu_torch.sim.faults import FaultProfile
+    from nhd_tpu_torch.solver import guard
+
+    out = {"smi": smi}
+    phase = dict.fromkeys(kernels.KERNELS, 0)
+    sites_total = {}
+    flips_total = 0
+    with tempfile.TemporaryDirectory(prefix="nhd-chaos-") as work:
+        for label, seeds, nodes, steps in CHAOS_CELLS:
+            got, launches = storm_matrix(
+                "cuda", seeds, nodes, steps, os.path.join(work, label + ".json"))
+            cpu, _ = storm_matrix(
+                "cpu", seeds, nodes, steps, os.path.join(work, label + "-cpu.json"))
+            for k in kernels.KERNELS:
+                phase[k] += launches[k]
+            for c, cc in zip(got["cells"], cpu["cells"], strict=True):
+                seed = c["seed"]
+                if not c.get("bind_parity"):
+                    fail(f"chaos {label} seed {seed}: bound set differs from "
+                         "its fault-free control on cuda")
+                if c["bound_set"] != cc["bound_set"]:
+                    fail(f"chaos {label} seed {seed}: bound set differs from "
+                         "the CPU run of the same seed")
+                for key in ("faults_injected", "faults_by_site", "bit_flips",
+                            "restarts"):
+                    if c[key] != cc[key]:
+                        fail(f"chaos {label} seed {seed}: {key} {c[key]} on "
+                             f"cuda, {cc[key]} on the CPU")
+                if c["guard_giveups"]:
+                    fail(f"chaos {label} seed {seed}: the guard gave up "
+                         f"{c['guard_giveups']} time(s)")
+                for site, n in c["faults_by_site"].items():
+                    sites_total[site] = sites_total.get(site, 0) + n
+                flips_total += c["bit_flips"]
+                log(f"chaos {label} seed {seed}: {nodes} nodes, {steps} steps, "
+                    f"bound {len(c['bound_set'])} as its fault-free control "
+                    f"and the CPU run; faults by site {c['faults_by_site']}, "
+                    f"slow dispatches {c['faults_injected']['device_slow_dispatches']}, "
+                    f"bit flips {c['bit_flips']}, end-state audit bit-exact, "
+                    f"guard rung at the end {c['guard_rung_end']}, give-ups 0, "
+                    f"restarts {c['restarts']} (the churn's, as on the CPU)")
+            log(f"chaos {label}: matrix wall {got['wall_s']:.2f}s on cuda "
+                f"(controls included), {cpu['wall_s']:.2f}s on the CPU; "
+                f"launches {launches}; {smi}")
+            out[label] = {"cuda": got, "cpu": cpu, "launches": launches}
+        for site in ("dispatch", "upload", "megaround"):
+            if not sites_total.get(site):
+                fail(f"chaos: no injected fault landed at {site} "
+                     f"({sites_total})")
+        if not flips_total:
+            fail("chaos: no bit flip landed over the matrix")
+        # (c) the negative control: flips with the guard off must survive
+        # whole steps, and nothing may repair them
+        with env(**CHAOS_ENV, NHD_GUARD="0"):
+            guard.GUARD.reset()
+            repairs = API_COUNTERS.get("guard_repairs_total")
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            sim = ChaosSim(seed=0, api_faults=FaultProfile(
+                name="flips-only", device_bit_flip=0.5), device="cuda")
+            fired = 0
+            for _ in range(CHAOS_CONTROL_STEPS):
+                before = sim.stats.bit_flips
+                sim.step()
+                if sim.stats.bit_flips > before and sim.device_audit_errors():
+                    fired += 1
+            sim.quiesce()
+            torch.cuda.synchronize()
+            control = dict(kernels.LAUNCHES)
+            repaired = API_COUNTERS.get("guard_repairs_total") - repairs
+            guard.GUARD.reset()
+        for k in kernels.KERNELS:
+            phase[k] += control[k]
+        log(f"chaos negative control (NHD_GUARD=0, flips only, seed 0, "
+            f"{CHAOS_CONTROL_STEPS} steps on cuda): {sim.stats.bit_flips} "
+            f"flips, {fired} survived their step (the audit reports them), "
+            f"{repaired} repairs")
+        if not sim.stats.bit_flips or not fired:
+            fail("chaos negative control: no corruption survived a step; "
+                 "the control is vacuous")
+        if repaired:
+            fail(f"chaos negative control: {repaired} repair(s) with the "
+                 "guard off")
+    for k in kernels.KERNELS:
+        if phase[k] == 0:
+            fail(f"chaos: kernel {k} was never launched in the phase")
+        launches_total[k] += phase[k]
+    log(f"chaos: faults by site over the matrix {sites_total}, bit flips "
+        f"{flips_total}; launches in the phase {phase}; {smi}")
+    out.update(sites=sites_total, flips=flips_total, launches=phase,
+               control={"flips": sim.stats.bit_flips, "fired": fired})
+    report["chaos"] = out
+
+
+def probe(label, directory, *args):
+    """Phase 12: one first-bind probe, a fresh process on the card with
+    the kernel cache in *directory*; returns its JSON line and the
+    process wall."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "nhd_tpu_torch.solver.aot",
+         "--first-bind-probe", "--device", "cuda", *args],
+        capture_output=True, text=True, timeout=600, cwd=ROOT,
+        env=dict(os.environ, NHDC_AOT_DIR=directory),
+    )
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"probe {label}: exit {proc.returncode}: {proc.stderr[-3000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    got["process_s"] = wall
+    log(f"probe {label}: first_bind_s={got['first_bind_s']:.4f} "
+        f"second_bind_s={got['second_bind_s']:.4f} "
+        f"prewarm_s={got['prewarm_s']:.4f} programs={got['programs']} "
+        f"quarantined={got['quarantined']} libraries={got['libraries']} "
+        f"built={got['built']} (in the bind: {got['bind_builds']} built, "
+        f"{got['bind_loads']} loaded) bound={got['bound']} "
+        f"process={wall:.2f}s")
+    return got
+
+
+def zero_recompile_child():
+    """Phase 12 (e), in a fresh process: prewarm from NHDC_AOT_DIR, then
+    the storm of tests/test_aot.py:151 on the card; prints one JSON
+    line. The phase holds the counters it prints."""
+    import torch
+
+    from nhd_tpu_torch import kernels
+    from nhd_tpu_torch.kernels import build
+    from nhd_tpu_torch.obs.jitstats import JIT_STATS
+    from nhd_tpu_torch.sim.chaos import ChaosSim
+    from nhd_tpu_torch.sim.faults import PROFILES
+    from nhd_tpu_torch.solver import aot
+
+    summary = aot.prewarm(device="cuda")
+    warm, built = JIT_STATS.snapshot(), dict(build.COUNTS)
+    t0 = time.perf_counter()
+    sim = ChaosSim(seed=11, n_nodes=4, api_faults=PROFILES["light"],
+                   device="cuda")
+    sim.run(60)
+    sim.quiesce()
+    torch.cuda.synchronize()
+    steady = JIT_STATS.snapshot()
+    print(json.dumps({
+        "prewarm": {k: summary[k] for k in
+                    ("loaded", "libraries", "built", "quarantined", "seconds")},
+        "warm": {k: warm[k] for k in ("compiles_total", "cache_hits_total")},
+        "steady": {k: steady[k] for k in ("compiles_total", "cache_hits_total")},
+        "escaped": sorted(set(steady["shapes"]) - set(warm["shapes"])),
+        "builds": build.COUNTS["builds"] - built["builds"],
+        "loads": build.COUNTS["loads"] - built["loads"],
+        "storm_s": time.perf_counter() - t0,
+        "launches": dict(kernels.LAUNCHES),
+    }), flush=True)
+    return 0
+
+
+def prewarm_phase(torch, report, launches_total, smi):
+    """Phase 12: the kernel cache on the card (module docstring)."""
+    import glob
+    import shutil
+    import tempfile
+
+    from nhd_tpu_torch import kernels
+    from nhd_tpu_torch.sim.chaos import ChaosSim
+    from nhd_tpu_torch.sim.faults import PROFILES
+    from nhd_tpu_torch.solver import aot, guard
+
+    out = {"smi": smi}
+    phase = dict.fromkeys(kernels.KERNELS, 0)
+    # the name prefixes of the cache's manifest entries
+    manifest = tuple(f"{kind}_" for kind in aot.JIT_KIND)
+
+    def add(launches):
+        for k in kernels.KERNELS:
+            phase[k] += launches[k]
+
+    with tempfile.TemporaryDirectory(prefix="nhd-aot-") as work:
+        cache = os.path.join(work, "aot")
+        os.makedirs(cache)
+        cold = probe("(a) cold, empty cache, --save", cache, "--save")
+        if cold["bind_builds"] != len(kernels.KERNELS):
+            fail(f"probe (a): {cold['bind_builds']} libraries built in the "
+                 f"bind, expected {len(kernels.KERNELS)}")
+        if not any(glob.glob(os.path.join(cache, p + "*.json"))
+                   for p in manifest):
+            fail("probe (a): no manifest entry recorded")
+        restart = probe("(b) restart, no prewarm", cache)
+        warm = probe("(c) restart, --prewarm", cache, "--prewarm")
+        for got, what in ((restart, "(b)"), (warm, "(c)")):
+            if got["bind_builds"] or got["built"] or got["quarantined"]:
+                fail(f"probe {what}: built or quarantined on a valid cache")
+        if not warm["programs"] or warm["bind_loads"]:
+            fail(f"probe (c): {warm['programs']} programs warmed, "
+                 f"{warm['bind_loads']} libraries loaded in the bind")
+        # (d) a copy with one library truncated and one meta edited
+        damaged = os.path.join(work, "damaged")
+        shutil.copytree(cache, damaged)
+        so = glob.glob(os.path.join(damaged, "libnic_any_first-*.so"))[0]
+        with open(so, "r+b") as fh:
+            fh.truncate(64)
+        meta_path = glob.glob(os.path.join(damaged, "libspec_fill-*.json"))[0]
+        with open(meta_path) as fh:
+            meta = json.load(fh)
+        meta["fingerprint"] = "edited"
+        with open(meta_path, "w") as fh:
+            json.dump(meta, fh)
+        fixed = probe("(d) one library truncated, one meta edited, --prewarm",
+                      damaged, "--prewarm")
+        qdir = os.path.join(damaged, "quarantine")
+        moved = sorted(os.listdir(qdir)) if os.path.isdir(qdir) else []
+        want = sorted([os.path.basename(so), os.path.basename(so)[:-3] + ".json",
+                       os.path.basename(meta_path),
+                       os.path.basename(meta_path)[:-5] + ".so"])
+        if fixed["quarantined"] != 2 or fixed["built"] != 2 or moved != want:
+            fail(f"probe (d): quarantined {fixed['quarantined']}, built "
+                 f"{fixed['built']}, quarantine/ holds {moved}")
+        log(f"probe (d): quarantine/ holds {moved}; both rebuilt and loaded")
+        for got in (cold, restart, warm, fixed):
+            add(got["launches"])
+        # (e) the storm of tests/test_aot.py:151 recorded here, then
+        # replayed in a fresh process after prewarm
+        storm_dir = os.path.join(work, "storm")
+        libraries_only = shutil.ignore_patterns(
+            *(p + "*" for p in manifest), "quarantine")
+        shutil.copytree(cache, storm_dir, ignore=libraries_only)
+        aot.configure(directory=storm_dir, save=True)
+        # the shapes the earlier phases' faults quarantined in this
+        # process are not recorded: start the guard clean, as a fresh
+        # daemon would
+        guard.GUARD.reset()
+        try:
+            sim = ChaosSim(seed=11, n_nodes=4, api_faults=PROFILES["light"],
+                           device="cuda")
+            sim.run(60)
+            sim.quiesce()
+            aot.AOT.drain()
+        finally:
+            aot.reset()
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c",
+             "import sys, chip_smoke; sys.exit(chip_smoke.zero_recompile_child())"],
+            capture_output=True, text=True, timeout=600, cwd=ROOT,
+            env=dict(os.environ, NHDC_AOT_DIR=storm_dir),
+        )
+        if proc.returncode != 0:
+            fail(f"zero-recompile child: exit {proc.returncode}: "
+                 f"{proc.stderr[-3000:]}")
+        z = json.loads(proc.stdout.strip().splitlines()[-1])
+        z["process_s"] = time.perf_counter() - t0
+        add(z["launches"])
+        log(f"zero-recompile (seed 11, 60 steps, light, fresh process): "
+            f"prewarm {z['prewarm']}; compiles {z['warm']['compiles_total']} "
+            f"-> {z['steady']['compiles_total']}, hits "
+            f"{z['warm']['cache_hits_total']} -> {z['steady']['cache_hits_total']}, "
+            f"escaped {z['escaped']}, libraries built {z['builds']} and loaded "
+            f"{z['loads']} after prewarm; storm {z['storm_s']:.2f}s, process "
+            f"{z['process_s']:.2f}s")
+        if (z["steady"]["compiles_total"] != z["warm"]["compiles_total"]
+                or z["escaped"]):
+            fail(f"zero-recompile: shape escape {z['escaped']}")
+        if z["builds"] or z["loads"]:
+            fail("zero-recompile: a library was built or loaded after prewarm")
+        if z["steady"]["cache_hits_total"] <= z["warm"]["cache_hits_total"]:
+            fail("zero-recompile: the storm dispatched nothing")
+        # (f) the CLI with --prewarm on phase 10's stub: a first start
+        # records what it serves, the second warms it
+        cli_dir = os.path.join(work, "cli")
+        shutil.copytree(cache, cli_dir, ignore=libraries_only)
+        starts = []
+        for i in (1, 2):
+            got, _ = run_cli("cuda", CLI_NODES, PREWARM_CLI_PODS, work,
+                             f"cuda-prewarm-{i}", extra_args=["--prewarm"],
+                             extra_env={"NHDC_AOT_DIR": cli_dir})
+            if got["bound"] != PREWARM_CLI_PODS or not got["prewarm_line"]:
+                fail(f"cli --prewarm start {i}: bound {got['bound']}, "
+                     f"prewarm line {got['prewarm_line']!r}")
+            add(got["launches"])
+            starts.append(got)
+            log(f"cli --prewarm start {i} ({CLI_NODES} nodes, "
+                f"{PREWARM_CLI_PODS} pods): {got['prewarm_line']}; up "
+                f"{got['ready_s']:.2f}s after start (phase 10 without "
+                f"--prewarm: {report['cli']['cuda']['ready_s']:.2f}s); "
+                f"start-up marks {got['startup_s']} (phase 10: "
+                f"{report['cli']['cuda']['startup_s']}); first bind "
+                f"{got['first_bind_s']:.3f}s after the first pod; {smi}")
+    for k in kernels.KERNELS:
+        if phase[k] == 0:
+            fail(f"prewarm: kernel {k} was never launched in the phase")
+        launches_total[k] += phase[k]
+    out.update(cold=cold, restart=restart, prewarmed=warm, damaged=fixed,
+               zero_recompile=z, cli=starts, launches=phase)
+    report["prewarm"] = out
+
+
 def main():
     try:
         import torch
@@ -2125,8 +2548,17 @@ def main():
 
     # 10. the CLI over HTTP on the card
     cli_phase(torch, report, launches_total, smi)
+    # 11. the device-fault storm on the card
+    t0 = time.perf_counter()
+    chaos_phase(torch, report, launches_total, smi)
+    # 12. the kernel cache: prewarm, quarantine, first bind
+    t1 = time.perf_counter()
+    prewarm_phase(torch, report, launches_total, smi)
+    report["phase_s"] = {"11": t1 - t0, "12": time.perf_counter() - t1}
+    log(f"phases 11 / 12: {t1 - t0:.1f} / {report['phase_s']['12']:.1f} s "
+        f"of command time")
 
-    # 11. kernels line
+    # 13. kernels line
     meta = {
         "nic_node_masks": ("nhd_tpu_torch/kernels/nic_node_masks.cu",
                            "nhd_tpu/solver/kernel.py:136"),

@@ -275,9 +275,12 @@ def main(argv=None) -> int:
                              "(docs/PERFORMANCE.md 'SPMD megaround'; env "
                              "NHD_MESH)")
     parser.add_argument("--prewarm", action="store_true",
-                        help="pre-build the solver before serving; the "
-                             "port has no compile cache yet, so this exits "
-                             "with status 2 (ROADMAP Queue 1 item 6)")
+                        help="before serving, build any missing kernel "
+                             "library, load all of them and run the kernels "
+                             "once at every shape the cache's manifest "
+                             "holds (NHDC_AOT_DIR); shapes first seen while "
+                             "serving are recorded for the next restart "
+                             "(solver/aot.py)")
     parser.add_argument("--run-seconds", type=float, default=0,
                         help="exit cleanly after N seconds with a summary "
                              "(demo/smoke runs; 0 = run forever)")
@@ -303,13 +306,13 @@ def main(argv=None) -> int:
     logger.warning(f"nhd_tpu_torch version {__version__}")
 
     if args.prewarm:
-        # the port has no compile cache to prewarm yet (ROADMAP Queue 1
-        # item 6, solver/aot.py): refuse instead of serving cold while
-        # the operator believes the programs are warm
-        print("--prewarm is not available in nhd_tpu_torch until ROADMAP "
-              "Queue 1 item 6 (solver/aot.py: the kernel build cache and "
-              "prewarm) is ported", file=sys.stderr)
-        return 2
+        # recording turns on now; the prewarm itself runs AFTER the
+        # thread set is built (below) so each artifact can advance the
+        # scheduler's heartbeat — a long prewarm must never read as a
+        # wedged loop to the stall watchdog
+        from nhd_tpu_torch.solver import aot
+
+        aot.configure(save=True)
 
     # the device is resolved once, here, before any thread exists: a
     # CUDA request without a usable GPU ends the process with the error
@@ -456,6 +459,22 @@ def main(argv=None) -> int:
         shards=args.shards, shard_peers=shard_peers, on_demote=on_demote,
         mesh=args.mesh, device=device,
     )
+    if args.prewarm:
+        # warm restart: load every kernel library and run the kernels at
+        # each recorded shape NOW, before any thread starts, so the first
+        # watch event finds them warm; every artifact advances
+        # Scheduler.last_heartbeat (the progress hook)
+        from nhd_tpu_torch.solver import aot
+
+        sched = next(t for t in threads if isinstance(t, Scheduler))
+        summary = aot.prewarm(progress=sched._beat, device=device)
+        msg = (f"prewarm: {summary['loaded']} solver program(s) warmed, "
+               f"{summary['libraries']} kernel library(ies) loaded "
+               f"({summary['built']} built) in {summary['seconds']:.2f}s "
+               f"from {aot.AOT.directory()}")
+        if summary["quarantined"]:
+            msg += f" ({summary['quarantined']} stale artifact(s) quarantined)"
+        logger.warning(msg)
     for t in threads:
         t.start()
 

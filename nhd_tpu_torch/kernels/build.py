@@ -8,11 +8,16 @@ kernel. No source includes PyTorch's headers, so a
 build takes seconds, not the minutes ``torch.utils.cpp_extension.load``
 needs for a binding file.
 
-Libraries land in ``nhd_tpu_torch/_build/`` (git-ignored), named by a
-hash of the source and the flags, so an edited source rebuilds. The
-first kernel call builds every source at once, one ``nvcc`` process per
-source, all started together. Nothing here runs at import: this module
-is imported on machines without ``nvcc`` (the CPU tests).
+Libraries land in the kernel cache's directory (``NHDC_AOT_DIR``,
+default ``nhd_tpu_torch/_build/``, git-ignored), named by a fingerprint
+of the source, ``abi.py`` and the flags, so an edited source rebuilds.
+Each library carries a sidecar meta (solver/aot.py) that names the
+toolchain and the card it was built for; ``load`` validates it, and a
+library that fails validation, ``dlopen`` or its entry symbols is
+quarantined and rebuilt from source, or the load raises. The first
+kernel call builds every missing source at once, one ``nvcc`` process
+per source, all started together. Nothing here runs at import: this
+module is imported on machines without ``nvcc`` (the CPU tests).
 """
 
 from __future__ import annotations
@@ -30,7 +35,10 @@ from typing import Dict, List, Optional
 from nhd_tpu_torch.kernels.abi import ABI
 
 _DIR = Path(__file__).resolve().parent
+#: the default build directory (the kernel cache's, solver/aot.py)
 BUILD_DIR = _DIR.parent / "_build"
+#: the architecture every library is built for
+TARGET = "sm_90a"
 
 NVCC_FLAGS = [
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -41,6 +49,8 @@ _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 #: wall seconds of the last build_all (0.0 when every library was cached)
 BUILD_SECONDS: Dict[str, float] = {"total": 0.0}
+#: libraries compiled, opened and quarantined by this process
+COUNTS: Dict[str, int] = {"builds": 0, "loads": 0, "quarantined": 0}
 
 
 def nvcc_path() -> str:
@@ -65,22 +75,104 @@ def source_path(name: str) -> Path:
     return _DIR / f"{name}.cu"
 
 
+def build_dir() -> Path:
+    from nhd_tpu_torch.solver.aot import AOT
+
+    return Path(AOT.directory())
+
+
+def fingerprint(name: str) -> str:
+    """Hash over kernel *name*'s source, the interface table and the
+    compiler flags: what the library's code depends on in this tree."""
+    h = hashlib.sha1(source_path(name).read_bytes())
+    h.update((_DIR / "abi.py").read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:12]
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha1(
-        source_path(name).read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return build_dir() / f"lib{name}-{fingerprint(name)}.so"
+
+
+def meta_path(name: str) -> Path:
+    return library_path(name).with_suffix(".json")
+
+
+_TOOLCHAIN: Dict[str, str] = {}
+
+
+def toolchain() -> Dict[str, str]:
+    """What a library's machine code depends on outside the tree: the
+    nvcc release, the target, torch and its CUDA, and the card."""
+    if not _TOOLCHAIN:
+        import torch
+
+        out = subprocess.run([nvcc_path(), "--version"], capture_output=True,
+                             text=True, check=True).stdout
+        _TOOLCHAIN.update(
+            nvcc_version=out.strip().splitlines()[-1],
+            target=TARGET,
+            torch_version=torch.__version__,
+            cuda_version=str(torch.version.cuda),
+            device_name=torch.cuda.get_device_name(torch.cuda.current_device()),
+        )
+    return dict(_TOOLCHAIN)
+
+
+def library_meta(name: str) -> Dict[str, object]:
+    """The sidecar meta a valid library of kernel *name* carries."""
+    from nhd_tpu_torch.solver.aot import AOT_SCHEMA_VERSION
+
+    return {"aot_schema": AOT_SCHEMA_VERSION, "kind": "library",
+            "kernel": name, "fingerprint": fingerprint(name), **toolchain()}
+
+
+def stale_reason(name: str) -> Optional[str]:
+    """Why kernel *name*'s library cannot be used as it is on disk, or
+    None when its file and meta are there and the meta matches."""
+    import json
+
+    so, meta = library_path(name), meta_path(name)
+    if not so.exists():
+        return "missing library"
+    try:
+        got = json.loads(meta.read_text())
+    except (OSError, ValueError) as exc:
+        return f"unreadable meta: {exc}"
+    want = library_meta(name)
+    for field, value in want.items():
+        if got.get(field) != value:
+            return f"{field} {got.get(field)!r} != {value!r}"
+    return None
+
+
+def _quarantine(name: str, why: str) -> None:
+    from nhd_tpu_torch.solver.aot import AOT
+
+    if AOT.quarantine([library_path(name), meta_path(name)], why):
+        COUNTS["quarantined"] += 1
 
 
 def build_all() -> Dict[str, str]:
-    """Compile every kernel source whose library is missing, all nvcc
-    processes in parallel. Returns {name: compiler log} of what was built
-    (ptxas prints registers, shared memory and spills per kernel). Raises
-    with the compiler's output when any build fails."""
-    todo = [n for n in ABI if not library_path(n).exists()]
+    """Compile every kernel source whose library is missing or stale
+    (a stale one is quarantined first), all nvcc processes in parallel,
+    and write each new library's meta. Returns {name: compiler log} of
+    what was built (ptxas prints registers, shared memory and spills
+    per kernel). Raises with the compiler's output when any build
+    fails."""
+    import json
+
+    todo = []
+    for name in ABI:
+        why = stale_reason(name)
+        if why is None:
+            continue
+        if why != "missing library":
+            _quarantine(name, why)
+        todo.append(name)
     if not todo:
         return {}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir().mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     t0 = time.perf_counter()
     procs = {}
@@ -101,6 +193,12 @@ def build_all() -> Dict[str, str]:
         logs[name] = log
         if proc.returncode == 0:
             os.replace(tmp, out)
+            meta = meta_path(name)
+            tmp_meta = meta.with_suffix(f".tmp{os.getpid()}")
+            tmp_meta.write_text(json.dumps(library_meta(name), indent=1,
+                                           sort_keys=True))
+            os.replace(tmp_meta, meta)
+            COUNTS["builds"] += 1
         else:
             tmp.unlink(missing_ok=True)
             failed.append(f"{name} (exit {proc.returncode}):\n{log}")
@@ -110,26 +208,56 @@ def build_all() -> Dict[str, str]:
     return logs
 
 
+def _open(name: str) -> ctypes.CDLL:
+    """dlopen kernel *name*'s library and bind its entry points; raises
+    OSError or AttributeError for a library that is not what it says."""
+    lib = ctypes.CDLL(str(library_path(name)))
+    spec = ABI[name]
+    try:
+        fn = getattr(lib, spec.entry)
+        err = getattr(lib, spec.entry + "_error")
+    except AttributeError:
+        # unmap it: a rebuild lands at the same path, and while this
+        # handle stays open dlopen would hand it back
+        import _ctypes
+
+        _ctypes.dlclose(lib._handle)
+        raise
+    fn.restype = ctypes.c_int
+    # tensor pointers, int sizes, then the device index and the stream
+    fn.argtypes = (
+        [ctypes.c_void_p] * len(spec.args)
+        + [ctypes.c_int] * len(spec.sizes)
+        + [ctypes.c_int, ctypes.c_void_p]
+    )
+    err.restype = ctypes.c_char_p
+    err.argtypes = [ctypes.c_int]
+    return lib
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel *name*, building at first use."""
+    """The loaded library of kernel *name*, built (or rebuilt) at first
+    use. A library that will not open or lacks its entry symbols is
+    quarantined and rebuilt once; if the rebuild fails too, this
+    raises: there is no fallback."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is not None:
             return lib
         build_all()
-        lib = ctypes.CDLL(str(library_path(name)))
-        spec = ABI[name]
-        fn = getattr(lib, spec.entry)
-        fn.restype = ctypes.c_int
-        # tensor pointers, int sizes, then the device index and the stream
-        fn.argtypes = (
-            [ctypes.c_void_p] * len(spec.args)
-            + [ctypes.c_int] * len(spec.sizes)
-            + [ctypes.c_int, ctypes.c_void_p]
-        )
-        err = getattr(lib, spec.entry + "_error")
-        err.restype = ctypes.c_char_p
-        err.argtypes = [ctypes.c_int]
+        try:
+            lib = _open(name)
+        except (OSError, AttributeError) as exc:
+            _quarantine(name, f"dlopen/symbols: {exc}")
+            build_all()
+            try:
+                lib = _open(name)
+            except (OSError, AttributeError) as again:
+                raise RuntimeError(
+                    f"kernel library {name} rebuilt from source and still "
+                    f"failed to load: {again}"
+                ) from again
+        COUNTS["loads"] += 1
         _LIBS[name] = lib
         return lib
 

@@ -26,6 +26,7 @@ import torch
 from nhd_tpu_torch.device import DeviceLike, resolve_device
 from nhd_tpu_torch.obs.counters import API_COUNTERS
 from nhd_tpu_torch.obs.jitstats import JIT_STATS
+from nhd_tpu_torch.solver import aot
 from nhd_tpu_torch.solver.kernel import (
     _ARG_ORDER,
     _MUTABLE,
@@ -141,7 +142,10 @@ class DeviceClusterState:
         for name in names:
             src = getattr(self.cluster, name)[rows]
             self._dev[name].index_copy_(0, idx, to_device(src, self.device))
-        JIT_STATS.record_use("row_scatter", f"A{len(names)}_N{self.Np}")
+        key = f"A{len(names)}_N{self.Np}"
+        JIT_STATS.record_use("row_scatter", key)
+        aot.maybe_record(aot.ShapeKey("scatter", key), lambda: {
+            "node": aot.arg_spec(self._dev[name] for name in names)})
         API_COUNTERS.inc("device_state_rows_uploaded_total", len(rows))
 
     def scatter_rows(self, rows: np.ndarray) -> None:
@@ -216,18 +220,22 @@ class DeviceClusterState:
         shapes = tuple(
             (pods.G, _pad_pow2(pods.n_types)) for pods in bucket_pods
         )
-        JIT_STATS.record_use(
-            "megaround",
-            "B" + "_".join(f"G{g}T{t}" for g, t in shapes)
-            + f"_U{self.cluster.U}_K{self.cluster.K}_N{self.Np}",
-        )
+        key = ("B" + "_".join(f"G{g}T{t}" for g, t in shapes)
+               + f"_U{self.cluster.U}_K{self.cluster.K}_N{self.Np}")
+        JIT_STATS.record_use("megaround", key)
         from nhd_tpu_torch.solver import guard
 
         guard.maybe_inject("megaround", f"B{len(bucket_pods)}_N{self.Np}")
         try:
+            tensors = [self.pod_tensors(pods) for pods in bucket_pods]
+            aot.maybe_record(aot.ShapeKey("megaround", key), lambda: dict(
+                U=self.cluster.U, K=self.cluster.K,
+                node=aot.arg_spec(self.tensors()),
+                buckets=[dict(G=pods.G, pod=aot.arg_spec(pt.args))
+                         for pods, pt in zip(bucket_pods, tensors)],
+            ))
             return run_megaround(
-                self._dev, bucket_pods,
-                [self.pod_tensors(pods) for pods in bucket_pods],
+                self._dev, bucket_pods, tensors,
                 needs, self.cluster.U, self.cluster.K, spec_iters(),
                 respect_busy,
             )

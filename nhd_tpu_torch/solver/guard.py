@@ -20,9 +20,12 @@ knobs, counters and ladder logic; where it differs:
   to the CPU. ``allow_mesh`` only moves the floor.
 * **The audit** gathers every sampled row on the device and brings them
   back in one pull (``torch.cat`` of the rows' bytes, one ``.cpu()``).
-* **Shape quarantine** keeps its per-key fault count; ``_forget_aot`` is
-  a no-op, because the port builds each kernel once from source and
-  caches no per-shape program (the AOT cache is a later slice).
+* **Shape quarantine** keeps its per-key fault count; ``_forget_aot``
+  retires the key from the kernel cache (solver/aot.py): out of the
+  prewarmed set, its manifest entry quarantined, and not recorded again
+  while the guard holds it quarantined.
+  The kernels themselves are shape-generic libraries, so no per-shape
+  program is dropped.
 
 
 The solver keeps its node tensors resident on the device across rounds
@@ -562,10 +565,22 @@ class SolverGuard:
         self._forget_aot(key_str)
 
     def _forget_aot(self, key_str: str) -> None:
-        """Retire the quarantined shape's cached program. A no-op in the
-        port: each kernel is built once from its source, not per shape,
-        so there is no per-shape program to retire (the AOT cache, and
-        this hook's body, come with a later slice)."""
+        """Retire the quarantined shape from the kernel cache: the next
+        restart must not prewarm it, and while it stays quarantined its
+        dispatches do not record it again (kernel.dispatch_ranked checks;
+        the reference retires its AOT program the same way)."""
+        try:
+            from nhd_tpu_torch.solver import aot
+            from nhd_tpu_torch.solver.kernel import parse_ranked_shape_key
+
+            if parse_ranked_shape_key(key_str) is not None:
+                aot.forget(aot.ShapeKey("ranked", key_str))
+        except Exception as exc:
+            # quarantine bookkeeping must never turn into a second fault
+            self.logger.warning(
+                f"solver guard: could not retire the cached shape "
+                f"{key_str}: {exc}"
+            )
 
 
 #: process-wide guard (one device plane per process, and one degradation

@@ -128,6 +128,14 @@ def ranked_shape_key(G, U, K, R, Tp, Np) -> str:
     return f"G{G}_U{U}_K{K}_R{R}_T{Tp}_N{Np}"
 
 
+def parse_ranked_shape_key(key: str):
+    """(G, U, K, R, Tp, Np) of a ranked_shape_key string, or None."""
+    import re
+
+    m = re.fullmatch(r"G(\d+)_U(\d+)_K(\d+)_R(\d+)_T(\d+)_N(\d+)", key)
+    return None if m is None else tuple(int(x) for x in m.groups())
+
+
 @dataclass(frozen=True)
 class BucketTables:
     """The combo tables of one (G, U, K) bucket on one device, plus the
@@ -315,17 +323,24 @@ def dispatch_ranked(G, U, K, R, Tp, Np, node: Sequence[Tensor],
                     pod: PodTensors) -> Tensor:
     """Solve + rank for one padded shape: the single seam the host path
     and the device-resident path share. Records the dispatch under the
-    reference's shape key (a first-seen key is a new shape), and is the
-    solver guard's ``dispatch`` fault-injection site (solver/guard.py).
-    The reference also checks the guard's shape quarantine here, to skip
-    its AOT program cache; the port builds each kernel once from source
-    and has no per-shape program to skip (the AOT slice adds both)."""
-    from nhd_tpu_torch.solver import guard
+    reference's shape key (a first-seen key is a new shape), is the
+    solver guard's ``dispatch`` fault-injection site (solver/guard.py),
+    and, when the kernel cache saves (solver/aot.py), records the key to
+    its manifest so the next start prewarms it — unless the guard has
+    quarantined the shape, which must not re-seed the cache it was just
+    evicted from (the reference's check, nhd_tpu/solver/kernel.py:
+    530-547)."""
+    from nhd_tpu_torch.solver import aot, guard
 
     key_str = ranked_shape_key(G, U, K, R, Tp, Np)
     JIT_STATS.record_use("solve_ranked", key_str)
     # chaos fault-injection seam (solver/guard.py): no-op in production
     guard.maybe_inject("dispatch", key_str)
+    if not guard.GUARD.shape_quarantined(key_str):
+        aot.maybe_record(aot.ShapeKey("ranked", key_str), lambda: dict(
+            G=G, U=U, K=K, R=R, Tp=Tp, Np=Np, node=aot.arg_spec(node),
+            pod=aot.arg_spec(pod.args),
+        ))
     return rank_planes(R, solve_planes(G, U, K, node, pod), node)
 
 

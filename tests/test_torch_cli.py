@@ -5,8 +5,9 @@ The two cases of tests/test_cli_demo.py run on the port with
 ``--device cpu`` (the demo subprocess beside the JAX one, and the
 watch-wake latency through ``build_threads``); then what the port adds
 or refuses: without ``--device`` the CLI asks for CUDA and, on a machine
-without a GPU, exits non-zero naming it; ``--prewarm`` exits 2 until the
-compile cache is ported; ``--mesh`` above 1 raises as the port's
+without a GPU, exits non-zero naming it; ``--prewarm`` starts, records
+the shapes it dispatches and warms them at the next start; ``--mesh``
+above 1 raises as the port's
 scheduler does; a clean exit prints the kernels' launch counts (all 0
 on the CPU). ``--explain`` prints what the JAX CLI prints for the
 same file, and ``--replay`` of the golden journal reports 0 divergences.
@@ -119,11 +120,30 @@ def test_default_device_is_cuda_and_exits_without_a_gpu():
     assert "demo summary" not in out
 
 
-def test_prewarm_exits_2(capsys):
-    from nhd_tpu_torch.cli import main
+def test_prewarm_exits_2(tmp_path):
+    """Named for the refusal it replaced (``--prewarm`` exited 2 until the
+    kernel cache was ported): the CLI now starts with ``--prewarm``,
+    records the shapes it dispatches (saving turns on at parse time) and
+    logs its prewarm line; the next start warms what the first recorded."""
+    def run():
+        proc = _cli("nhd_tpu_torch.cli", "--fake", "--device", "cpu",
+                    "--prewarm", "--rpc-port", "0", "--run-seconds", "4",
+                    NHDC_AOT_DIR=str(tmp_path))
+        out, err = proc.communicate(timeout=120)
+        assert proc.returncode == 0, err[-2000:]
+        assert "demo summary" in out
+        lines = [line for line in err.splitlines() if "prewarm: " in line]
+        assert len(lines) == 1, err[-2000:]
+        return lines[0]
 
-    assert main(["--fake", "--device", "cpu", "--prewarm"]) == 2
-    assert "item 6" in capsys.readouterr().err
+    first = run()
+    assert "prewarm: 0 solver program(s) warmed" in first
+    assert str(tmp_path) in first
+    recorded = sorted(p.name for p in tmp_path.glob("*.json"))
+    assert recorded
+    second = run()
+    assert f"prewarm: {len(recorded)} solver program(s) warmed" in second
+    assert "0 kernel library(ies) loaded" in second  # none run on the CPU
 
 
 def test_mesh_above_one_raises():

@@ -64,6 +64,7 @@ VERBATIM = (
     "scheduler/controller.py",
     "scheduler/events.py",
     "sim/__init__.py",
+    "sim/faults.py",
     "sim/requests.py",
     "sim/synth.py",
     "sim/workloads.py",
@@ -80,9 +81,9 @@ DIFFERS = {
                    "beside NHD_SCHED_NAME",
     "cli.py": "--device (default cuda, resolved before any thread starts, "
               "non-zero exit without a GPU) passed to the scheduler, "
-              "explain and replay; no JAX_PLATFORMS block; --prewarm exits "
-              "2 until the compile cache is ported; a clean exit prints the "
-              "kernels' launch counts",
+              "explain, replay and the prewarm; no JAX_PLATFORMS block; "
+              "--prewarm warms the port's kernel cache and logs its "
+              "libraries; a clean exit prints the kernels' launch counts",
     "native/__init__.py": "the port's own loader: builds native/nhd_assign.cc "
                           "into the port's build directory",
     "sanitizer/races.py": "keeps its own copy of analysis/lockgraph.py's "
@@ -91,6 +92,12 @@ DIFFERS = {
     "scheduler/core.py": "device seams: Scheduler(device=), the mesh knob, "
                          "the stream tile size, and the streaming tiler "
                          "built on the scheduler's device with no mesh",
+    "sim/chaos.py": "device seams: ChaosSim(device=) builds every "
+                    "Scheduler on that device (default cuda); the posture "
+                    "check refuses a device profile only under "
+                    "NHD_TPU_DEVICE_STATE=0; bit flips corrupt the resident "
+                    "torch tensor in place; the end-state audit leaves out "
+                    "the rows the delta re-packed since the last batch",
     "sim/replay.py": "replay_journal(device=) and the replay engine build "
                      "their Scheduler on that device (default cuda); a "
                      "CLI journal replays fold by fold as its admission "
@@ -98,12 +105,21 @@ DIFFERS = {
                      "uid",
     "solver/__init__.py": "exports the port's batched matcher, not the JAX "
                           "one",
+    "solver/aot.py": "the cache contract on the port's artifacts: six "
+                     "kernel libraries with toolchain metas and a manifest "
+                     "of shape keys, warmed by launching the kernels on "
+                     "zeros; NHDC_AOT_DIR; the probe defaults to cuda",
     "solver/batch.py": "the round loop on torch tensors and HostPull; no "
                        "mesh or CPU routing",
-    "solver/device_state.py": "resident torch tensors, updated in place",
-    "solver/guard.py": "CUDA fault classification, one-pull audit, no AOT "
-                       "retirement",
-    "solver/kernel.py": "the solve through the hand-written CUDA kernels",
+    "solver/device_state.py": "resident torch tensors, updated in place; "
+                              "new megaround and scatter shapes recorded "
+                              "to the kernel cache",
+    "solver/guard.py": "CUDA fault classification, one-pull audit; a "
+                       "quarantined shape retires from the kernel cache's "
+                       "manifest",
+    "solver/kernel.py": "the solve through the hand-written CUDA kernels; "
+                        "the dispatch records unquarantined shapes to the "
+                        "kernel cache",
     "solver/speculate.py": "the megaround's loop on the host around the "
                            "claim kernels",
     "solver/streaming.py": "no JAX-CPU mesh gate; the default worker count "

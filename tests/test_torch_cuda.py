@@ -362,3 +362,42 @@ def test_cli_fake_demo_on_cuda():
     got = json.loads(printed[0].split(": ", 1)[1])
     assert sorted(got) == sorted(kernels.KERNELS), got
     assert all(n > 0 for n in got.values()), got
+
+
+def test_truncated_library_quarantined_and_rebuilt(tmp_path, monkeypatch):
+    """A real kernel library truncated on disk (a torn write) meets a
+    fresh library table: the load quarantines it (kept under
+    quarantine/), rebuilds it from source with nvcc and launches it,
+    exact against the plain version; nothing else is rebuilt."""
+    _need_cuda()
+    import os
+
+    from nhd_tpu_torch.kernels import build
+    from nhd_tpu_torch.solver import aot
+
+    aot.reset()
+    aot.configure(directory=str(tmp_path))
+    monkeypatch.setattr(build, "_LIBS", {})
+    monkeypatch.setattr(build, "COUNTS", dict.fromkeys(build.COUNTS, 0))
+    try:
+        build.build_all()   # built, not opened: rewriting a mapped file faults
+        assert build.COUNTS["builds"] == len(kernels.KERNELS)
+        so = build.library_path("nic_any_first")
+        with open(so, "r+b") as fh:
+            fh.truncate(64)
+        shape = (2, 128, 2, 2, 4, 4)
+        T, N, U, K, C, A = shape
+        args = [torch.from_numpy(a).cuda()
+                for a in _case(np.random.default_rng(3), *shape)]
+        dims = dict(U=U, K=K, C=C, A=A)
+        got = kernels.nic_any_first(*args, **dims)
+        want = reference.nic_any_first(*args, **dims)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w.cpu())
+        assert so.name in os.listdir(tmp_path / "quarantine")
+        assert build.COUNTS["quarantined"] == 1
+        assert build.COUNTS["builds"] == len(kernels.KERNELS) + 1
+        assert build.stale_reason("nic_any_first") is None
+    finally:
+        aot.reset()

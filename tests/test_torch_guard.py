@@ -13,8 +13,13 @@ defect strings. The port's own classification of CUDA errors
 (``KernelLaunchError`` codes, OOM, sticky errors) is checked beside the
 reference's shared cases.
 
-The mesh rung, AOT quarantine, metrics/fleet exposure and the chaos
-cells of tests/test_guard.py belong to later slices of the port.
+The device-fault chaos cells of tests/test_guard.py (:429-589) run on
+the port's ChaosSim (``device="cpu"``): faulted binds bit-identical to a
+fault-free run, the ``NHD_GUARD=0`` negative control, the refused
+vacuous posture, the storm matrix's cell timeout, and a hard-down device
+condemned to the non-resident rung on the same device. The mesh rung
+belongs to a later slice of the port; the AOT quarantine cases are in
+tests/test_torch_aot.py.
 """
 
 from __future__ import annotations
@@ -498,3 +503,150 @@ def test_screen_rank_shape_and_float():
         assert pt_guard.GUARD.screen_rank(arr, 8) == \
             jx_guard.GUARD.screen_rank(arr, 8)
         assert pt_guard.GUARD.screen_rank(arr, 8) is not None
+
+
+# ---------------------------------------------------------------------------
+# the device-faults chaos cell on the port (tests/test_guard.py :429-589)
+# ---------------------------------------------------------------------------
+
+
+def _device_chaos_env(monkeypatch):
+    monkeypatch.setenv("NHD_TPU_DEVICE_STATE", "1")
+    monkeypatch.setenv("NHD_GUARD_AUDIT_INTERVAL", "1")
+    monkeypatch.setenv("NHD_GUARD_AUDIT_ROWS", "0")
+
+
+def test_device_chaos_binds_bit_identical_to_fault_free(monkeypatch):
+    """Injected dispatch, upload and megaround faults and bit-flipped
+    resident rows end in the bound set of a fault-free run of the same
+    seed: no restart, every corruption repaired in-process (end-state
+    audit bit-exact), no guard give-up."""
+    from nhd_tpu_torch.sim.chaos import ChaosSim
+    from nhd_tpu_torch.sim.faults import PROFILES
+
+    _device_chaos_env(monkeypatch)
+    total_faults = 0
+    for seed in (0, 1):
+        pt_guard.GUARD.reset()
+        control = ChaosSim(seed=seed, api_faults=None, device="cpu")
+        control.run(steps=25)
+        control.quiesce()
+
+        pt_guard.GUARD.reset()
+        base_giveups = pt_retry.API_COUNTERS.get("guard_giveups_total")
+        sim = ChaosSim(seed=seed, api_faults=PROFILES["device-faults"],
+                       device="cpu")
+        sim.run(steps=25)
+        sim.quiesce()
+        assert sim.stats.violations == []
+        assert sim.stuck_pods() == []
+        assert sim.bound_set() == control.bound_set(), seed
+        assert sim.stats.restarts == control.stats.restarts
+        assert sim.device_audit_errors() == []
+        assert pt_retry.API_COUNTERS.get("guard_giveups_total") == base_giveups
+        faults = sim.fault_totals()
+        total_faults += (
+            faults["device_dispatch_errors"]
+            + faults["device_upload_errors"] + faults["device_bit_flips"]
+        )
+    assert total_faults > 0  # the storm was real, not vacuous
+
+
+def test_device_chaos_negative_control_violates_parity(monkeypatch):
+    """The corruption storm with the guard disabled: bit-flipped resident
+    rows survive whole steps (the audit reports them) and nothing is
+    repaired, proving the guard repairs in the positive cell."""
+    from nhd_tpu_torch.sim.chaos import ChaosSim
+    from nhd_tpu_torch.sim.faults import FaultProfile
+
+    _device_chaos_env(monkeypatch)
+    monkeypatch.setenv("NHD_GUARD", "0")
+    flips = FaultProfile(name="flips-only", device_bit_flip=0.5)
+    pt_guard.GUARD.reset()
+    base_repairs = pt_retry.API_COUNTERS.get("guard_repairs_total")
+    sim = ChaosSim(seed=0, api_faults=flips, device="cpu")
+    audit_fired = 0
+    for _ in range(25):
+        flips_before = sim.stats.bit_flips
+        sim.step()
+        if sim.stats.bit_flips > flips_before and sim.device_audit_errors():
+            audit_fired += 1
+    sim.quiesce()
+    assert sim.stats.bit_flips > 0
+    assert pt_retry.API_COUNTERS.get("guard_repairs_total") == base_repairs
+    assert audit_fired > 0, "the negative control is vacuous"
+
+
+def test_device_profile_refuses_vacuous_posture(monkeypatch):
+    """A device storm against no resident state would pass vacuously:
+    the port keeps resident tensors unless NHD_TPU_DEVICE_STATE=0 asks
+    for none, and then the sim refuses; device profiles run solo."""
+    from nhd_tpu_torch.sim.chaos import ChaosSim
+    from nhd_tpu_torch.sim.faults import PROFILES
+
+    monkeypatch.setenv("NHD_TPU_DEVICE_STATE", "0")
+    with pytest.raises(ValueError, match="resident-state"):
+        ChaosSim(seed=0, api_faults=PROFILES["device-faults"], device="cpu")
+    monkeypatch.delenv("NHD_TPU_DEVICE_STATE")
+    with pytest.raises(ValueError, match="solo"):
+        ChaosSim(seed=0, api_faults=PROFILES["device-faults"], ha=True,
+                 device="cpu")
+    sim = ChaosSim(seed=0, api_faults=PROFILES["device-faults"], device="cpu")
+    assert sim.device_injector is not None
+    sim.quiesce()
+
+
+def test_storm_cell_timeout_reports_and_fails(tmp_path, monkeypatch):
+    import json
+    import time
+
+    from nhd_tpu_torch.sim import storm
+
+    def _hang(args, profile, seed):
+        time.sleep(5.0)
+        return {"ok": True}
+
+    monkeypatch.setattr(storm, "_run_cell", _hang)
+    out = tmp_path / "matrix.json"
+    rc = storm.main([
+        "--seeds", "1", "--steps", "1", "--profiles", "light",
+        "--cell-timeout", "0.3", "--json-out", str(out), "--device", "cpu",
+    ])
+    assert rc == 1
+    summary = json.loads(out.read_text())
+    assert summary["cells_failed"] == 1
+    cell = summary["cells"][0]
+    assert cell["timeout"] is True
+    assert cell["profile"] == "light" and cell["seed"] == 0
+    assert "timed out" in cell["violations"][0]
+
+
+def test_hard_down_device_solves_on_the_same_device(monkeypatch):
+    """A device whose resident copies all fail is condemned straight to
+    the non-resident rung, and that rung solves on the scheduler's own
+    device (it uploads from host truth every round), binding as the
+    fault-free run did."""
+    from nhd_tpu_torch.solver import kernel as pt_kernel
+
+    side = _side("port")
+    items = _items(side, 6)
+    clean, _ = side.sched().schedule(_cluster(side, 6), items)
+    pt_guard.GUARD.reset()
+
+    def _dead(self, padded):
+        raise pt_guard.InjectedDeviceFault("device copy: card down")
+
+    seen = []
+    orig = pt_kernel.dispatch_ranked
+
+    def spy(G, U, K, R, Tp, Np, node, pod):
+        seen.append(node[0].device)
+        return orig(G, U, K, R, Tp, Np, node, pod)
+
+    monkeypatch.setattr(pt_device_state.DeviceClusterState, "_put", _dead)
+    monkeypatch.setattr(pt_kernel, "dispatch_ranked", spy)
+    sched = side.sched()
+    faulted, _ = sched.schedule(_cluster(side, 6), items)
+    assert _placements(faulted) == _placements(clean)
+    assert pt_guard.GUARD.floor == pt_guard.RUNG_HOST
+    assert seen and set(seen) == {sched.device}

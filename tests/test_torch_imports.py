@@ -93,6 +93,36 @@ def test_daemon_planes_import_without_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+@pytest.mark.parametrize("module,args", [
+    ("nhd_tpu_torch.sim.storm",
+     ["--device", "cpu", "--profiles", "light", "--seeds", "1",
+      "--steps", "2"]),
+    ("nhd_tpu_torch.solver.aot",
+     ["--first-bind-probe", "--device", "cpu"]),
+])
+def test_module_entry_points_run_without_jax(module, args, tmp_path):
+    """The storm matrix and the first-bind probe, each run as by
+    ``python -m`` on the CPU in a fresh interpreter, finish with nothing
+    of jax or nhd_tpu imported."""
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = [{module!r}] + {args!r}\n"
+        "try:\n"
+        f"    runpy.run_module({module!r}, run_name='__main__')\n"
+        "except SystemExit as exc:\n"
+        "    assert not exc.code, exc.code\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'nhd_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=180, env=subprocess_env(NHDC_AOT_DIR=str(tmp_path)),
+    )
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+
+
 def test_cuda_without_a_gpu_raises():
     from nhd_tpu_torch.solver import BatchScheduler
     from nhd_tpu_torch.solver.matcher import find_nodes
