@@ -126,10 +126,38 @@ Phases (one line each; the last line is the contract line):
    first start records what it serves, the second warms it), 200 pods
    each: its prewarm line and its time to come up beside phase 10's,
    with the start-up steps read from its log;
-13. the kernels JSON line: per kernel its launches in phases 4-7 and
-   9-12 (counts set to 0 just before each counted run and read just
-   after; phase 10's and the subprocesses of 12 are those processes'
-   own, from start to exit),
+13. the node mesh on the card (nhd_tpu_torch/parallel/; every shard on
+   ``cuda:0``, so this is more launches of the same kernels, never a
+   multi-GPU speed): (a) the three solve kernels on each shard of an
+   8-way mesh of cfg4's resident state (128 rows each) against their
+   plain versions, solve_planes with its shard's ``node_base`` also
+   against the unsharded planes' columns and, at ``node_base`` 0, its
+   old output; shard 3 timed beside its bound and the empty launch;
+   (b) ``solve_bucket_ranked_sharded`` at cfg4 over 2, 4 and 8 shards
+   equal to the single-device rank on every val > 0 slot of every
+   bucket; (c) cfg4:10kx1k-cap through ``BatchScheduler(mesh=4
+   shards)``, speculative and classic (warm, then counted): every pod
+   placed as the single-device card run and the CPU run of phases 4 and
+   6, the same rounds and megaround iterations, wall and launches
+   beside one card's; then every claim-kernel call of the mesh
+   megaround once more (not counted) against its plain version,
+   ``spec_elect`` and ``spec_apply`` at a shard's shapes and
+   ``spec_fill`` over the joined plan, the first of each timed beside
+   its bound and empty launch; (d) the port's cfg6 probe
+   (``parallel/spmd_bench.run_probe(4096, 1024, 8)``: parity, churn rows
+   O(changed rows) with no wholesale upload, a flat prewarm); (e) one
+   injected ``megaround`` fault on the 4-shard mesh: the mesh condemned,
+   the batch re-dispatched on one device, every pod placed as the
+   fault-free classic run; (f) two processes on the card, each its own
+   CUDA context on ``cuda:0``, one gloo group over a FileStore
+   (``chip_smoke.mesh_child``): the global sharded solve over 2 x 4
+   shards equal to the one-process mesh and to one device, and each
+   rank's region of a 16-node federation placed as on the CPU;
+14. the kernels JSON line: per kernel its launches in phases 4-7 and
+   9-13 (counts set to 0 just before each counted run and read just
+   after; phase 10's and the subprocesses of 12 and 13 are those
+   processes' own, from start to exit; 13's (a) and (b) are
+   comparisons, not counted),
    its time, its plain version's time and its bound — the solve kernels
    at the cfg4 G=2 bucket, the claim kernels at cfg4's first megaround
    iteration. A bound counts the bytes and operations of the real type
@@ -143,6 +171,7 @@ chiprun_out/chip_smoke_report.json.
 """
 
 import contextlib
+import functools
 import json
 import os
 import statistics
@@ -203,6 +232,18 @@ CHAOS_ENV = dict(NHD_TPU_DEVICE_STATE="1", NHD_GUARD_AUDIT_INTERVAL="1",
 CHAOS_CONTROL_STEPS = 25
 #: phase 12 (f): pods fed to each --prewarm start of the CLI
 PREWARM_CLI_PODS = 200
+#: phase 13, the node mesh on the card: the shard counts of the sharded
+#: rank, the shards of the cfg4 batch and of the guard's rung, the rank
+#: width, the cfg6 probe's sizes (bench.py:898-940: pods, nodes, shards,
+#: churn rounds) and the two-process leg (ranks x shards each)
+MESH_SHARDS = (2, 4, 8)
+MESH_BATCH_SHARDS = 4
+MESH_R = 512
+CFG6 = (4096, 1024, 8, 4)
+MESH_RANKS, MESH_RANK_SHARDS = 2, 4
+#: the cfg4 batch's results on one card and on the CPU, by cell name,
+#: for phase 13's placements
+RESULTS = {}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_JOURNAL = os.path.join(ROOT, "tests", "fixtures", "journal",
                               "golden_churn.journal.jsonl")
@@ -440,10 +481,12 @@ def floor_ms(torch, floors, name, args, kw, prep=None):
                         prep=prep)
 
 
+@functools.lru_cache(maxsize=None)
 def build_floors():
     """{kernel: entry point} of each kernel built with an empty body
     (kernel_variants.py's ``empty`` variants), one nvcc per source, all
-    started together, into the git-ignored build directory."""
+    started together, into the git-ignored build directory; built once
+    per process."""
     import kernel_variants as kv
 
     from nhd_tpu_torch import kernels
@@ -512,13 +555,40 @@ class Capture:
         self.solves, self.claims, self.megarounds = [], [], []
 
 
+@contextlib.contextmanager
+def spy_claims(calls):
+    """While inside, every claim-kernel call appends (name, its input
+    tensors by interface name, cloned as the call found them, keywords)
+    to *calls*."""
+    from nhd_tpu_torch import kernels
+    from nhd_tpu_torch.kernels.abi import ABI
+
+    orig = {name: getattr(kernels, name) for name in kernels.CLAIM_KERNELS}
+
+    def spy(name):
+        names = [a.name for a in ABI[name].inputs]
+
+        def call(*args, **kw):
+            calls.append((name, {n: a.clone() for n, a in zip(names, args)},
+                          dict(kw)))
+            return orig[name](*args, **kw)
+        return call
+
+    for name in orig:
+        setattr(kernels, name, spy(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in orig.items():
+            setattr(kernels, name, fn)
+
+
 def capture_schedule(torch, sched, nodes, items):
     """One more schedule of the batch (allocation state reset) through the
     spies of ``Capture``. Runs after the counted run, so its launches are
     not counted; fails unless the spies saw every launch of the schedule.
     Returns (results, stats, Capture)."""
     from nhd_tpu_torch import kernels
-    from nhd_tpu_torch.kernels.abi import ABI
     from nhd_tpu_torch.solver import speculate
     from nhd_tpu_torch.solver.device_state import DeviceClusterState
 
@@ -527,7 +597,6 @@ def capture_schedule(torch, sched, nodes, items):
     solve_ranked = DeviceClusterState.solve_ranked
     megaround = DeviceClusterState.megaround
     solve_planes = speculate.solve_planes
-    claim_fns = {name: getattr(kernels, name) for name in kernels.CLAIM_KERNELS}
 
     def spy_ranked(self, pods, R):
         self._flush_staged()  # the claims this solve must see
@@ -548,22 +617,12 @@ def capture_schedule(torch, sched, nodes, items):
         ))
         return megaround(self, bucket_pods, needs, respect_busy)
 
-    def spy_planes(G, U, K, node, pod, out=None):
+    def spy_planes(G, U, K, node, pod, out=None, **place):
         cap.solves.append((
             G, {"T": real_types[G], "N": real_types["N"]},
             [t.clone() for t in node], pod,
         ))
-        return solve_planes(G, U, K, node, pod, out=out)
-
-    def spy_claim(name):
-        names = [a.name for a in ABI[name].inputs]
-
-        def spy(*args, **kw):
-            cap.claims.append((
-                name, {n: a.clone() for n, a in zip(names, args)}, dict(kw),
-            ))
-            return claim_fns[name](*args, **kw)
-        return spy
+        return solve_planes(G, U, K, node, pod, out=out, **place)
 
     for n in nodes.values():
         n.reset_resources()
@@ -571,16 +630,13 @@ def capture_schedule(torch, sched, nodes, items):
     DeviceClusterState.solve_ranked = spy_ranked
     DeviceClusterState.megaround = spy_megaround
     speculate.solve_planes = spy_planes
-    for name in kernels.CLAIM_KERNELS:
-        setattr(kernels, name, spy_claim(name))
     try:
-        results, stats = sched.schedule(nodes, items, now=0.0)
+        with spy_claims(cap.claims):
+            results, stats = sched.schedule(nodes, items, now=0.0)
     finally:
         DeviceClusterState.solve_ranked = solve_ranked
         DeviceClusterState.megaround = megaround
         speculate.solve_planes = solve_planes
-        for name, fn in claim_fns.items():
-            setattr(kernels, name, fn)
     torch.cuda.synchronize()
     # the spies saw every launch, or a seam moved and a check would miss it
     for name in kernels.SOLVE_KERNELS:
@@ -1020,6 +1076,7 @@ def run_cell(torch, name, cluster_fn, report, launches_total, *, speculative):
         ).schedule(cluster_fn(CELL_NODES, GROUPS), items, now=0.0)
     cpu_wall = time.perf_counter() - t1
     same_placements(name, results, cpu_res, "the CPU run")
+    RESULTS[name] = (results, cpu_res)
     if placed == 0:
         fail(f"{name}: nothing placed")
     if (cpu_stats.rounds, cpu_stats.counters.get("spec_iterations", 0)) != (
@@ -1459,15 +1516,15 @@ def stream_phase(torch, report, launches_total, smi):
 
 
 class _DispatchFault:
-    """Raise InjectedDeviceFault at the first *n* ``dispatch`` calls."""
+    """Raise InjectedDeviceFault at the first *n* calls at *site*."""
 
-    def __init__(self, n):
-        self.left = n
+    def __init__(self, n, site="dispatch"):
+        self.left, self.site = n, site
 
     def __call__(self, site, detail=""):
         from nhd_tpu_torch.solver.guard import InjectedDeviceFault
 
-        if site == "dispatch" and self.left > 0:
+        if site == self.site and self.left > 0:
             self.left -= 1
             raise InjectedDeviceFault(f"injected at {site} ({detail})")
 
@@ -2458,6 +2515,390 @@ def prewarm_phase(torch, report, launches_total, smi):
     report["prewarm"] = out
 
 
+def shard_kernels(torch, report, cluster, buckets):
+    """Phase 13 (a): the solve kernels on each shard of an 8-way mesh of
+    cfg4's resident state on the card, against their plain versions (and
+    solve_planes against the unsharded planes' columns); solve_planes at
+    node_base 0 is its old output; shard 3 timed beside its bound and
+    the empty launch."""
+    from nhd_tpu_torch import kernels
+    from nhd_tpu_torch.kernels import reference
+    from nhd_tpu_torch.parallel.sharding import make_mesh
+    from nhd_tpu_torch.solver import kernel as kernel_mod
+    from nhd_tpu_torch.solver.device_state import DeviceClusterState
+
+    dev = card(torch)
+    S = CFG6[2]
+    state = DeviceClusterState(cluster, dev, make_mesh(n_shards=S, device=dev.type))
+    one = DeviceClusterState(cluster, dev)
+    Ns, floors, out = state.shard_rows, build_floors(), {}
+    for G, pods in sorted(buckets.items()):
+        args, _ = stage(kernel_mod, reference, one.tensors(),
+                        one.pod_tensors(pods))["solve_planes"]
+        old = kernels.solve_planes(*args)
+        explicit = kernels.solve_planes(*args, node_base=0, n_global=one.Np)
+        full = reference.solve_planes(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(old, explicit) and torch.equal(old, full)):
+            fail(f"mesh: solve_planes at node_base 0 is not its old output (G={G})")
+        for s, node in enumerate(state.shard_tensors()):
+            staged = stage(kernel_mod, reference, node, state.pod_tensors(pods))
+            place = dict(node_base=s * Ns, n_global=state.Np)
+            real = {"T": pods.n_types, "N": max(0, min(Ns, cluster.n_nodes - s * Ns))}
+            label = f"cfg4 G={G} shard {s} of {S} (rows {s * Ns}-{(s + 1) * Ns - 1})"
+            for name in kernels.SOLVE_KERNELS:
+                args, kw = staged[name]
+                kw = place if name == "solve_planes" else kw
+                kfn, pfn = getattr(kernels, name), getattr(reference, name)
+                got, want = kfn(*args, **kw), pfn(*args, **kw)
+                torch.cuda.synchronize()
+                err = max_abs_err(torch, got, want)
+                if err != 0.0:
+                    fail(f"{name} disagrees with its plain version at {label}: {err}")
+                if name == "solve_planes" and not torch.equal(
+                        got, full[:, :, s * Ns:(s + 1) * Ns]):
+                    fail(f"mesh: solve_planes at {label} is not the unsharded "
+                         "planes' columns")
+                if s != 3:
+                    continue
+                ms = cuda_time_ms(torch, lambda: kfn(*args, **kw))
+                plain_ms = cuda_time_ms(torch, lambda: pfn(*args, **kw))
+                outs = got if isinstance(got, tuple) else (got,)
+                bound_ms, bound_by, moved, ops = bounds(name, args, outs, real)
+                fl = floor_ms(torch, floors, name, args, kw)
+                out.setdefault(f"G={G}", {})[name] = {
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved,
+                    "ops": ops, "floor_ms": fl,
+                }
+                log(f"mesh kernel {name} @ {label}: exact; {ms:.4f} ms (plain "
+                    f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms by {bound_by}, "
+                    f"empty launch {fl:.4f} ms)")
+    log(f"mesh (a): the solve kernels exact on all {S} shards of every cfg4 "
+        "bucket; solve_planes' shards are the unsharded planes' columns")
+    report["mesh"]["a"] = out
+
+
+def mesh_child(rank, world, store):
+    """Phase 13 (f), in one of *world* processes on the card: a gloo
+    group over a FileStore, the global sharded solve over every
+    process's shards (each process its own CUDA context on the card)
+    against the one-process mesh and the single-device rank, and the
+    region pattern against the CPU; prints one JSON line."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from nhd_tpu_torch import kernels
+    from nhd_tpu_torch.parallel import multihost
+    from nhd_tpu_torch.parallel.sharding import make_mesh, solve_bucket_ranked_sharded
+    from nhd_tpu_torch.sim.workloads import cap_cluster, workload_mix
+    from nhd_tpu_torch.solver import BatchItem, StreamingScheduler
+    from nhd_tpu_torch.solver.encode import encode_cluster, encode_pods
+    from nhd_tpu_torch.solver.kernel import solve_bucket_ranked
+
+    dev = card(torch)
+    multihost.initialize(f"file://{store}", num_processes=world,
+                         process_id=rank, backend="gloo")
+    cluster = encode_cluster(cap_cluster(CELL_NODES, GROUPS), now=0.0)
+    buckets = encode_pods(workload_mix(CELL_PODS, GROUPS), cluster.interner)
+    mesh = make_mesh([dev] * MESH_RANK_SHARDS, group=dist.group.WORLD)
+    alone = make_mesh([dev] * mesh.size)
+    t0 = time.perf_counter()
+    for G, pods in sorted(buckets.items()):
+        got = solve_bucket_ranked_sharded(cluster, pods, MESH_R, mesh)
+        same = solve_bucket_ranked_sharded(cluster, pods, MESH_R, alone)
+        one = solve_bucket_ranked(cluster, pods, MESH_R, device=dev).cpu().numpy()
+        live = one[0] > 0
+        if not (np.array_equal(got[0], same[0])
+                and np.array_equal(got[:, live], same[:, live])):
+            raise SystemExit(f"rank {rank}: G={G} differs from the one-process mesh")
+        if not (np.array_equal(got[0] > 0, live)
+                and np.array_equal(got[:, live], one[:, live])):
+            raise SystemExit(f"rank {rank}: G={G} differs from one device")
+    solve_s = time.perf_counter() - t0
+    # the region pattern (the reference's scenario): this rank's region of
+    # a 16-node federation, 16 pods through the streaming tiler, on the
+    # card and on the CPU (with speculation on, the card's default)
+    placed, scheduled = {}, {}
+    for device in ("cuda", "cpu"):
+        region = multihost.local_nodes(cap_cluster(16, ["default"]))
+        items = [BatchItem(("ns", f"r{rank}-p{i}"), r)
+                 for i, r in enumerate(workload_mix(16, ["default"]))]
+        with env(NHD_TPU_SPECULATE=None if device == "cuda" else "1"):
+            res, stats = StreamingScheduler(
+                tile_nodes=4, respect_busy=False,
+                device=dev if device == "cuda" else device,
+            ).schedule(region, items, now=0.0)
+        placed[device] = [(r.node, r.nic_list) for r in res]
+        scheduled[device] = stats.scheduled
+    torch.cuda.synchronize()
+    print(json.dumps({"rank": rank, "solve_s": solve_s, "placed": placed,
+                      "scheduled": scheduled, "mine": sorted(region),
+                      "launches": dict(kernels.LAUNCHES)}), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_rank_check(torch, label, cluster, buckets, mesh):
+    """``solve_bucket_ranked_sharded`` over *mesh* against the single-device
+    rank on the lead shard's device: equal on every val > 0 slot of every
+    bucket, at ``MESH_R``."""
+    import numpy as np
+
+    from nhd_tpu_torch.parallel.sharding import solve_bucket_ranked_sharded
+    from nhd_tpu_torch.solver.kernel import solve_bucket_ranked
+
+    for G, pods in sorted(buckets.items()):
+        one = solve_bucket_ranked(cluster, pods, MESH_R,
+                                  device=mesh.devices[0]).cpu().numpy()
+        got = solve_bucket_ranked_sharded(cluster, pods, MESH_R, mesh)
+        live = one[0] > 0
+        if not (got.shape == one.shape and np.array_equal(got[0] > 0, live)
+                and np.array_equal(got[:, live], one[:, live])):
+            fail(f"{label}: the rank over {mesh.size} shards differs from one "
+                 f"device on the val > 0 slots (G={G})")
+
+
+def mesh_batch(torch, label, mesh, items, speculative):
+    """cfg4's batch through ``BatchScheduler(mesh=)`` on the card, the
+    card's default (speculative) or classic: a warm schedule, then one
+    counted. Fails unless a dispatch ran on the mesh and every kernel of
+    the path launched. Returns (scheduler, nodes, results, stats, wall,
+    launches)."""
+    from nhd_tpu_torch import kernels
+    from nhd_tpu_torch.obs.jitstats import JIT_STATS
+    from nhd_tpu_torch.sim.workloads import cap_cluster
+    from nhd_tpu_torch.solver import BatchScheduler
+    from nhd_tpu_torch.solver.kernel import mesh_desc
+
+    nodes = cap_cluster(CELL_NODES, GROUPS)
+    sched = BatchScheduler(device=mesh.devices[0], respect_busy=False,
+                           register_pods=False, mesh=mesh)
+    with env(NHD_TPU_SPECULATE=None if speculative else "0"):
+        sched.schedule(nodes, items, now=0.0)  # warm
+        for n in nodes.values():
+            n.reset_resources()
+        JIT_STATS.reset()
+        (results, stats), wall, launches = counted(
+            torch, lambda: sched.schedule(nodes, items, now=0.0))
+    shapes = JIT_STATS.snapshot()["shapes"]
+    if not any(k.endswith(f"_M{mesh_desc(mesh)}") for k in shapes):
+        fail(f"{label}: no dispatch ran on the mesh: {sorted(shapes)}")
+    path = kernels.KERNELS if speculative else kernels.SOLVE_KERNELS
+    if any(launches[k] == 0 for k in path):
+        fail(f"{label}: a kernel of the path did not launch: {launches}")
+    return sched, nodes, results, stats, wall, launches
+
+
+def mesh_children(label, world):
+    """Run ``mesh_child`` in *world* processes at once (one gloo group
+    over a FileStore in a temporary directory); their JSON lines, in rank
+    order. Fails on a child's non-zero exit or a 300 s timeout."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="nhd-mesh-") as tmp:
+        procs = [subprocess.Popen(
+            [sys.executable, "-c",
+             "import sys, chip_smoke; sys.exit(chip_smoke.mesh_child("
+             "int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]))",
+             str(rank), str(world), os.path.join(tmp, "store")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT,
+        ) for rank in range(world)]
+        try:
+            got = [p.communicate(timeout=300) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+    children = []
+    for rank, (p, (so, se)) in enumerate(zip(procs, got)):
+        if p.returncode != 0:
+            fail(f"{label}: rank {rank} exited {p.returncode}: {se[-2000:]}")
+        children.append(json.loads(so.strip().splitlines()[-1]))
+    return children
+
+
+def mesh_phase(torch, report, launches_total, smi):
+    """Phase 13: the node mesh on the card (module docstring, parts a-f)."""
+    from nhd_tpu_torch import kernels
+    from nhd_tpu_torch.obs.jitstats import JIT_STATS
+    from nhd_tpu_torch.parallel.sharding import make_mesh
+    from nhd_tpu_torch.parallel.spmd_bench import run_probe
+    from nhd_tpu_torch.sim.workloads import cap_cluster, workload_mix
+    from nhd_tpu_torch.solver import BatchItem, BatchScheduler, guard
+    from nhd_tpu_torch.solver import kernel as kernel_mod
+    from nhd_tpu_torch.solver.encode import encode_cluster, encode_pods
+    from nhd_tpu_torch.solver.guard import GUARD, RUNG_NAMES, RUNG_SINGLE
+
+    dev = card(torch)
+    report["mesh"] = out = {}
+    phase = dict.fromkeys(kernels.KERNELS, 0)
+
+    def count(launches):
+        for k in kernels.KERNELS:
+            phase[k] += launches[k]
+
+    cluster = encode_cluster(cap_cluster(CELL_NODES, GROUPS), now=0.0)
+    cluster.busy[:] = False
+    buckets = encode_pods(workload_mix(CELL_PODS, GROUPS), cluster.interner)
+    t = {"a": time.perf_counter()}
+    shard_kernels(torch, report, cluster, buckets)
+
+    # (b) the sharded rank on 2, 4 and 8 shards of cuda:0
+    t["b"] = time.perf_counter()
+    for S in MESH_SHARDS:
+        mesh_rank_check(torch, "mesh (b)", cluster, buckets,
+                        make_mesh(n_shards=S, device=dev.type))
+    log(f"mesh (b): solve_bucket_ranked_sharded at cfg4 over {MESH_SHARDS} shards "
+        f"of cuda:0 equals the single-device rank on every val > 0 slot "
+        f"(R={MESH_R}, buckets {sorted(buckets)})")
+
+    # (c) cfg4 through BatchScheduler over a 4-shard mesh
+    t["c"] = time.perf_counter()
+    mesh = make_mesh(n_shards=MESH_BATCH_SHARDS, device=dev.type)
+    desc = kernel_mod.mesh_desc(mesh)
+    items = [BatchItem(("ns", f"p{i}"), r)
+             for i, r in enumerate(workload_mix(CELL_PODS, GROUPS))]
+    out["c"] = {}
+    for name, speculative in (("cfg4:10kx1k-cap", True),
+                              ("cfg4:10kx1k-cap classic", False)):
+        label = f"{name} mesh {desc}"
+        sched, nodes, results, stats, wall, launches = mesh_batch(
+            torch, label, mesh, items, speculative)
+        count(launches)
+        single, cpu = RESULTS[name]
+        same_placements(label, results, single, "the single-device card run")
+        same_placements(label, results, cpu, "the CPU run")
+        spec_it = stats.counters.get("spec_iterations", 0)
+        cell = report["cells"][name]
+        if (stats.rounds, spec_it) != (cell["rounds"], cell["megaround_iterations_run"]):
+            fail(f"{label}: rounds / megaround iterations {stats.rounds} / {spec_it}"
+                 f" differ from one device's {cell['rounds']} / "
+                 f"{cell['megaround_iterations_run']}")
+        placed = sum(1 for r in results if r.node)
+        out["c"][name] = {"wall_s": wall, "rounds": stats.rounds,
+                          "megaround_iterations": spec_it, "launches": launches,
+                          "placed": placed, "one_device_wall_s": cell["wall_s"],
+                          "one_device_launches": cell["launches"],
+                          "megaround_ms": stats.phases.get("spec_dispatch", 0.0) * 1e3}
+        log(f"{label}: placed {placed}/{len(items)} as one card and as the CPU "
+            f"(node, mapping, NICs); rounds={stats.rounds} megaround iterations="
+            f"{spec_it} wall={wall:.4f}s (one card: {cell['wall_s']:.4f}s) "
+            f"launches={launches} (one card: {cell['launches']})")
+        if speculative:
+            # every claim-kernel call of the mesh megaround once more (not
+            # counted): each against its plain version, spec_elect and
+            # spec_apply at a shard's shapes, spec_fill over the joined
+            # plan; the first call of each timed (shard 0: all rows real)
+            for n in nodes.values():
+                n.reset_resources()
+            calls = []
+            with env(NHD_TPU_SPECULATE=None), spy_claims(calls):
+                again, _ = sched.schedule(nodes, items, now=0.0)
+            same_placements(label, again, results, "its counted run")
+            floors = build_floors()
+            shard = [c for c in calls if c[0] != "spec_fill"]
+            joined = [c for c in calls if c[0] == "spec_fill"]
+            out["claims"] = {
+                "shard": check_claims(torch, f"{label} shard 0", shard, report,
+                                      {"N": min(CELL_NODES, kernel_mod.pad_nodes(
+                                          CELL_NODES, MESH_BATCH_SHARDS)
+                                          // MESH_BATCH_SHARDS)},
+                                      timed=True, floors=floors),
+                "joined": check_claims(torch, f"{label} joined plan", joined,
+                                       report, {"N": CELL_NODES}, timed=True,
+                                       floors=floors),
+            }
+            log(f"{label}: all {len(calls)} claim-kernel calls of the mesh "
+                f"megaround exact ({len(shard)} at shard shapes, {len(joined)} "
+                "over the joined plan)")
+
+    # (d) the port's cfg6 probe
+    t["d"] = time.perf_counter()
+    rec, wall, launches = counted(
+        torch, lambda: run_probe(*CFG6[:3], CFG6[3], device=dev.type))
+    count(launches)
+    out["d"] = {**rec, "probe_s": wall, "launches": launches}
+    sp = rec["spmd"]
+    log(f"mesh (d) cfg6 probe {CFG6[0]} pods x {CFG6[1]} nodes over {sp['shards']} "
+        f"shards on {sp['distinct_devices']} device(s): parity ok; gang wall "
+        f"{rec['wall']:.4f}s, rounds {rec['rounds']}, p99 bind "
+        f"{rec['p99_bind_ms']:.1f} ms; churn rows {sp['rows_uploaded']} "
+        f"(mesh {sp['mesh_rows_uploaded']}, budget {sp['upload_budget']}), "
+        f"wholesale {sp['wholesale_uploads']}; prewarm {sp['prewarm_loaded']} keys "
+        f"({sp['mesh_keys_loaded']} mesh), solve_ranked flat; {wall:.1f}s")
+
+    # (e) the guard's mesh rung: one megaround fault on the 4-shard mesh
+    t["e"] = time.perf_counter()
+    GUARD.reset()
+    inj = _DispatchFault(1, "megaround")
+    guard.set_fault_injector(inj)
+    try:
+        with env(NHD_GUARD_RETRIES="1", NHD_TPU_SPECULATE=None):
+            JIT_STATS.reset()
+            (res, stats), wall, launches = counted(torch, lambda: BatchScheduler(
+                device=dev, respect_busy=False, register_pods=False, mesh=mesh,
+            ).schedule(cap_cluster(CELL_NODES, GROUPS), items, now=0.0))
+        floor, allow_mesh = GUARD.floor, GUARD.allow_mesh()
+    finally:
+        guard.set_fault_injector(None)
+        GUARD.reset()
+    if inj.left:
+        fail("mesh (e): the injected megaround fault never fired")
+    if floor != RUNG_SINGLE or allow_mesh:
+        fail(f"mesh (e): floor {RUNG_NAMES[floor]} after a mesh megaround fault")
+    single_keys = [k for k in JIT_STATS.snapshot()["shapes"]
+                   if k.startswith("solve_ranked:") and "_M" not in k]
+    if not single_keys:
+        fail("mesh (e): the round did not re-dispatch on one device")
+    if any(launches[k] == 0 for k in kernels.SOLVE_KERNELS):
+        fail(f"mesh (e): a solve kernel did not launch after the fault: {launches}")
+    count(launches)
+    same_placements("mesh (e)", res, RESULTS["cfg4:10kx1k-cap classic"][0],
+                    "the fault-free classic run (a faulted batch never speculates "
+                    "again)")
+    out["e"] = {"wall_s": wall, "rounds": stats.rounds, "launches": launches}
+    log(f"mesh (e): one megaround fault on the {desc} mesh condemned it (floor "
+        f"{RUNG_NAMES[floor]}); the batch re-dispatched on one device "
+        f"({len(single_keys)} single-device solve keys) and placed every pod as "
+        f"the fault-free classic run; wall {wall:.4f}s, {stats.rounds} rounds")
+
+    # (f) two processes on the card over gloo
+    t["f"] = time.perf_counter()
+    children = mesh_children("mesh (f)", MESH_RANKS)
+    for c in children:
+        if not c["scheduled"]["cuda"]:
+            fail(f"mesh (f): rank {c['rank']} placed nothing in its region")
+        if c["placed"]["cuda"] != c["placed"]["cpu"]:
+            fail(f"mesh (f): rank {c['rank']}'s region placed differently on cuda "
+                 "and cpu")
+        if not all(node in c["mine"] for node, _ in c["placed"]["cuda"] if node):
+            fail(f"mesh (f): rank {c['rank']} placed outside its region")
+    regions = [set(c["mine"]) for c in children]
+    if set.intersection(*regions) or len(set.union(*regions)) != 16:
+        fail("mesh (f): the ranks' regions are not an exact cover")
+    out["f"] = children
+    log(f"mesh (f): {MESH_RANKS} processes x {MESH_RANK_SHARDS} shards on cuda:0 over "
+        f"gloo: the global sharded solve equals the one-process mesh and one "
+        f"device (solve {[round(c['solve_s'], 3) for c in children]} s); each "
+        f"region placed as on the CPU, an exact cover")
+
+    t["end"] = time.perf_counter()
+    for k in kernels.KERNELS:
+        if phase[k] == 0:
+            fail(f"mesh: kernel {k} was never launched in the phase")
+        launches_total[k] += phase[k]
+    steps = "abcdef"
+    out["seconds"] = {p: (t[steps[i + 1]] if i + 1 < len(steps) else t["end"]) - t[p]
+                      for i, p in enumerate(steps)}
+    out["launches"] = phase
+    log(f"mesh: phase 13 in {t['end'] - t['a']:.1f}s of command time "
+        f"({ {k: round(v, 1) for k, v in out['seconds'].items()} }); launches in "
+        f"the phase {phase}; every number: {smi}; one card, so no multi-GPU speed")
+
+
 def main():
     try:
         import torch
@@ -2554,11 +2995,15 @@ def main():
     # 12. the kernel cache: prewarm, quarantine, first bind
     t1 = time.perf_counter()
     prewarm_phase(torch, report, launches_total, smi)
-    report["phase_s"] = {"11": t1 - t0, "12": time.perf_counter() - t1}
-    log(f"phases 11 / 12: {t1 - t0:.1f} / {report['phase_s']['12']:.1f} s "
-        f"of command time")
+    # 13. the node mesh on the card
+    t2 = time.perf_counter()
+    mesh_phase(torch, report, launches_total, smi)
+    report["phase_s"] = {"11": t1 - t0, "12": t2 - t1,
+                         "13": time.perf_counter() - t2}
+    log(f"phases 11 / 12 / 13: {t1 - t0:.1f} / {report['phase_s']['12']:.1f} / "
+        f"{report['phase_s']['13']:.1f} s of command time")
 
-    # 13. kernels line
+    # 14. kernels line
     meta = {
         "nic_node_masks": ("nhd_tpu_torch/kernels/nic_node_masks.cu",
                            "nhd_tpu/solver/kernel.py:136"),

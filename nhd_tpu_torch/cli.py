@@ -267,13 +267,12 @@ def main(argv=None) -> int:
                              "and handoff protocol run over; requires "
                              "--shards > 1 and a stable --ha-identity")
     parser.add_argument("--mesh", default=os.environ.get("NHD_MESH", "auto"),
-                        help="multi-chip SPMD solve posture: 'auto' "
-                             "(default — shard the fused megaround over "
-                             "every local device when more than one "
-                             "exists), an explicit device count N, or "
-                             "'off' to force single-device solves "
-                             "(docs/PERFORMANCE.md 'SPMD megaround'; env "
-                             "NHD_MESH)")
+                        help="node-sharded solve posture: 'auto' "
+                             "(default — shard the node tensors, the solve "
+                             "and the megaround over every local GPU when "
+                             "more than one exists), an explicit GPU count "
+                             "N (at most the local GPUs), or 'off' to force "
+                             "single-device solves (env NHD_MESH)")
     parser.add_argument("--prewarm", action="store_true",
                         help="before serving, build any missing kernel "
                              "library, load all of them and run the kernels "
@@ -467,7 +466,8 @@ def main(argv=None) -> int:
         from nhd_tpu_torch.solver import aot
 
         sched = next(t for t in threads if isinstance(t, Scheduler))
-        summary = aot.prewarm(progress=sched._beat, device=device)
+        summary = aot.prewarm(progress=sched._beat, device=device,
+                              mesh=sched.batch._resolve_mesh())
         msg = (f"prewarm: {summary['loaded']} solver program(s) warmed, "
                f"{summary['libraries']} kernel library(ies) loaded "
                f"({summary['built']} built) in {summary['seconds']:.2f}s "

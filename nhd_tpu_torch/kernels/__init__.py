@@ -162,8 +162,12 @@ def sizes_for(name: str, args: Sequence[Tensor], **kw) -> Dict[str, int]:
     if name == "solve_planes":
         T, N, C = t["nic_any"].shape
         G = t["combo"].shape[-1]
+        base = int(kw.get("node_base", 0))
+        n_global = kw.get("n_global")
         return dict(T=T, N=N, U=t["cpu_free"].shape[-1], G=G, C=C,
-                    NCLS=t["class_score"].shape[-1], G1=G + 1, P=len(PLANES))
+                    NCLS=t["class_score"].shape[-1], G1=G + 1, P=len(PLANES),
+                    node_base=base,
+                    n_global=N if n_global is None else int(n_global))
     if name == "spec_fill":
         TT1 = t["status"].shape[0]
         return dict(TT=TT1 - 1, TT1=TT1, N=t["plan"].shape[1])
@@ -221,22 +225,26 @@ def solve_planes(
     class_score,
     combo, maxdig, skew,
     nic_any, first_a, n_picks,
-    *, out: Optional[Tensor] = None,
+    *, out: Optional[Tensor] = None, node_base: int = 0,
+    n_global: Optional[int] = None,
 ) -> Tensor:
     """[8, T, N] int32 planes, rows in ``PLANES`` order; written into
-    *out* when given (a contiguous [8, T, N] int32 tensor)."""
+    *out* when given (a contiguous [8, T, N] int32 tensor). On a mesh
+    shard, the N nodes are global rows [node_base, node_base + N) of
+    *n_global* (default N), and sel ranks them by their global index."""
     args = (
         numa_nodes, smt, active, maintenance, busy, gpuless, node_gmask,
         hp_free, cpu_free, gpu_free, node_class,
         cpu_dem_smt, cpu_dem_raw, gpu_dem, hp, needs_gpu, pod_gmask,
         class_score, combo, maxdig, skew, nic_any, first_a, n_picks,
     )
+    place = dict(node_base=node_base, n_global=n_global)
     if _on_cpu(numa_nodes):
-        planes = reference.solve_planes(*args)
+        planes = reference.solve_planes(*args, **place)
         return planes if out is None else out.copy_(planes)
     if class_score.shape[-1] < 1:
         raise ValueError("class_score needs at least one class column")
-    sizes = sizes_for("solve_planes", args)
+    sizes = sizes_for("solve_planes", args, **place)
     (planes,) = _launch("solve_planes", args, sizes,
                         None if out is None else (out,))
     return planes

@@ -14,7 +14,8 @@ swapped pair of pointers cannot build unnoticed.
 
 Size symbols name the kernel's int sizes; ``CA`` (C*A), ``UK`` (U*K),
 ``G1`` (G+1) and ``P`` (the solve_planes row count) are derived by the
-wrapper. ``T`` is the pod-type axis and ``N`` the node axis. The claim
+wrapper; solve_planes' ``node_base`` and ``n_global`` place its N nodes
+on the global node axis of a mesh (0 and N on one device). ``T`` is the pod-type axis and ``N`` the node axis. The claim
 kernels run over the megaround's global type axis ``TT`` (every bucket's
 padded rows, bucket after bucket; ``TT1`` = TT + 1 for the status
 vector), with ``CM`` and ``CAM`` the largest C and C*A of its buckets,
@@ -119,7 +120,7 @@ ABI: Dict[str, KernelABI] = {
             _a("n_picks", "int32", "T N C"),
             _a("out", "int32", "P T N", out=True),
         ),
-        ("T", "N", "U", "G", "C", "NCLS"),
+        ("T", "N", "U", "G", "C", "NCLS", "node_base", "n_global"),
     ),
     "spec_elect": KernelABI(
         "nhd_spec_elect",

@@ -13,7 +13,7 @@ them, so its largest temporary is [T, N, C*A], never [T, N, C*A, U*K].
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -90,9 +90,13 @@ def solve_planes(
     class_score,
     combo, maxdig, skew,
     nic_any, first_a, n_picks,
+    *, node_base: int = 0, n_global: Optional[int] = None,
 ) -> Tensor:
     """[8, T, N] int32 planes in PLANES order (kernel.py:41-204 minus the
-    NIC stage, plus _policy_pref and the rank's sel value)."""
+    NIC stage, plus _policy_pref and the rank's sel value). The N nodes
+    are rows [node_base, node_base + N) of a node axis of *n_global*
+    (default N) padded rows: sel ranks them by their global index, as the
+    unsharded solve does."""
     T, N, C = nic_any.shape
     U = cpu_free.shape[1]
     G = combo.shape[1]
@@ -144,9 +148,10 @@ def solve_planes(
     ).to(i32)
     cls = node_class.long().clamp(0, class_score.shape[1] - 1)
     score = class_score[:, cls]  # [T, N]
-    nidx = torch.arange(N, device=dev, dtype=i32)
+    NG = N if n_global is None else n_global
+    nidx = node_base + torch.arange(N, device=dev, dtype=i32)
     sel = torch.where(
-        cand, (pref + 3 * score) * (N + 1) + (N - nidx)[None, :], 0
+        cand, (pref + 3 * score) * (NG + 1) + (NG - nidx)[None, :], 0
     )
     return torch.stack([
         sel.to(i32), cand.to(i32), pref, best_c.to(i32), best_m.to(i32),

@@ -15,7 +15,11 @@
 //   best_m    first misc slot whose CPU fit holds at best_c (0 when none)
 //   best_a, n_picks   the NIC stage's values at best_c
 //   pref      1 + (CPU-only pod on a GPU-less node) where a candidate
-//   sel       (pref + 3*class score) * (N+1) + (N-n) where a candidate, else 0
+//   sel       (pref + 3*class score) * (n_global+1) + (n_global - (node_base+n))
+//             where a candidate, else 0: node_base is the first global row of
+//             these N (a node shard's offset on a mesh) and n_global the
+//             padded node count of the whole axis, so a shard's sel is the
+//             unsharded solve's at the same node (0 and N on one device)
 // and writes eight [T, N] int32 planes, in this order:
 //   sel, cand, pref, best_c, best_m, best_a, n_combos, n_picks.
 // The [T, N, C, M] CPU lattice and the [T, N, C] feasibility never reach
@@ -110,7 +114,8 @@ __global__ void solve_planes_kernel(
     const int32_t* __restrict__ first_a,       // [T, N, C]
     const int32_t* __restrict__ n_picks,       // [T, N, C]
     int32_t* __restrict__ out,                 // [8, T, N]
-    int T, int N, int U, int G, int C, int NCLS, int L, int staged)
+    int T, int N, int U, int G, int C, int NCLS, int L, int staged,
+    int node_base, int n_global)
 {
     const int t = blockIdx.y;
     const int sub = threadIdx.x & (L - 1);
@@ -146,7 +151,7 @@ __global__ void solve_planes_kernel(
     const int a0 = first_live ? first_a[row + sub] : 0;
     const int p0 = first_live ? n_picks[row + sub] : 0;
     if (staged) {
-        const long long node_base = n0 * U;
+        const long long row_base = n0 * U;
         const long long node_end = (long long)N * U;
         const int total = n_rows + n_tab + 2 * n_node;
         for (int i0 = threadIdx.x; i0 < total; i0 += STAGE_BATCH * blockDim.x) {
@@ -172,7 +177,7 @@ __global__ void solve_planes_kernel(
                     v[u] = skew[i - n_rows - C * G - C];
                 } else {
                     const int j = i - n_rows - n_tab;
-                    const long long at = node_base + (j < n_node ? j : j - n_node);
+                    const long long at = row_base + (j < n_node ? j : j - n_node);
                     if (at < node_end) v[u] = j < n_node ? cpu_free[at] : gpu_free[at];
                 }
             }
@@ -241,7 +246,9 @@ __global__ void solve_planes_kernel(
     const bool cand = count > 0;
     const int pref = cand ? 1 + ((!gpu_pod && gpuless_n) ? 1 : 0) : 0;
     cls = cls < 0 ? 0 : (cls > NCLS - 1 ? NCLS - 1 : cls);
-    const int sel = cand ? (pref + 3 * score_row[cls]) * (N + 1) + (N - (int)n) : 0;
+    const int sel = cand
+        ? (pref + 3 * score_row[cls]) * (n_global + 1) + (n_global - (node_base + (int)n))
+        : 0;
     const long long TN = (long long)T * N;
     const long long at = (long long)t * N + n;
     for (int p = sub; p < 8; p += L) {
@@ -285,13 +292,14 @@ extern "C" int nhd_solve_planes(
     const void* combo, const void* maxdig, const void* skew,
     const void* nic_any, const void* first_a, const void* n_picks,
     void* out,
-    int T, int N, int U, int G, int C, int NCLS,
+    int T, int N, int U, int G, int C, int NCLS, int node_base, int n_global,
     int device, void* stream)
 {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if ((long long)T * N == 0) return 0;
-    if (C < 1 || NCLS < 1 || T > 65535) return (int)cudaErrorInvalidValue;
+    if (C < 1 || NCLS < 1 || T > 65535 || node_base < 0 || n_global < node_base + N)
+        return (int)cudaErrorInvalidValue;
     int L = 1;
     while (L < C && L < 32) L *= 2;
     // halve the block until the grid has two blocks per SM
@@ -322,7 +330,7 @@ extern "C" int nhd_solve_planes(
         (const int32_t*)combo, (const int32_t*)maxdig, (const int32_t*)skew,
         (const uint8_t*)nic_any, (const int32_t*)first_a,
         (const int32_t*)n_picks, (int32_t*)out,
-        T, N, U, G, C, NCLS, L, staged ? 1 : 0);
+        T, N, U, G, C, NCLS, L, staged ? 1 : 0, node_base, n_global);
     return (int)cudaGetLastError();
 }
 

@@ -16,12 +16,14 @@ device seams rewired (everything else is the reference's text):
   and hands it to ``BatchScheduler``; tests pass ``device="cpu"``.
 * ``_stream_tile_nodes`` reads that device's type, not a global backend
   probe.
-* The mesh knob (``--mesh``/``NHD_MESH``): ``auto``, ``off`` and ``1``
-  resolve to no mesh; a count above 1 raises NotImplementedError until
-  the multi-GPU slice (ROADMAP Queue 1 item 7).
+* The mesh knob (``--mesh``/``NHD_MESH``) resolves through the port's
+  ``parallel.sharding.resolve_mesh_spec``, which counts distinct local
+  GPUs: ``auto`` shards over every GPU when there are several, ``N``
+  takes the first N and a count above the GPUs raises, as the
+  reference refuses it.
 * Past ``NHD_STREAM_NODES`` nodes the batch solves through the port's
-  streaming tiler (solver/streaming.py) on the scheduler's device, with
-  no mesh argument.
+  streaming tiler (solver/streaming.py) on the scheduler's device and
+  mesh.
 """
 
 from __future__ import annotations
@@ -62,6 +64,7 @@ from nhd_tpu_torch.obs.recorder import (
     get_recorder,
     new_corr_id,
 )
+from nhd_tpu_torch.parallel.sharding import resolve_mesh_spec
 from nhd_tpu_torch.sanitizer.races import maybe_watch
 from nhd_tpu_torch.scheduler.events import WatchItem, WatchQueue, WatchType
 from nhd_tpu_torch.solver.batch import BatchItem, BatchScheduler
@@ -104,31 +107,6 @@ def _stream_tile_nodes(device) -> int:
     # 4096 = the best pipelined CPU tiling), kept until a measured cell
     # on the card argues for another (chip_smoke.py phase 9 times both)
     return 16384 if device.type == "cuda" else 4096
-
-
-def resolve_mesh_spec(spec):
-    """Operator mesh knob (``NHD_MESH`` / ``--mesh``) on the port: one
-    device until multi-GPU lands. ``"auto"``, ``"off"``/``"0"``/
-    ``"none"`` and ``"1"`` resolve to no mesh (None); an explicit count
-    above 1 raises NotImplementedError rather than solving on one card."""
-    if spec is None:
-        return None
-    s = str(spec).strip().lower()
-    if s in ("", "auto", "off", "0", "none"):
-        return None
-    try:
-        n = int(s)
-    except ValueError:
-        raise ValueError(
-            f"mesh spec must be 'auto', 'off'/'0'/'none' or a device "
-            f"count, got {spec!r}"
-        )
-    if n < 2:
-        return None
-    raise NotImplementedError(
-        f"mesh of {n} devices: the port solves on one GPU until the "
-        "multi-GPU slice (ROADMAP Queue 1 item 7)"
-    )
 
 
 STREAM_CHUNK_PODS = int(os.environ.get("NHD_STREAM_CHUNK_PODS", "16384"))
@@ -395,14 +373,22 @@ class Scheduler(threading.Thread):
         # the solve device (the port's seam): CUDA unless the caller
         # asks for the CPU, resolved once and shared by every solve path
         self.device = resolve_device(device)
-        # multi-chip posture: --mesh / NHD_MESH, checked ONCE here; on
-        # the port every accepted value is one device (resolve_mesh_spec
-        # raises for more)
-        resolve_mesh_spec(
+        # multi-chip posture: --mesh / NHD_MESH decides whether the solve
+        # shards over a node mesh — "auto" (every local GPU when there
+        # are several), an explicit GPU count, or "off". Resolved ONCE
+        # here and handed to both the batch scheduler and the streaming
+        # tiler, so every solve path (and its persistent device-resident
+        # contexts) shares one posture.
+        self._mesh = resolve_mesh_spec(
             mesh if mesh is not None else os.environ.get("NHD_MESH", "auto")
         )
+        if self._mesh not in ("auto", None):
+            self.logger.warning(
+                f"solve mesh: {self._mesh.size} device(s) "
+                f"(--mesh/NHD_MESH)"
+            )
         self.batch = BatchScheduler(
-            respect_busy=respect_busy, device=self.device
+            respect_busy=respect_busy, device=self.device, mesh=self._mesh
         )
         # solver data-plane guard (solver/guard.py): recovery retries
         # and resident-state audits are legitimate intra-turn work — let
@@ -918,6 +904,7 @@ class Scheduler(threading.Thread):
                     respect_busy=self.batch.respect_busy,
                     persistent=DELTA_STATE,
                     device=self.device,
+                    mesh=self._mesh,
                 )
             results, bstats = self._stream.schedule(nodes_view, batch_items)
         else:

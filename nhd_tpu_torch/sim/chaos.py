@@ -1268,8 +1268,8 @@ class ChaosSim:
         from nhd_tpu_torch.solver.encode import DELTA_FIELDS
 
         name = self._dev_rng.choice(DELTA_FIELDS)
-        row = self._dev_rng.randrange(dev.N)
-        t = dev._dev[name]
+        shard, row = dev.shard_of(self._dev_rng.randrange(dev.N))
+        t = shard[name]
         # in place, on the tensor's own device: the resident row itself
         # is what the guard's audit must find
         if t.dtype == torch.bool:

@@ -19,17 +19,23 @@ its cache keeps the reference's contract on two kinds of artifact:
   the solver dispatched: ``ranked_g{G}_u{U}_k{K}_r{R}_t{Tp}_n{Np}`` (a
   solve + rank, kernel.dispatch_ranked), ``megaround_b...`` (one
   bucket set of the speculative megaround) and ``scatter_a{A}_n{Np}``
-  (a resident row update), each with the shapes of its arguments and
+  (a resident row update), a dispatch on a node mesh with the mesh's
+  ``_m{mesh_desc}`` after it (the reference's mesh-qualified keys;
+  its shapes are one shard's), each with the shapes of its arguments and
   the program fingerprint (a hash over the port's solver/kernel.py and
   solver/combos.py). When saving is on (``NHD_AOT_SAVE=1`` or
   ``configure(save=True)``), a first-seen key is written on a
   background thread; a failed write counts
   ``aot_export_failures_total`` and logs once.
 
-``prewarm(progress=, device=)`` (daemon flag ``--prewarm``) builds any
-missing library and loads all six, creates the CUDA context, and for
-every manifest key runs the solve kernels (and, for a megaround key,
-the claim kernels) once on zeros at that shape: the first real pod then
+``prewarm(progress=, device=, mesh=)`` (daemon flag ``--prewarm``)
+builds any missing library and loads all six, creates the CUDA context,
+and for every manifest key runs the solve kernels (and, for a megaround
+key, the claim kernels) once on zeros at that shape, a mesh key over the
+caller's mesh when its descriptor matches, else over a mesh rebuilt on
+the local devices; a mesh key that needs more devices than the host has
+is skipped (left in place, neither warmed nor quarantined, as the
+reference skips a bigger slice's artifact): the first real pod then
 finds the libraries loaded, the kernels' modules resident, the bucket
 tables on the device and the allocator sized. Each warmed key is
 recorded in the jit stats, so steady-state dispatches count as hits and
@@ -300,12 +306,14 @@ class AotCache:
         return None
 
     def prewarm(self, progress: Optional[Callable[[], None]] = None,
-                device="cuda") -> dict:
+                device="cuda", mesh=None) -> dict:
         """Load the libraries and warm every valid manifest key on
-        *device*; quarantine what is stale. Returns a summary: ``loaded``
-        (keys warmed), ``libraries`` (loaded), ``built`` (compiled now),
+        *device* (a mesh key over *mesh* when its descriptor matches);
+        quarantine what is stale. Returns a summary: ``loaded`` (keys
+        warmed), ``libraries`` (loaded), ``built`` (compiled now),
         ``quarantined``, ``skipped`` (artifacts inapplicable here: the
-        libraries on the CPU), ``seconds`` and ``keys``.
+        libraries on the CPU, a mesh larger than the host), ``seconds``
+        and ``keys``.
 
         ``progress`` is called (no args, exceptions swallowed) after
         every artifact: each library, each manifest entry. The CLI wires
@@ -390,7 +398,17 @@ class AotCache:
             if why is None:
                 try:
                     key = ShapeKey(meta["kind"], meta["key"])
-                    _WARM[key.kind](meta["spec"], dev)
+                    spec = meta["spec"]
+                    key_mesh = _mesh_for(spec.get("mesh", ""), dev, mesh)
+                except Exception as exc:
+                    why = f"unreadable entry: {exc!r}"
+            if why is None and key_mesh is _TOO_BIG:
+                summary["skipped"] += 1   # a bigger host's mesh: kept
+                _tick()
+                continue
+            if why is None:
+                try:
+                    _WARM[key.kind](spec, dev, key_mesh)
                 except Exception as exc:
                     why = f"warm-up failed: {exc!r}"
             if why is not None:
@@ -432,50 +450,92 @@ def _zero_pods(G: int, spec, device):
     return SimpleNamespace(G=G, n_types=Tp, **arrays), Tp
 
 
-def _warm_ranked(spec: dict, device) -> None:
+#: _mesh_for's answer for a mesh key that needs more devices than the host
+_TOO_BIG = object()
+
+
+def _mesh_for(desc: str, device, mesh):
+    """The mesh a manifest key with mesh descriptor *desc* warms over:
+    None for a single-device key, the caller's *mesh* when its
+    descriptor is *desc*, else *desc*'s shard count over the distinct
+    local devices of *device*'s type (one shard each), or ``_TOO_BIG``
+    when the host has fewer such devices."""
+    from nhd_tpu_torch.parallel.sharding import _local_devices, make_mesh
+    from nhd_tpu_torch.solver.kernel import mesh_desc, parse_mesh_desc
+
+    parsed = parse_mesh_desc(desc)
+    if parsed is None:
+        return None
+    if mesh is not None and mesh_desc(mesh) == desc:
+        return mesh
+    local = _local_devices(device.type)
+    if parsed[1] > len(local):
+        return _TOO_BIG
+    return make_mesh(local[: parsed[1]], axis=parsed[0])
+
+
+def _shard_zeros(spec, device, mesh):
+    """Per shard (one shard without a mesh), zero tensors of *spec*'s
+    shapes on the shard's device."""
+    devices = (device,) if mesh is None else mesh.devices
+    return devices, [_zeros(spec, d) for d in devices]
+
+
+def _warm_ranked(spec: dict, device, mesh=None) -> None:
     from nhd_tpu_torch.solver.kernel import (
         rank_planes,
+        rank_shards,
         solve_planes,
         upload_pods,
     )
 
-    node = _zeros(spec["node"], device)
+    devices, shards = _shard_zeros(spec["node"], device, mesh)
     pods, Tp = _zero_pods(spec["G"], spec["pod"], device)
-    pod = upload_pods(pods, Tp, spec["U"], spec["K"], device)
-    rank_planes(spec["R"], solve_planes(spec["G"], spec["U"], spec["K"],
-                                        node, pod), node)
+    uploads = [upload_pods(pods, Tp, spec["U"], spec["K"], d) for d in devices]
+    if mesh is None:
+        node = shards[0]
+        rank_planes(spec["R"], solve_planes(spec["G"], spec["U"], spec["K"],
+                                            node, uploads[0]), node)
+    else:
+        rank_shards(spec["G"], spec["U"], spec["K"], spec["R"], spec["Np"],
+                    shards, uploads)
 
 
-def _warm_megaround(spec: dict, device) -> None:
+def _warm_megaround(spec: dict, device, mesh=None) -> None:
     """One iteration of the claim loop at the bucket set's shapes: one
     pending pod of the first type row, on zero node state, so every
     solve and claim kernel launches once and nothing is claimed."""
     import numpy as np
 
     from nhd_tpu_torch.solver.kernel import _ARG_ORDER, upload_pods
-    from nhd_tpu_torch.solver.speculate import run_megaround, spec_iters
+    from nhd_tpu_torch.solver.speculate import run_megaround_shards, spec_iters
 
-    node = dict(zip(_ARG_ORDER, _zeros(spec["node"], device), strict=True))
+    devices, shards = _shard_zeros(spec["node"], device, mesh)
     bucket_pods, tensors, needs = [], [], []
     for b in spec["buckets"]:
         pods, Tp = _zero_pods(b["G"], b["pod"], device)
         bucket_pods.append(pods)
-        tensors.append(upload_pods(pods, Tp, spec["U"], spec["K"], device))
+        tensors.append([upload_pods(pods, Tp, spec["U"], spec["K"], d)
+                        for d in devices])
         need = np.zeros(Tp, np.int32)
         need[0] = 1
         needs.append(need)
-    run_megaround(node, bucket_pods, tensors, needs, spec["U"], spec["K"],
-                  spec_iters(), False)
+    run_megaround_shards(
+        [dict(zip(_ARG_ORDER, node, strict=True)) for node in shards],
+        bucket_pods, [[pt[s] for pt in tensors] for s in range(len(shards))],
+        needs, spec["U"], spec["K"], spec_iters(), False)
 
 
-def _warm_scatter(spec: dict, device) -> None:
+def _warm_scatter(spec: dict, device, mesh=None) -> None:
     """A row update at the resident shapes (``index_copy_``: nothing to
     compile; recorded so the accounting sees the key as warm)."""
     import torch
 
-    idx = torch.zeros(1, dtype=torch.int64, device=device)
-    for t in _zeros(spec["node"], device):
-        t.index_copy_(0, idx, t[:1].clone())
+    devices, shards = _shard_zeros(spec["node"], device, mesh)
+    for d, node in zip(devices, shards):
+        idx = torch.zeros(1, dtype=torch.int64, device=d)
+        for t in node:
+            t.index_copy_(0, idx, t[:1].clone())
 
 
 _WARM = {"ranked": _warm_ranked, "megaround": _warm_megaround,
@@ -503,8 +563,8 @@ def configure(directory: Optional[str] = None, save: Optional[bool] = None):
 
 
 def prewarm(progress: Optional[Callable[[], None]] = None,
-            device="cuda") -> dict:
-    return AOT.prewarm(progress, device)
+            device="cuda", mesh=None) -> dict:
+    return AOT.prewarm(progress, device, mesh)
 
 
 def reset() -> None:

@@ -27,18 +27,23 @@ greedy claim loop and the host re-verifies its claims through the same
 native apply; whatever the native core rejects retries in classic
 rounds. A saturation certificate can end the batch after round 0.
 
+With a node mesh (``mesh=``, parallel/sharding.py; "auto" shards over
+every local GPU when there are several) the resident tensors shard along
+the node axis and every solve, rank and megaround runs per shard
+(solver/device_state.py), with placements identical to one device.
+
 Every round's dispatch runs under the solver fault guard
 (solver/guard.py), as in the reference: a batch-start audit of the
 resident rows, a screen of every pulled rank tensor, and a bounded
 re-dispatch of the round from host truth after a transient fault. The
-ladder has two rungs here: the resident tensors on the device, then a
-non-resident solve on the SAME device (``solve_bucket_ranked`` uploads
-the host arrays every round and still launches the kernels), with no
-megaround. Nothing in the guard moves work to the CPU.
+ladder: the mesh-sharded resident tensors, then the resident tensors on
+one device (a condemned mesh), then a non-resident solve on the SAME
+device (``solve_bucket_ranked`` uploads the host arrays every round and
+still launches the kernels), with no megaround. Nothing in the guard
+moves work to the CPU.
 
-Not in this slice, each with its gate closed: the mesh (and its rung),
-the AOT cache, and the reference's small-round CPU routing — on the
-card that routing would be a hidden CPU fallback.
+Not in this slice, its gate closed: the reference's small-round CPU
+routing — on the card that routing would be a hidden CPU fallback.
 """
 
 from __future__ import annotations
@@ -73,6 +78,7 @@ from nhd_tpu_torch.solver.fast_assign import (
 from nhd_tpu_torch.solver.guard import (
     GUARD,
     RUNG_HOST,
+    RUNG_MESH,
     RUNG_SINGLE,
     DeviceCorruptionError,
     classify_device_fault,
@@ -80,6 +86,7 @@ from nhd_tpu_torch.solver.guard import (
 from nhd_tpu_torch.solver.kernel import (
     _pad_pow2,
     bucket_tractable,
+    mesh_desc,
     rank_budget,
     ranked_shape_key,
     solve_bucket_ranked,
@@ -207,10 +214,11 @@ _GC_PIN_MIN_ITEMS = 4096
 
 def _rung_of(dev) -> int:
     """The ladder rung a solve attempt runs at, read off its device
-    state (solver/guard.py): resident tensors on the device, or the
-    non-resident solve on the same device. The mesh rung comes with
-    multi-GPU."""
-    return RUNG_HOST if dev is None else RUNG_SINGLE
+    state (solver/guard.py): mesh-sharded resident tensors, resident
+    tensors on one device, or the non-resident solve on that device."""
+    if dev is None:
+        return RUNG_HOST
+    return RUNG_MESH if dev.mesh is not None else RUNG_SINGLE
 
 
 def _unique_rows(cols):
@@ -333,6 +341,7 @@ class BatchScheduler:
         max_rounds: int = 10_000,
         use_fast: bool = True,
         register_pods: bool = True,
+        mesh: object = "auto",
     ):
         self.logger = get_logger(__name__)
         self.device = resolve_device(device)
@@ -342,6 +351,38 @@ class BatchScheduler:
         self.register_pods = register_pods
         # FastCluster static-topology cache, shared across schedule() calls
         self._fc_static: dict = {}
+        # mesh: "auto" → shard the solve over every local GPU whenever
+        # there are several (on the CPU, never); None → one device; or an
+        # explicit parallel.sharding.Mesh over a "nodes" axis, whose
+        # shards share this scheduler's device type
+        if mesh is not None and mesh != "auto":
+            if "nodes" not in getattr(mesh, "axis_names", ()):
+                raise ValueError(
+                    "mesh must be 'auto', None, or a parallel.sharding.Mesh "
+                    f"with a 'nodes' axis, got {mesh!r}"
+                )
+            if mesh.device_type != self.device.type:
+                raise ValueError(
+                    f"mesh shards on {mesh.device_type} but the scheduler "
+                    f"solves on {self.device}"
+                )
+        self.mesh = mesh
+
+    def _resolve_mesh(self):
+        """The mesh a fresh device-state build shards over: the explicit
+        one, or for "auto" every local GPU when there are several (the
+        distinct-GPU rule of parallel.sharding.resolve_mesh_spec; local
+        devices only — each scheduler process shards over its own)."""
+        if self.mesh != "auto":
+            return self.mesh
+        if self.device.type != "cuda":
+            return None
+        import torch
+
+        from nhd_tpu_torch.parallel.sharding import make_mesh
+
+        n = torch.cuda.device_count()
+        return make_mesh(n_shards=n, device="cuda") if n > 1 else None
 
     def _select_winners(
         self, pods, out: RankHost, node_claimed: Dict[int, int], G: int
@@ -675,22 +716,27 @@ class BatchScheduler:
             if self.use_fast
             else None
         )
+        mesh, use_dev = self._guard_posture()
         dev = (
             self._build_dev(
-                cluster, delta.capacity if delta is not None else None
+                cluster, mesh, delta.capacity if delta is not None else None
             )
-            if self._guard_posture() else None
+            if use_dev else None
         )
         return ScheduleContext(nodes, cluster, fast, dev, now, delta)
 
-    def _guard_posture(self) -> bool:
-        """Whether a fresh build keeps resident device state: always,
-        unless the guard's floor has condemned the resident plane
-        (solver/guard.py ladder). Either way the solve runs on
-        ``self.device``."""
-        return not GUARD.active() or GUARD.allow_device()
+    def _guard_posture(self):
+        """(mesh, use_dev) for a fresh device-state build, with the
+        solver guard's floor applied (solver/guard.py ladder): a condemned
+        mesh strips to one device, a condemned resident plane to the
+        non-resident rung. Either way the solve stays on ``self.device``
+        (or the mesh's shards)."""
+        mesh = self._resolve_mesh()
+        if GUARD.active() and not GUARD.allow_mesh():
+            mesh = None
+        return mesh, not GUARD.active() or GUARD.allow_device()
 
-    def _build_dev(self, cluster, capacity):
+    def _build_dev(self, cluster, mesh, capacity):
         """Construct resident device state under the guard's fault
         boundary: the build itself copies every node tensor to the
         device, and on a device that cannot take them it faults exactly
@@ -698,7 +744,8 @@ class BatchScheduler:
         resident plane straight to the non-resident rung and returns
         None. With the guard off (or a terminal fault) it raises."""
         try:
-            return DeviceClusterState(cluster, self.device, capacity=capacity)
+            return DeviceClusterState(cluster, self.device, mesh,
+                                      capacity=capacity)
         except Exception as exc:
             if not GUARD.active() or not classify_device_fault(exc):
                 raise
@@ -714,11 +761,15 @@ class BatchScheduler:
         floor moved between batches: degradation drops the resident
         tensors, re-promotion after clean probe rounds re-derives them
         from host truth. A no-op when the posture already matches."""
-        use_dev = self._guard_posture()
-        if use_dev == (ctx.dev is not None):
+        mesh, use_dev = self._guard_posture()
+        cur = ctx.dev
+        if use_dev == (cur is not None) and (
+            cur is None or (cur.mesh is not None) == (mesh is not None)
+        ):
             return
         capacity = ctx.delta.capacity if ctx.delta is not None else None
-        ctx.dev = self._build_dev(ctx.cluster, capacity) if use_dev else None
+        ctx.dev = (self._build_dev(ctx.cluster, mesh, capacity)
+                   if use_dev else None)
         if ctx.dev is not None:
             GUARD.note_repair()
 
@@ -730,12 +781,13 @@ class BatchScheduler:
         persistent context at it so later batches inherit the posture."""
         new = None
         if dev is not None and GUARD.allow_device():
+            mesh = dev.mesh if GUARD.allow_mesh() else None
             capacity = (
                 context.delta.capacity
                 if context is not None and context.delta is not None
                 else None
             )
-            new = self._build_dev(cluster, capacity)
+            new = self._build_dev(cluster, mesh, capacity)
             if new is not None:
                 GUARD.note_repair()
         elif dev is not None:
@@ -802,7 +854,9 @@ class BatchScheduler:
                 if self.use_fast else None
             )
             if ctx.dev is not None:
-                ctx.dev = self._build_dev(ctx.cluster, delta.capacity)
+                ctx.dev = self._build_dev(
+                    ctx.cluster, ctx.dev.mesh, delta.capacity
+                )
             return ctx
         rows = delta.drain_dirty()
         if rows.size and ctx.fast is not None:
@@ -930,7 +984,8 @@ class BatchScheduler:
             # the guard's degradation floor applies here too
             # (_guard_posture), and a build that faults condemns to the
             # non-resident rung instead of failing the batch (_build_dev)
-            dev = self._build_dev(cluster, None) if self._guard_posture() else None
+            mesh, use_dev = self._guard_posture()
+            dev = self._build_dev(cluster, mesh, None) if use_dev else None
         guard_on = GUARD.active()
         if guard_on and dev is not None and GUARD.audit_due():
             # periodic + on-suspicion resident-state audit BEFORE any
@@ -975,10 +1030,11 @@ class BatchScheduler:
             guard's per-shape fault count; best effort, since some
             exception types refuse new attributes."""
             Np_k = dev.Np if dev is not None else _pad_pow2(cluster.n_nodes)
+            desc = mesh_desc(dev.mesh) if dev is not None else ""
             try:
                 exc._nhd_shape_key = ranked_shape_key(
                     G, cluster.U, cluster.K, min(R, Np_k),
-                    _pad_pow2(pods.n_types), Np_k,
+                    _pad_pow2(pods.n_types), Np_k, desc,
                 )
             except (AttributeError, TypeError):
                 pass  # slotted / C-extension exception types

@@ -12,14 +12,16 @@ knobs, counters and ladder logic; where it differs:
   one and a retry on the same device would be a lie.
   ``torch.cuda.OutOfMemoryError`` is transient; ``torch.AcceleratorError``
   is read by its code the same way, else by its message.
-* **The rungs.** Without a mesh (multi-GPU is a later slice) a solve
-  runs at ``RUNG_SINGLE`` (resident tensors on the card) or at
+* **The rungs.** A solve runs at ``RUNG_MESH`` (resident tensors
+  sharded over a node mesh, parallel/sharding.py), ``RUNG_SINGLE``
+  (resident tensors on one card: a condemned mesh rebuilds there) or
   ``RUNG_HOST``, which in the port means *non-resident on the same
   device*: ``solve_bucket_ranked`` uploads from the host arrays every
   round and still launches the kernels on the card. No rung moves work
-  to the CPU. ``allow_mesh`` only moves the floor.
-* **The audit** gathers every sampled row on the device and brings them
-  back in one pull (``torch.cat`` of the rows' bytes, one ``.cpu()``).
+  to the CPU.
+* **The audit** gathers every sampled row on its shard's device, joins
+  them on the lead device and brings them back in one pull
+  (``torch.cat`` of the rows' bytes, one ``.cpu()``).
 * **Shape quarantine** keeps its per-key fault count; ``_forget_aot``
   retires the key from the kernel cache (solver/aot.py): out of the
   prewarmed set, its manifest entry quarantined, and not recorded again
@@ -217,9 +219,8 @@ def audit_device_rows(dev, rows: Iterable[int]) -> List[str]:
         return []
     errs: List[str] = []
     names = getattr(dev.cluster, "names", [])
-    device = dev._dev[_ARG_ORDER[0]].device
     index = {
-        key: torch.from_numpy(idx).to(device)
+        key: dev.row_index(idx)
         for key, idx in (("all", idx_all), ("mut", idx_mut)) if idx.size
     }
     gathers = []   # (name, idx, rows shape, rows dtype, byte count)
@@ -228,7 +229,7 @@ def audit_device_rows(dev, rows: Iterable[int]) -> List[str]:
         key = "mut" if name in _MUTABLE else "all"
         if key not in index:
             continue
-        g = dev._dev[name].index_select(0, index[key]).contiguous()
+        g = dev.select_rows(name, index[key]).contiguous()
         raw = g.reshape(-1).view(torch.uint8)
         gathers.append((name, idx_mut if key == "mut" else idx_all,
                         tuple(g.shape), g.dtype, raw.numel()))

@@ -15,6 +15,15 @@ computes them with ``lax.top_k`` outside any Pallas kernel. On CPU
 tensors every kernel wrapper takes its plain PyTorch version; the
 decisions are the same integers either way.
 
+On a node-sharded mesh (parallel/sharding.py) the reference runs the same
+fused program under GSPMD, which computes sel over the global padded node
+axis and inserts the top-k collective. Here each shard runs the three
+kernels on its own rows with its global ``node_base`` (so its sel values
+are the unsharded solve's), ranks its top min(R, shard rows) locally, and
+the shards' candidates (node indices made global) are merged by one more
+top-R on the lead shard's device (``rank_shards``). The merge is exact on
+every val > 0 slot because sel is unique there: it ends in n_global - n.
+
 Argument order, padding rules, rank widths and shape keys are the
 reference's, so one set of knobs (``NHD_TPU_RANK_CAP``,
 ``NHD_TPU_MAX_LATTICE``) drives both sides of a parity test.
@@ -96,11 +105,15 @@ def _pad_pow2(n: int, floor: int = 8) -> int:
     return p
 
 
-def pad_nodes(n: int, floor: int = 8) -> int:
+def pad_nodes(n: int, n_dev: int = 1, floor: int = 8) -> int:
     """Padded node-axis length of the resident tensors: the reference's
-    power-of-two bucket on one device (the padded N enters the selection
-    value, so both sides must pad alike)."""
-    return _pad_pow2(max(n, 1), floor=floor)
+    power-of-two bucket, rounded up to a multiple of the mesh's shard
+    count (even shards). The padded N enters the selection value, so
+    both sides must pad alike."""
+    p = _pad_pow2(max(n, 1), floor=max(floor, n_dev))
+    if p % n_dev:
+        p += n_dev - (p % n_dev)
+    return p
 
 
 def rank_cap(accelerator: bool) -> int:
@@ -122,18 +135,44 @@ def rank_budget(max_need: int, n_padded: int, *, accelerator: bool = False) -> i
     return min(n_padded, _pad_pow2(min(max(max_need, 1), cap), floor=64))
 
 
-def ranked_shape_key(G, U, K, R, Tp, Np) -> str:
+def mesh_desc(mesh) -> str:
+    """Canonical descriptor of a 1-D node mesh ("nodes8" = a ``nodes``
+    axis of 8 shards; "" for no mesh): the string every layer that names
+    a sharded dispatch shares (jit-stats shape keys, kernel-cache keys,
+    the NHD_MESH knob's log line), as in the reference."""
+    if mesh is None:
+        return ""
+    (axis,) = mesh.axis_names
+    return f"{axis}{mesh.size}"
+
+
+def parse_mesh_desc(desc: str):
+    """(axis, n_shards) from a mesh_desc string, or None for ""."""
+    if not desc:
+        return None
+    axis = desc.rstrip("0123456789")
+    return axis, int(desc[len(axis):])
+
+
+def ranked_shape_key(G, U, K, R, Tp, Np, mesh: str = "") -> str:
     """The shape key of one solve+rank dispatch (the reference's format,
-    so both packages' accounting tables read alike)."""
-    return f"G{G}_U{U}_K{K}_R{R}_T{Tp}_N{Np}"
+    so both packages' accounting tables read alike); ``mesh``: the
+    mesh_desc of a sharded dispatch."""
+    key = f"G{G}_U{U}_K{K}_R{R}_T{Tp}_N{Np}"
+    return key + (f"_M{mesh}" if mesh else "")
 
 
 def parse_ranked_shape_key(key: str):
-    """(G, U, K, R, Tp, Np) of a ranked_shape_key string, or None."""
+    """(G, U, K, R, Tp, Np, mesh_desc) of a ranked_shape_key string, or
+    None."""
     import re
 
-    m = re.fullmatch(r"G(\d+)_U(\d+)_K(\d+)_R(\d+)_T(\d+)_N(\d+)", key)
-    return None if m is None else tuple(int(x) for x in m.groups())
+    m = re.fullmatch(
+        r"G(\d+)_U(\d+)_K(\d+)_R(\d+)_T(\d+)_N(\d+)(?:_M(.+))?", key
+    )
+    if m is None:
+        return None
+    return tuple(int(x) for x in m.groups()[:6]) + (m.group(7) or "",)
 
 
 @dataclass(frozen=True)
@@ -281,18 +320,22 @@ def plane_args(node: Sequence[Tensor], pod: PodTensors, nic_any: Tensor,
 
 
 def solve_planes(G: int, U: int, K: int, node: Sequence[Tensor],
-                 pod: PodTensors, out: Optional[Tensor] = None) -> Tensor:
+                 pod: PodTensors, out: Optional[Tensor] = None, *,
+                 node_base: int = 0, n_global: Optional[int] = None) -> Tensor:
     """The padded solve: [8, Tp, Np] int32 planes (kernels.PLANES order)
     from the 15 node tensors (``_ARG_ORDER``) and one bucket's pod
     tensors — three kernel launches on CUDA tensors. With *out*, the
-    planes are written there (the megaround's plane buffer)."""
+    planes are written there (the megaround's plane buffer). On a mesh
+    shard, *node* holds global rows [node_base, node_base + Ns) of a
+    padded axis of *n_global* rows, and sel ranks by the global index."""
     tb = pod.tables
     if (tb.G, tb.U, tb.K) != (G, U, K):
         raise ValueError(f"pod tensors were built for {(tb.G, tb.U, tb.K)}")
     valid, pci_ok = kernels.nic_node_masks(*mask_args(node, pod))
     args, kw = nic_args(node, pod, valid, pci_ok)
     nic = kernels.nic_any_first(*args, **kw)
-    return kernels.solve_planes(*plane_args(node, pod, *nic), out=out)
+    return kernels.solve_planes(*plane_args(node, pod, *nic), out=out,
+                                node_base=node_base, n_global=n_global)
 
 
 _P = {name: i for i, name in enumerate(kernels.PLANES)}
@@ -319,8 +362,64 @@ def rank_planes(R: int, planes: Tensor, node: Sequence[Tensor]) -> Tensor:
     ])
 
 
-def dispatch_ranked(G, U, K, R, Tp, Np, node: Sequence[Tensor],
-                    pod: PodTensors) -> Tensor:
+def rank_shard(R: int, G: int, U: int, K: int, node: Sequence[Tensor],
+               pod: PodTensors, node_base: int, n_global: int) -> Tensor:
+    """One shard's candidates: the packed [9, Tp, k] rank tensor of its
+    rows (k = min(R, shard rows)) with the index row made global."""
+    planes = solve_planes(G, U, K, node, pod, node_base=node_base,
+                          n_global=n_global)
+    out = rank_planes(min(R, planes.shape[2]), planes, node)
+    out[1] += node_base
+    return out
+
+
+def merge_ranked(R: int, cand: Tensor) -> Tensor:
+    """The packed [9, Tp, R] rank tensor from the shards' candidates
+    [9, Tp, S*k] (S*k >= R): top-R by val, each winner's nine rows
+    carried with it."""
+    _, j = torch.topk(cand[0], R, dim=1)
+    return torch.gather(cand, 2, j.unsqueeze(0).expand(cand.shape[0], -1, -1))
+
+
+def rank_shards(G: int, U: int, K: int, R: int, Np: int,
+                shards: Sequence[Sequence[Tensor]],
+                pods: Sequence[PodTensors], *, first: int = 0,
+                group=None) -> Tensor:
+    """Solve + rank over a node-sharded mesh: this process's shard i is
+    global shard ``first + i`` (rows [(first+i)*Ns, (first+i+1)*Ns) on
+    its own device); it is solved and ranked on that device and its
+    candidates are copied to the lead shard's device. With a
+    ``torch.distributed`` *group*, every rank's candidates are gathered
+    (in rank order, so every rank merges the same tensor); then the
+    merge runs on the lead device. Returns the packed [9, Tp, R] tensor
+    there."""
+    Ns = shards[0][0].shape[0]
+    lead = shards[0][0].device
+    parts = [
+        rank_shard(R, G, U, K, node, pod, (first + s) * Ns, Np).to(lead)
+        for s, (node, pod) in enumerate(zip(shards, pods))
+    ]
+    cand = torch.cat(parts, dim=2)
+    if group is not None:
+        cand = _all_gather_nodes(cand, group)
+    return merge_ranked(R, cand)
+
+
+def _all_gather_nodes(t: Tensor, group) -> Tensor:
+    """Every rank's *t* (equal shapes), concatenated in rank order along
+    the last axis, on *t*'s device. gloo's all_gather takes no CUDA
+    tensors, so under gloo the candidates go through an explicit host
+    copy; NCCL gathers them on the card."""
+    import torch.distributed as dist
+
+    send = t.cpu() if dist.get_backend(group) == "gloo" else t
+    bufs = [torch.empty_like(send)
+            for _ in range(dist.get_world_size(group))]
+    dist.all_gather(bufs, send, group=group)
+    return torch.cat(bufs, dim=-1).to(t.device)
+
+
+def dispatch_ranked(G, U, K, R, Tp, Np, node, pod, mesh=None) -> Tensor:
     """Solve + rank for one padded shape: the single seam the host path
     and the device-resident path share. Records the dispatch under the
     reference's shape key (a first-seen key is a new shape), is the
@@ -329,18 +428,26 @@ def dispatch_ranked(G, U, K, R, Tp, Np, node: Sequence[Tensor],
     its manifest so the next start prewarms it — unless the guard has
     quarantined the shape, which must not re-seed the cache it was just
     evicted from (the reference's check, nhd_tpu/solver/kernel.py:
-    530-547)."""
+    530-547). With ``mesh`` (parallel/sharding.py), *node* and *pod* are
+    per shard (each shard's 15 node tensors and its device's pod
+    tensors), the key carries the mesh_desc and the solve is
+    ``rank_shards``."""
     from nhd_tpu_torch.solver import aot, guard
 
-    key_str = ranked_shape_key(G, U, K, R, Tp, Np)
+    desc = mesh_desc(mesh)
+    key_str = ranked_shape_key(G, U, K, R, Tp, Np, desc)
     JIT_STATS.record_use("solve_ranked", key_str)
     # chaos fault-injection seam (solver/guard.py): no-op in production
     guard.maybe_inject("dispatch", key_str)
     if not guard.GUARD.shape_quarantined(key_str):
+        one_node, one_pod = (node, pod) if mesh is None else (node[0], pod[0])
         aot.maybe_record(aot.ShapeKey("ranked", key_str), lambda: dict(
-            G=G, U=U, K=K, R=R, Tp=Tp, Np=Np, node=aot.arg_spec(node),
-            pod=aot.arg_spec(pod.args),
+            G=G, U=U, K=K, R=R, Tp=Tp, Np=Np, node=aot.arg_spec(one_node),
+            pod=aot.arg_spec(one_pod.args), mesh=desc,
         ))
+    if mesh is not None:
+        return rank_shards(G, U, K, R, Np, node, pod,
+                           first=mesh.first_shard, group=mesh.group)
     return rank_planes(R, solve_planes(G, U, K, node, pod), node)
 
 

@@ -25,6 +25,19 @@ demand projections are hoisted out of the loop into tables over the
 global type axis, as the reference hoists them (speculate.py:176-248).
 The claim kernels update the resident node tensors in place.
 
+On a node mesh (parallel/sharding.py) the loop body is per node except
+the balanced fill, which takes each type's winner count and its
+exclusive scans over all nodes, and the need and progress flag, which
+are global: GSPMD placed those collectives for the reference. Here each
+iteration runs the three solve kernels and ``spec_elect`` on every shard
+(each reading its own copy of the status vector), joins the shards'
+plans into one [7, Np] plan on the lead device, runs ONE ``spec_fill``
+over it with the lead status, copies each shard's slice of the count row
+back and the status out to the shards, and runs ``spec_apply`` per
+shard: exact by construction, with ``spec_fill`` unchanged. The claim
+words and counts of the shards join in shard order into the [iters, Np]
+layout ``decode_claims*`` reads.
+
 Claim word (one int32, -1 = no claim):
     word = t_global * 2^21 + (c * U + m) * A_bucket(t) + a
 """
@@ -123,7 +136,6 @@ def spec_tables(bucket_pods: Sequence, pod_tensors: Sequence[PodTensors],
     nic_occ = np.zeros((TT, CAM, U), f32)
     gpu_uk = np.zeros((TT, CAM, UK), f32)
     base = 0
-    plane_len = []
     for b, (pods, tb, (G, Tp)) in enumerate(zip(bucket_pods, tabs, shapes)):
         lo = int(offsets[b])
         rows = slice(lo, lo + Tp)
@@ -158,14 +170,9 @@ def spec_tables(bucket_pods: Sequence, pod_tensors: Sequence[PodTensors],
             [np.full(Tp, A), np.full(Tp, C), flags, host["hp"]], axis=1)
         plane_off[rows, 0] = base + np.arange(Tp, dtype=np.int64) * Np
         plane_off[rows, 1] = Tp * Np
-        plane_len.append(8 * Tp * Np)
         base += 8 * Tp * Np
 
-    planes = torch.zeros(base, dtype=torch.int32, device=device)
-    views, at = [], 0
-    for (G, Tp), n in zip(shapes, plane_len):
-        views.append(planes[at: at + n].view(8, Tp, Np))
-        at += n
+    planes, views = plane_buffer(shapes, Np, device)
 
     def pad_slots(t: Tensor, C: int, A: int) -> Tensor:
         out = torch.zeros((t.shape[0], CAM, UK), dtype=t.dtype, device=device)
@@ -181,6 +188,19 @@ def spec_tables(bucket_pods: Sequence, pod_tensors: Sequence[PodTensors],
     )
 
 
+def plane_buffer(shapes: Sequence[Tuple[int, int]], Np: int,
+                 device: torch.device) -> Tuple[Tensor, List[Tensor]]:
+    """The flat solve-plane buffer of one (shard's) node axis of Np rows
+    and each bucket's [8, Tp_b, Np] view of it, in bucket order."""
+    sizes = [8 * Tp * Np for _, Tp in shapes]
+    planes = torch.zeros(sum(sizes), dtype=torch.int32, device=device)
+    views, at = [], 0
+    for (_, Tp), n in zip(shapes, sizes):
+        views.append(planes[at: at + n].view(8, Tp, Np))
+        at += n
+    return planes, views
+
+
 def run_megaround(
     node: Dict[str, Tensor],
     bucket_pods: Sequence,
@@ -192,59 +212,114 @@ def run_megaround(
     respect_busy: bool,
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """The claim loop against the resident node tensors *node* (by
-    ``_ARG_ORDER`` name; the mutable ones are updated in place).
+    ``_ARG_ORDER`` name; the mutable ones are updated in place) on one
+    device: ``run_megaround_shards`` with one shard.
 
     ``bucket_pods``: the buckets' PodTypeArrays; ``pod_tensors``: their
     padded uploads; ``needs``: per-bucket [Tp] int32 pending counts.
     Returns device tensors (claims [iters, Np] int32 packed words, counts
     [iters, Np] int32, need_left [TT] int32, iterations used, a scalar).
     """
+    return run_megaround_shards([node], bucket_pods, [pod_tensors], needs,
+                                U, K, iters, respect_busy)
+
+
+def run_megaround_shards(
+    shards: Sequence[Dict[str, Tensor]],
+    bucket_pods: Sequence,
+    pod_tensors: Sequence[Sequence[PodTensors]],
+    needs: Sequence[np.ndarray],
+    U: int,
+    K: int,
+    iters: int,
+    respect_busy: bool,
+) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The claim loop over the node shards of a mesh: ``shards[s]`` holds
+    global rows [s*Ns, (s+1)*Ns) by ``_ARG_ORDER`` name on its own device
+    (shard 0's is the lead), ``pod_tensors[s]`` the buckets' uploads on
+    that device. The mutable tensors are updated in place; the returned
+    tensors are on the lead device, as ``run_megaround``'s."""
     from nhd_tpu_torch.core.node import ENABLE_NIC_SHARING as sharing
 
-    dev = node["hp_free"].device
-    Np = node["hp_free"].shape[0]
-    tabs = spec_tables(bucket_pods, pod_tensors, U, K, Np, dev)
-    offsets = tabs.offsets
+    S = len(shards)
+    devs = [shard["hp_free"].device for shard in shards]
+    lead = devs[0]
+    Ns = shards[0]["hp_free"].shape[0]
+    Np = S * Ns
+    # the hoisted tables once per device; a plane buffer per shard
+    shapes = [(p.G, int(pt.dem_rx.shape[0]))
+              for p, pt in zip(bucket_pods, pod_tensors[0])]
+    by_dev: Dict[torch.device, SpecTables] = {}
+    tabs = []
+    for s, d in enumerate(devs):
+        if d not in by_dev:
+            by_dev[d] = spec_tables(bucket_pods, pod_tensors[s], U, K, Ns, d)
+            tabs.append(by_dev[d])
+        else:
+            planes, views = plane_buffer(shapes, Ns, d)
+            tabs.append(by_dev[d]._replace(planes=planes, views=views))
+    offsets = tabs[0].offsets
     need0 = np.concatenate([
-        _pad_rows_to(n.astype(np.int32), pt.dem_rx.shape[0])
-        for n, pt in zip(needs, pod_tensors)
+        _pad_rows_to(n.astype(np.int32), tp) for n, (_, tp) in zip(needs, shapes)
     ])
-    status = to_device(np.concatenate([[1], need0]).astype(np.int32), dev)
-    claims = torch.full((iters, Np), -1, dtype=torch.int32, device=dev)
-    counts = torch.zeros((iters, Np), dtype=torch.int32, device=dev)
-    node_list = [node[name] for name in _ARG_ORDER]
+    status = to_device(np.concatenate([[1], need0]).astype(np.int32), lead)
+    # each shard reads its own copy of the status; shards on the lead
+    # device read the lead's (spec_elect clears its progress flag)
+    st_s = [status if d == lead else status.to(d) for d in devs]
+    claims = [torch.full((iters, Ns), -1, dtype=torch.int32, device=d) for d in devs]
+    counts = [torch.zeros((iters, Ns), dtype=torch.int32, device=d) for d in devs]
+    node_lists = [[shard[name] for name in _ARG_ORDER] for shard in shards]
     need_b = [int(need0[offsets[b]: offsets[b + 1]].sum())
               for b in range(len(bucket_pods))]
     # one pinned host buffer for every iteration's status pull
     pinned = (torch.empty(status.shape, dtype=status.dtype, pin_memory=True)
-              if dev.type == "cuda" else None)
+              if lead.type == "cuda" else None)
     it = 0
     progress = True
     while it < iters and sum(need_b) > 0 and progress:
-        for b, (pods, pt) in enumerate(zip(bucket_pods, pod_tensors)):
-            if need_b[b] > 0:  # a bucket with no need skips its solve
-                solve_planes(pods.G, U, K, node_list, pt, out=tabs.views[b])
-        plan = kernels.spec_elect(
-            tabs.planes, tabs.plane_off, tabs.trow, node["smt"],
-            node["cpu_free"], node["gpu_free"], node["hp_free"],
-            node["nic_free"], tabs.cpu_g, tabs.cpu_m, tabs.gpu_g,
-            tabs.nic_occ, status, sharing=sharing, respect_busy=respect_busy,
-        )
-        kernels.spec_fill(plan, status)
-        kernels.spec_apply(
-            plan, tabs.trow, node["smt"], node["nic_sw"], tabs.cpu_g,
-            tabs.cpu_m, tabs.gpu_g, tabs.nic_occ, tabs.gpu_uk, tabs.nic_rx,
-            tabs.nic_tx, node["busy"], node["hp_free"], node["cpu_free"],
-            node["gpu_free"], node["nic_free"], node["gpu_free_sw"],
-            claims, counts, it=it, sharing=sharing, respect_busy=respect_busy,
-        )
+        plans = []
+        for s, (node, tb) in enumerate(zip(shards, tabs)):
+            for b, (pods, pt) in enumerate(zip(bucket_pods, pod_tensors[s])):
+                if need_b[b] > 0:  # a bucket with no need skips its solve
+                    solve_planes(pods.G, U, K, node_lists[s], pt, out=tb.views[b],
+                                 node_base=s * Ns, n_global=Np)
+            plans.append(kernels.spec_elect(
+                tb.planes, tb.plane_off, tb.trow, node["smt"],
+                node["cpu_free"], node["gpu_free"], node["hp_free"],
+                node["nic_free"], tb.cpu_g, tb.cpu_m, tb.gpu_g, tb.nic_occ,
+                st_s[s], sharing=sharing, respect_busy=respect_busy,
+            ))
+        if S == 1:
+            kernels.spec_fill(plans[0], status)
+        else:
+            plan = torch.cat([p.to(lead) for p in plans], dim=1)
+            kernels.spec_fill(plan, status)
+            for s, p in enumerate(plans):
+                p[6].copy_(plan[6, s * Ns: (s + 1) * Ns])
+                if st_s[s] is not status:
+                    st_s[s].copy_(status)
+        for s, (node, tb) in enumerate(zip(shards, tabs)):
+            kernels.spec_apply(
+                plans[s], tb.trow, node["smt"], node["nic_sw"], tb.cpu_g,
+                tb.cpu_m, tb.gpu_g, tb.nic_occ, tb.gpu_uk, tb.nic_rx,
+                tb.nic_tx, node["busy"], node["hp_free"], node["cpu_free"],
+                node["gpu_free"], node["nic_free"], node["gpu_free_sw"],
+                claims[s], counts[s], it=it, sharing=sharing,
+                respect_busy=respect_busy,
+            )
         st = HostPull(status, into=pinned).numpy()
         progress = bool(st[0])
         need_b = [int(st[1 + offsets[b]: 1 + offsets[b + 1]].sum())
                   for b in range(len(bucket_pods))]
         it += 1
-    it_t = torch.tensor(it, dtype=torch.int32, device=dev)
-    return claims, counts, status[1:], it_t
+    it_t = torch.tensor(it, dtype=torch.int32, device=lead)
+    if S == 1:
+        return claims[0], counts[0], status[1:], it_t
+
+    def join(parts):
+        return torch.cat([t.to(lead) for t in parts], dim=1)
+
+    return join(claims), join(counts), status[1:], it_t
 
 
 def decode_claims_grouped(

@@ -39,11 +39,18 @@ against the full cluster, mirroring BatchScheduler's documented
 oversized-first exception.
 
 The port's copy of the reference's nhd_tpu/solver/streaming.py. It
-differs in two places only: there is no JAX-CPU mesh gate (the port
-solves on one device; the multi-GPU slice decides it again), and the
-default worker count reads the scheduler's device type, not a global
-backend probe. Every tile's solve runs on ``BatchScheduler.device``; no
-tile moves to the CPU, and the first tile error is re-raised.
+differs in two places only: there is no CPU mesh gate, and the default
+worker count reads the scheduler's device type, not a global backend
+probe. The reference serializes the tiles' sub-calls on a CPU-backed
+mesh (its _CPU_MESH_SOLVE_LOCK) because two in-flight sharded XLA
+programs can deadlock in the CPU backend's in-process collectives. The
+port's mesh has no in-process collective: a shard's solve is kernel
+launches on its device and the merge is copies plus one top-R on the
+lead device, issued by the thread that owns the tile, so tiles on a
+mesh run concurrently as on one device. ``mesh=`` passes through to each
+tile's BatchScheduler, as in the reference. Every tile's solve runs on
+``BatchScheduler.device`` (or its mesh's shards); no tile moves to the
+CPU, and the first tile error is re-raised.
 """
 
 from __future__ import annotations
@@ -75,7 +82,7 @@ class StreamingScheduler:
     ``tile_nodes`` bounds the per-solve node count (encode + solve memory);
     ``chunk_pods`` bounds the per-call pod bookkeeping. Remaining keyword
     arguments configure the underlying BatchScheduler (device,
-    respect_busy, use_fast, ...).
+    respect_busy, use_fast, mesh, ...).
     """
 
     def __init__(

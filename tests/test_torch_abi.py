@@ -308,3 +308,26 @@ def test_claim_bound_hand_count(name):
     smoke = _chip_smoke()
     assert smoke.claim_needs(name, t, {"N": 2}, kw) == (
         _HAND_BYTES[name], _HAND_OPS[name])
+
+
+def test_solve_planes_sends_its_place_on_the_node_axis(monkeypatch):
+    """solve_planes' two ints: a shard's node_base and the mesh's padded
+    n_global reach the kernel; without them the kernel gets 0 and N (the
+    unsharded solve, bit for bit), and the plain version agrees."""
+    staged, _ = _stage()
+    args, kw = staged["solve_planes"]
+    calls = []
+    monkeypatch.setattr(kernels, "_on_cpu", lambda t: False)
+    monkeypatch.setattr(kernels, "_stream", lambda dev: 0)
+    monkeypatch.setattr(build, "launch", lambda n, *a: calls.append(a))
+    spec = abi.ABI["solve_planes"]
+    n_ptr = len(spec.args)
+    N = args[0].shape[0]
+    kernels.solve_planes(*args)
+    kernels.solve_planes(*args, node_base=3 * N, n_global=8 * N)
+    sent = [dict(zip(spec.sizes, a[n_ptr:n_ptr + len(spec.sizes)])) for a in calls]
+    assert (sent[0]["node_base"], sent[0]["n_global"]) == (0, N)
+    assert (sent[1]["node_base"], sent[1]["n_global"]) == (3 * N, 8 * N)
+    monkeypatch.undo()
+    assert torch.equal(reference.solve_planes(*args),
+                       reference.solve_planes(*args, node_base=0, n_global=N))

@@ -494,3 +494,51 @@ def test_first_bind_probe_defaults_to_cuda(tmp_path):
     proc = _probe("--first-bind-probe", cache=tmp_path)
     assert proc.returncode != 0
     assert "cuda" in proc.stderr
+
+
+# ---------------------------------------------------------------------------
+# mesh-qualified keys (the reference's aot.py :322-395 on the port's mesh)
+# ---------------------------------------------------------------------------
+
+
+def test_mesh_keys_record_warm_and_retire(aot_cache, monkeypatch):
+    """A mesh-resident batch (4 CPU shards, a 2-iteration megaround then
+    classic rounds) records its
+    ranked, megaround and row-update keys with the mesh's descriptor and
+    one shard's shapes; a prewarm over the caller's mesh warms every one
+    of them, and a quarantined mesh shape retires its own key."""
+    from nhd_tpu.solver.kernel import parse_ranked_shape_key as jx_parse
+    from nhd_tpu_torch.parallel.sharding import make_mesh
+    from nhd_tpu_torch.sim.workloads import cap_cluster, workload_mix
+    from nhd_tpu_torch.solver import BatchItem, BatchScheduler
+    from nhd_tpu_torch.solver.kernel import parse_ranked_shape_key
+
+    monkeypatch.setenv("NHD_TPU_SPECULATE", "1")
+    monkeypatch.setenv("NHD_TPU_SPEC_ITERS", "2")   # classic rounds follow
+    mesh = make_mesh(["cpu"] * 4)
+    sched = BatchScheduler(device="cpu", respect_busy=False, register_pods=False,
+                           mesh=mesh)
+    items = [BatchItem(("ns", f"p{i}"), r)
+             for i, r in enumerate(workload_mix(120, ["default"]))]
+    sched.schedule(cap_cluster(16, ["default"]), items, now=0.0)
+    aot.AOT.drain()
+    metas = [json.load(open(os.path.join(aot_cache, f))) for f in _metas(aot_cache)]
+    kinds = {m["kind"] for m in metas}
+    assert {"ranked", "megaround"} <= kinds
+    for m in metas:
+        assert m["key"].endswith("_Mnodes4") and m["spec"]["mesh"] == "nodes4"
+        assert m["spec"]["node"][0][0][0] == 16 // 4       # one shard's rows
+        if m["kind"] == "ranked":
+            assert parse_ranked_shape_key(m["key"]) == jx_parse(m["key"])
+            assert parse_ranked_shape_key(m["key"])[-1] == "nodes4"
+
+    _fresh(aot_cache)
+    JIT_STATS.reset()
+    skipped = aot.prewarm(device="cpu")          # the CPU is one device
+    assert (skipped["loaded"], skipped["skipped"]) == (0, len(metas))
+    _fresh(aot_cache)
+    summary = aot.prewarm(device="cpu", mesh=mesh)
+    assert summary["loaded"] == len(metas) and summary["quarantined"] == 0
+    ranked = next(k for k in aot.AOT._warm if k.kind == "ranked")
+    aot.forget(ranked)
+    assert os.path.exists(os.path.join(aot_cache, "quarantine", ranked.name() + ".json"))

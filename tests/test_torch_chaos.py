@@ -2,9 +2,10 @@
 case of tests/test_chaos.py on ``ChaosSim(device="cpu")``, then the
 slice as a whole against the reference's ChaosSim.
 
-The mesh cases of tests/test_chaos.py (:55, :75) run on the port's
-resident path without their mesh assertion: the port solves on one
-device until the multi-GPU slice.
+The mesh cases of tests/test_chaos.py (:55, :75) run twice on the
+port: on one device's resident path, and on 8 CPU shards with the mesh
+assertion (the port's knob counts GPUs, so there the test hands every
+Scheduler the CPU mesh through the daemon's resolver).
 
 The parity cases run one seed and profile through both packages with
 the posture knobs set alike (``NHD_TPU_DEVICE_STATE=1``,
@@ -85,6 +86,47 @@ def test_chaos_churn_with_resident_path(monkeypatch):
     assert stats.created > 10
     ctx = sim.sched._delta_ctx
     assert ctx is not None and ctx.dev is not None, "resident path idle"
+
+
+def _cpu_mesh_daemons(monkeypatch):
+    """Every Scheduler the sim builds (restarts included) shards over 8
+    CPU shards, as the reference's over its 8 virtual devices."""
+    from nhd_tpu_torch.parallel.sharding import make_mesh
+    from nhd_tpu_torch.scheduler import core as core_mod
+
+    monkeypatch.setenv("NHD_TPU_DEVICE_STATE", "1")
+    monkeypatch.setattr(core_mod, "resolve_mesh_spec",
+                        lambda spec: make_mesh(["cpu"] * 8))
+
+
+def test_chaos_churn_with_mesh_resident_path(monkeypatch):
+    """tests/test_chaos.py:55 with its mesh assertion: the churn profile
+    while per-shard row updates maintain the sharded resident tensors,
+    the ClusterDelta parity invariant checked every step."""
+    _cpu_mesh_daemons(monkeypatch)
+    sim = ChaosSim(seed=17, n_nodes=4, api_faults=pt_faults.PROFILES["churn"])
+    stats = sim.run(steps=50)
+    assert stats.violations == []
+    assert stats.created > 10
+    ctx = sim.sched._delta_ctx
+    assert ctx is not None and ctx.dev is not None
+    assert ctx.dev.mesh is not None, "mesh resident path never engaged"
+
+
+def test_chaos_churn_mesh_negative_control(monkeypatch):
+    """tests/test_chaos.py:75: injected divergence between the delta's
+    packed arrays and the live mirror fires the parity invariant under
+    the mesh cell."""
+    _cpu_mesh_daemons(monkeypatch)
+    sim = ChaosSim(seed=18, n_nodes=4, api_faults=pt_faults.PROFILES["churn"])
+    sim.run(steps=12)
+    assert sim.stats.violations == []
+    assert sim.sched._delta_ctx.dev.mesh is not None
+    sim.sched._delta.arrays.hp_free[0] += 7
+    sim.check_invariants()
+    assert any("parity" in v for v in sim.stats.violations), (
+        sim.stats.violations
+    )
 
 
 def test_chaos_churn_negative_control(monkeypatch):
@@ -311,3 +353,39 @@ def test_storm_matrix_matches_the_reference_tool(mode, tmp_path, monkeypatch):
     assert got["port"]["cells"] == got["jax"]["cells"]
     assert got["port"]["matrix"] == got["jax"]["matrix"]
     assert got["port"]["ok"]
+
+
+@pytest.mark.parametrize("profile,seed,pipeline", [
+    ("churn", 3, "0"),
+    ("device-faults", 1, "1"),
+])
+def test_chaos_on_a_mesh_matches_the_reference(profile, seed, pipeline, monkeypatch):
+    """One cell through both packages' ChaosSim with the resident path
+    sharded: the port's 8 CPU shards, the reference's 8 virtual devices
+    (its ``NHD_MESH`` auto). Bound sets, stats, faults by site (bit
+    flips land on the owning shard), the end-state audit over the
+    shards: equal."""
+    monkeypatch.setenv("NHD_TPU_SPECULATE", "1")
+    monkeypatch.setenv("NHD_PIPELINE", pipeline)
+    monkeypatch.delenv("NHD_MESH", raising=False)
+    _cpu_mesh_daemons(monkeypatch)
+    if profile == "device-faults":
+        monkeypatch.setenv("NHD_GUARD_AUDIT_INTERVAL", "1")
+        monkeypatch.setenv("NHD_GUARD_AUDIT_ROWS", "0")
+    from nhd_tpu.obs.jitstats import JIT_STATS as jx_stats
+    from nhd_tpu_torch.obs.jitstats import JIT_STATS as pt_stats
+
+    for stats in (jx_stats, pt_stats):
+        stats.reset()
+    try:
+        got = {side: _run(side, seed, profile, 30) for side in ("jax", "port")}
+    finally:
+        for g in (jx_guard, pt_guard):
+            g.set_fault_injector(None)
+            g.GUARD.reset()
+    for stats in (jx_stats, pt_stats):   # both solved on their mesh
+        assert any(k.endswith("_Mnodes8") for k in stats.snapshot()["shapes"])
+    assert got["port"] == got["jax"]
+    port = got["port"]
+    assert port["stats"]["violations"] == [] and port["stuck"] == []
+    assert port["audit"] == []

@@ -7,7 +7,7 @@ watch-wake latency through ``build_threads``); then what the port adds
 or refuses: without ``--device`` the CLI asks for CUDA and, on a machine
 without a GPU, exits non-zero naming it; ``--prewarm`` starts, records
 the shapes it dispatches and warms them at the next start; ``--mesh``
-above 1 raises as the port's
+above the local GPUs raises as the port's
 scheduler does; a clean exit prints the kernels' launch counts (all 0
 on the CPU). ``--explain`` prints what the JAX CLI prints for the
 same file, and ``--replay`` of the golden journal reports 0 divergences.
@@ -147,9 +147,15 @@ def test_prewarm_exits_2(tmp_path):
 
 
 def test_mesh_above_one_raises():
+    """``--mesh 2`` on a host with fewer than two GPUs is refused with the
+    reference's error (the knob counts distinct local GPUs)."""
+    import torch
+
     from nhd_tpu_torch.cli import main
 
-    with pytest.raises(NotImplementedError):
+    if torch.cuda.device_count() >= 2:
+        pytest.skip("this host has two GPUs")
+    with pytest.raises(ValueError, match="mesh spec asks for 2 devices"):
         main(["--fake", "--device", "cpu", "--rpc-port", "0",
               "--mesh", "2", "--run-seconds", "1"])
 

@@ -86,17 +86,37 @@ DIFFERS = {
               "libraries; a clean exit prints the kernels' launch counts",
     "native/__init__.py": "the port's own loader: builds native/nhd_assign.cc "
                           "into the port's build directory",
+    "parallel/__init__.py": "exports the port's Mesh beside the reference's "
+                            "three names",
+    "parallel/multihost.py": "bootstraps torch.distributed (backend gloo or "
+                             "nccl, a tcp://, file:// or env:// rendezvous), "
+                             "not jax.distributed; node_slice and "
+                             "region_nodes are the reference's text, "
+                             "local_node_slice and local_nodes read the "
+                             "process group's rank",
+    "parallel/sharding.py": "the port's Mesh of shard devices (a device may "
+                            "repeat; round-robin over the local devices; "
+                            "an optional process group); the knob counts "
+                            "distinct local GPUs; the sharded solve runs "
+                            "per shard and merges the candidates, gathered "
+                            "across processes over torch.distributed",
+    "parallel/spmd_bench.py": "the probe on --devices shards of --device, "
+                              "no virtual devices or XLA flags; the parity "
+                              "leg compares val > 0 slots; prewarm passes "
+                              "the probe's mesh",
     "sanitizer/races.py": "keeps its own copy of analysis/lockgraph.py's "
                           "_mod_label; the static-analysis package is not "
                           "ported",
-    "scheduler/core.py": "device seams: Scheduler(device=), the mesh knob, "
-                         "the stream tile size, and the streaming tiler "
-                         "built on the scheduler's device with no mesh",
+    "scheduler/core.py": "device seams: Scheduler(device=), the mesh knob "
+                         "resolved by the port's parallel.sharding (imported "
+                         "at the top), the stream tile size, and the "
+                         "streaming tiler built on the scheduler's device",
     "sim/chaos.py": "device seams: ChaosSim(device=) builds every "
                     "Scheduler on that device (default cuda); the posture "
                     "check refuses a device profile only under "
                     "NHD_TPU_DEVICE_STATE=0; bit flips corrupt the resident "
-                    "torch tensor in place; the end-state audit leaves out "
+                    "torch tensor in place (on its shard); the end-state "
+                    "audit leaves out "
                     "the rows the delta re-packed since the last batch",
     "sim/replay.py": "replay_journal(device=) and the replay engine build "
                      "their Scheduler on that device (default cuda); a "
@@ -109,25 +129,41 @@ DIFFERS = {
                      "kernel libraries with toolchain metas and a manifest "
                      "of shape keys, warmed by launching the kernels on "
                      "zeros; NHDC_AOT_DIR; the probe defaults to cuda",
-    "solver/batch.py": "the round loop on torch tensors and HostPull; no "
-                       "mesh or CPU routing",
-    "solver/device_state.py": "resident torch tensors, updated in place; "
-                              "new megaround and scatter shapes recorded "
-                              "to the kernel cache",
-    "solver/guard.py": "CUDA fault classification, one-pull audit; a "
+    "solver/batch.py": "the round loop on torch tensors and HostPull; the "
+                       "mesh is the port's Mesh and auto counts local GPUs; "
+                       "no CPU routing",
+    "solver/device_state.py": "resident torch tensors, updated in place, "
+                              "sharded as row blocks over a mesh's devices "
+                              "with per-shard index_copy_ updates; new "
+                              "megaround and scatter shapes recorded to the "
+                              "kernel cache",
+    "solver/guard.py": "CUDA fault classification, one-pull audit over "
+                       "the shards; a "
                        "quarantined shape retires from the kernel cache's "
                        "manifest",
     "solver/kernel.py": "the solve through the hand-written CUDA kernels; "
-                        "the dispatch records unquarantined shapes to the "
-                        "kernel cache",
+                        "on a mesh each shard solves with its global node "
+                        "base and the shards' candidates merge by one more "
+                        "top-R; the dispatch records unquarantined shapes "
+                        "to the kernel cache",
     "solver/speculate.py": "the megaround's loop on the host around the "
-                           "claim kernels",
-    "solver/streaming.py": "no JAX-CPU mesh gate; the default worker count "
+                           "claim kernels; on a mesh the shards' plans "
+                           "join for one balanced fill",
+    "solver/streaming.py": "no CPU mesh gate (the port's mesh has no "
+                           "in-process collective); the default worker count "
                            "comes from the scheduler's device type, not a "
                            "global backend probe",
     "utils/__init__.py": "no force_cpu_backend: the port has no JAX backend "
                          "to pin",
 }
+
+
+#: functions the port carries verbatim inside a module that otherwise
+#: differs (the module is in DIFFERS; these are held to their originals)
+VERBATIM_FUNCTIONS = (
+    ("parallel/multihost.py", "node_slice"),
+    ("parallel/multihost.py", "region_nodes"),
+)
 
 
 #: non-Python files the port carries byte for byte (the generated
@@ -171,3 +207,20 @@ def test_declared_differences_do_differ(rel):
 @pytest.mark.parametrize("rel", SAME_BYTES)
 def test_byte_identical_files(rel):
     assert (PORT / rel).read_bytes() == (REF / rel).read_bytes()
+
+
+def _function_source(path: Path, name: str) -> str:
+    import ast
+
+    text = path.read_text()
+    for node in ast.parse(text).body:
+        if isinstance(node, ast.FunctionDef) and node.name == name:
+            return ast.get_source_segment(text, node)
+    raise AssertionError(f"no function {name} in {path}")
+
+
+@pytest.mark.parametrize("rel,name", VERBATIM_FUNCTIONS)
+def test_copied_function_equals_its_original(rel, name):
+    assert rel in DIFFERS
+    port = _function_source(PORT / rel, name)
+    assert _as_reference(port) == _function_source(REF / rel, name)

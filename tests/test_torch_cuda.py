@@ -401,3 +401,71 @@ def test_truncated_library_quarantined_and_rebuilt(tmp_path, monkeypatch):
         assert build.stale_reason("nic_any_first") is None
     finally:
         aot.reset()
+
+
+# ---------------------------------------------------------------------------
+# the node mesh on the card: every shard on cuda:0 (one card)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shards", [2, 8])
+@pytest.mark.parametrize("shape", sweep.PLANE_SWEEP[:4], ids=str)
+def test_solve_planes_shard_matches_plain_and_columns(shape, shards):
+    """solve_planes on each shard's node rows with its node_base (blocks
+    of ceil(N / shards) rows, the last one short): equal to the plain
+    version and to the unsharded kernel planes' columns."""
+    _need_cuda()
+    N = shape[1]
+    args = _cuda(sweep.plane_case(sweep.PLANE_SWEEP.index(shape), *shape))
+    full = kernels.solve_planes(*args)
+    Ns = -(-N // shards)
+    for lo in range(0, N, Ns):
+        hi = min(N, lo + Ns)
+        part = list(args)
+        for i in range(11):                      # the [N, ...] node rows
+            part[i] = args[i][lo:hi].contiguous()
+        for i in (21, 22, 23):                   # the [T, N, C] NIC planes
+            part[i] = args[i][:, lo:hi].contiguous()
+        place = dict(node_base=lo, n_global=N)
+        got = kernels.solve_planes(*part, **place)
+        want = reference.solve_planes(*part, **place)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), lo
+        assert torch.equal(got, full[:, :, lo:hi]), lo
+
+
+@pytest.mark.parametrize("respect_busy", [False, True])
+def test_mesh_megaround_and_rank_equal_one_device_on_card(respect_busy, monkeypatch):
+    """A 4-shard mesh on cuda:0: the megaround's claims, counts, need left,
+    iterations and node state equal one device's, and every bucket's
+    sharded rank equals the single-device rank on the val > 0 slots."""
+    _need_cuda()
+    from nhd_tpu_torch.parallel.sharding import make_mesh, solve_bucket_ranked_sharded
+    from nhd_tpu_torch.sim.workloads import cap_cluster, workload_mix
+    from nhd_tpu_torch.solver.device_state import DeviceClusterState
+    from nhd_tpu_torch.solver.encode import encode_cluster, encode_pods
+    from nhd_tpu_torch.solver.kernel import _MUTABLE, _pad_pow2, solve_bucket_ranked
+
+    monkeypatch.setenv("NHD_TPU_SPEC_ITERS", "8")
+    groups = ["default", "edge", "batch"]
+    cluster = encode_cluster(cap_cluster(40, groups), now=0.0)
+    buckets = list(encode_pods(workload_mix(400, groups), cluster.interner).values())
+    needs = [np.bincount(p.pod_type, minlength=_pad_pow2(p.n_types)).astype(np.int32)
+             for p in buckets]
+    mesh = make_mesh(n_shards=4, device="cuda")
+    for pods in buckets:
+        one = solve_bucket_ranked(cluster, pods, 64, device="cuda").cpu().numpy()
+        got = solve_bucket_ranked_sharded(cluster, pods, 64, mesh)
+        live = one[0] > 0
+        assert np.array_equal(got[0] > 0, live)
+        assert np.array_equal(got[:, live], one[:, live])
+    out = []
+    for m in (mesh, None):
+        state = DeviceClusterState(cluster, "cuda", m)
+        res = state.megaround(buckets, needs, respect_busy)
+        out.append(([t.cpu() for t in res],
+                    [state.resident(n).cpu() for n in _MUTABLE]))
+    (got, got_state), (want, want_state) = out
+    for g, w in zip(got + got_state, want + want_state):
+        assert torch.equal(g, w)
+    assert int(want[3]) > 1 and (want[1] > 0).any()

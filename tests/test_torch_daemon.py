@@ -469,6 +469,34 @@ def s_cfg4_pending_set_speculative(pkg, mp):
     return out
 
 
+def s_cfg4_pending_set_mesh(pkg, mp):
+    """A speculative pending set (50 nodes x 500 pods) with the daemon's
+    solve sharded over a 4-way node mesh (``Scheduler(mesh=)``): the port's 4 CPU shards, the
+    reference's 4 virtual devices; the mesh-qualified solves ran."""
+    if pkg.root == "nhd_tpu_torch":
+        from nhd_tpu_torch.parallel.sharding import make_mesh
+
+        mesh = make_mesh(["cpu"] * 4)
+    else:
+        import jax
+
+        from nhd_tpu.parallel.sharding import make_mesh
+
+        mesh = make_mesh(jax.devices()[:4])
+    mp.setenv("NHD_TPU_SPECULATE", "1")
+    mp.setenv("NHD_TPU_DEVICE_STATE", "1")
+    stats = importlib.import_module(f"{pkg.root}.obs.jitstats").JIT_STATS
+    stats.reset()
+    backend = pkg.Backend()
+    pending.fill_cfg4(backend, pkg.sim, 50, 500)
+    sched = pkg.Scheduler(backend, pkg.WatchQueue(), queue.Queue(),
+                          respect_busy=False, mesh=mesh)
+    got = pending.drive(sched)
+    assert got["bound"] > 400
+    assert any(k.endswith("_Mnodes4") for k in stats.snapshot()["shapes"])
+    return backend, sched, {"bound": got["bound"], "turns": got["turns"]}
+
+
 SCENARIOS = {
     f.__name__[2:]: f for f in (
         s_end_to_end, s_gang_batch, s_delete_releases, s_restart_replay,
@@ -479,6 +507,7 @@ SCENARIOS = {
         s_uncordon_needs_taint, s_group_label_removal, s_threaded_lifecycle,
         s_triadset_status, s_run_once_rpc, s_streams_past_node_threshold,
         s_cfg4_pending_set, s_cfg4_pending_set_speculative,
+        s_cfg4_pending_set_mesh,
     )
 }
 
@@ -514,16 +543,26 @@ def test_port_scheduler_resolves_cuda_by_default():
     ("2", True), ("4", True),
 ])
 def test_port_mesh_knob_is_one_device(spec, refused):
-    """``auto``/``off``/``1`` resolve to no mesh; a count above 1 raises
-    until the multi-GPU slice instead of solving on one card."""
+    """On a host without a second GPU, ``auto``/``off``/``1``/``none``
+    leave the scheduler on one device (``auto`` passes through and finds
+    no second GPU), and a count above the local GPUs is refused with the
+    reference's error: the knob counts distinct GPUs and never stacks
+    shards on one card."""
+    import torch
+
     from nhd_tpu_torch.k8s.fake import FakeClusterBackend
     from nhd_tpu_torch.scheduler.core import Scheduler, resolve_mesh_spec
 
+    n_gpu = torch.cuda.device_count()
+    if n_gpu > 1:
+        pytest.skip("this host has several GPUs")
     if refused:
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
+        msg = f"asks for {spec} devices but only {n_gpu} are local"
+        with pytest.raises(ValueError, match=msg):
             resolve_mesh_spec(spec)
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
+        with pytest.raises(ValueError, match=msg):
             Scheduler(FakeClusterBackend(), mesh=spec, device="cpu")
     else:
-        assert resolve_mesh_spec(spec) is None
-        Scheduler(FakeClusterBackend(), mesh=spec, device="cpu")
+        assert resolve_mesh_spec(spec) in (None, "auto")
+        sched = Scheduler(FakeClusterBackend(), mesh=spec, device="cpu")
+        assert sched.batch._resolve_mesh() is None

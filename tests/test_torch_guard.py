@@ -18,8 +18,9 @@ the port's ChaosSim (``device="cpu"``): faulted binds bit-identical to a
 fault-free run, the ``NHD_GUARD=0`` negative control, the refused
 vacuous posture, the storm matrix's cell timeout, and a hard-down device
 condemned to the non-resident rung on the same device. The mesh rung
-belongs to a later slice of the port; the AOT quarantine cases are in
-tests/test_torch_aot.py.
+(tests/test_guard.py:226) runs both ladders from the top: the port on 8
+CPU shards, the reference on its 8 virtual devices. The AOT quarantine
+cases are in tests/test_torch_aot.py.
 """
 
 from __future__ import annotations
@@ -650,3 +651,61 @@ def test_hard_down_device_solves_on_the_same_device(monkeypatch):
     assert _placements(faulted) == _placements(clean)
     assert pt_guard.GUARD.floor == pt_guard.RUNG_HOST
     assert seen and set(seen) == {sched.device}
+
+
+# ---------------------------------------------------------------------------
+# the mesh rung (tests/test_guard.py:226): a faulting mesh dispatch or
+# megaround condemns the mesh, and the round re-dispatches on one device
+# ---------------------------------------------------------------------------
+
+
+def _mesh_rung(side, mp, site):
+    from tests.test_torch_sharding import cpu_mesh, jax_mesh
+
+    mesh = (lambda: jax_mesh()) if side.name == "jax" else (lambda: cpu_mesh())
+
+    def sched():
+        if side.name == "jax":
+            return jx_batch.BatchScheduler(respect_busy=False, register_pods=False,
+                                           device_state=True, mesh=mesh())
+        return pt_batch.BatchScheduler(device="cpu", respect_busy=False,
+                                       register_pods=False, mesh=mesh())
+
+    mp.setenv("NHD_GUARD_RETRIES", "1")
+    items = _items(side, 9)
+    # a faulted batch never speculates again, so a megaround fault's
+    # batch is the fault-free classic batch
+    with mp.context() as classic:
+        classic.setenv("NHD_TPU_SPECULATE", "0")
+        clean, _ = sched().schedule(_cluster(side, 8), items)
+    side.guard.GUARD.reset()
+    inj = _NShot(side, 1, site)
+    side.guard.set_fault_injector(inj)
+    tr = _Trace(side, mp)
+    faulted, _ = tr.batch(sched(), _cluster(side, 8), items)
+    assert inj.left == 0
+    assert _placements(faulted) == _placements(clean)
+    g = side.guard.GUARD
+    assert g.floor == side.guard.RUNG_SINGLE
+    assert not g.allow_mesh() and g.allow_device()
+    # a persistent context built now comes up at the degraded rung
+    ctx = sched().make_context(_cluster(side, 8), now=0.0)
+    assert ctx.dev is not None and ctx.dev.mesh is None
+    return _placements(clean), tr.moves, tr.floors, tr.deltas()
+
+
+@pytest.mark.parametrize("site", ["dispatch", "megaround"])
+def test_mesh_rung_degrades_to_single_device(site, monkeypatch):
+    """One injected fault at the top of the ladder (a mesh solve, or the
+    mesh megaround with speculation on): the mesh is condemned, the round
+    re-dispatches on one device with the fault-free placements, and both
+    ladders move alike."""
+    monkeypatch.setenv("NHD_TPU_SPECULATE", "1" if site == "megaround" else "0")
+    got = {}
+    for name in ("jax", "port"):
+        with monkeypatch.context() as mp:
+            got[name] = _mesh_rung(_side(name), mp, site)
+        _side(name).guard.set_fault_injector(None)
+        _side(name).guard.GUARD.reset()
+    assert got["port"] == got["jax"]
+    assert got["port"][1][0][:2] == ("retry", pt_guard.RUNG_MESH)

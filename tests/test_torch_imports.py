@@ -39,6 +39,8 @@ def _reference_imports(f):
 def test_no_jax_or_reference_imports_anywhere():
     files = sorted(PORT.rglob("*.py"))
     assert len(files) > 20
+    assert {"multihost.py", "sharding.py", "spmd_bench.py"} <= {
+        f.name for f in files if f.parent.name == "parallel"}
     bad = [b for f in files for b in _reference_imports(f)]
     assert not bad, bad
 
@@ -99,11 +101,14 @@ def test_daemon_planes_import_without_jax():
       "--steps", "2"]),
     ("nhd_tpu_torch.solver.aot",
      ["--first-bind-probe", "--device", "cpu"]),
+    ("nhd_tpu_torch.parallel.spmd_bench",
+     ["--device", "cpu", "--devices", "8", "--pods", "64", "--nodes", "32",
+      "--churn-rounds", "1"]),
 ])
 def test_module_entry_points_run_without_jax(module, args, tmp_path):
-    """The storm matrix and the first-bind probe, each run as by
-    ``python -m`` on the CPU in a fresh interpreter, finish with nothing
-    of jax or nhd_tpu imported."""
+    """The storm matrix, the first-bind probe and the cfg6 mesh probe,
+    each run as by ``python -m`` on the CPU in a fresh interpreter,
+    finish with nothing of jax or nhd_tpu imported."""
     code = (
         "import runpy, sys\n"
         f"sys.argv = [{module!r}] + {args!r}\n"

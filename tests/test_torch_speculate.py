@@ -418,3 +418,80 @@ def test_schedule_matches_reference(name, pipeline, monkeypatch):
                     stats.counters.get("claims_r0", 0)))
     assert out[0] == out[1]
     assert out[0][2] > 0  # round 0 claimed: the megaround ran
+
+
+# ---------------------------------------------------------------------------
+# the megaround on a node mesh (tests/test_speculate.py:174): the shards'
+# plans join for one balanced fill; claims, counts, need left, iterations
+# and node state bit-identical to one device and to the reference
+# ---------------------------------------------------------------------------
+
+
+def _mesh(n):
+    from nhd_tpu_torch.parallel.sharding import make_mesh
+
+    return make_mesh(["cpu"] * n)
+
+
+_REF_MEGAROUND = {}
+
+
+def _reference_megaround(name):
+    """(instance, the reference's megaround and node state), once per
+    instance for the mesh cases below."""
+    if name not in _REF_MEGAROUND:
+        inst = _encode(name)
+        ref = JxState(inst[0], None)
+        want = [np.asarray(x) for x in ref.megaround(*inst[1:])]
+        _REF_MEGAROUND[name] = inst, want, [np.asarray(ref._dev[n]) for n in _MUTABLE]
+    return _REF_MEGAROUND[name]
+
+
+@pytest.mark.parametrize("name,shards", [
+    (name, shards)
+    for name in ("capacity", "random11", "pci_numa", "respect_busy", "wrap_ties",
+                 "seed3", "seed4")
+    for shards in ((8,) if name in ("capacity", "random11") else (2, 3, 8))
+])
+def test_megaround_on_a_mesh_matches_reference(name, shards):
+    (cluster, pods, needs, respect_busy), want, want_state = _reference_megaround(name)
+    port = PtState(cluster, "cpu", _mesh(shards))
+    assert port.mesh is not None and len(port.shards) == shards
+    got = [t.numpy() for t in port.megaround(pods, needs, respect_busy)]
+    N = cluster.n_nodes
+    # three shards pad the node axis further: the padded columns claim
+    # nothing, and the rest are the reference's
+    for g, w, label in zip(got[:2], want[:2], ("claims", "counts")):
+        assert g.dtype == w.dtype and g.shape[0] == w.shape[0], label
+        assert np.array_equal(g[:, :N], w[:, :N]), label
+        assert (g[:, N:] == (-1 if label == "claims" else 0)).all(), label
+    _assert_identical(got[2:], want[2:], ("need_left", "iterations"))
+    got_state = [port.resident(n).numpy()[:N] for n in _MUTABLE]
+    _assert_identical(got_state, [w[:N] for w in want_state], _MUTABLE)
+
+
+def test_speculative_mesh_equals_single_device():
+    """The megaround over the 8-shard mesh, through BatchScheduler, places
+    every pod as the single-device speculative run and as the reference's
+    mesh ("auto": the conftest's 8 virtual devices)."""
+    outs = {}
+    for label, pkg, make in (
+        ("mesh", PORT_PKG, lambda: PtScheduler(
+            device="cpu", respect_busy=False, register_pods=False, mesh=_mesh(8))),
+        ("single", PORT_PKG, lambda: PtScheduler(
+            device="cpu", respect_busy=False, register_pods=False, mesh=None)),
+        ("jax mesh", JAX_PKG, lambda: JxScheduler(
+            respect_busy=False, register_pods=False, device_state=True, mesh="auto")),
+    ):
+        item = PtItem if pkg is PORT_PKG else JxItem
+        reqs = _wl(pkg).workload_mix(200, G3)
+        nodes = _wl(pkg).cap_cluster(16, G3)
+        results, stats = make().schedule(
+            nodes, [item(("ns", f"p{i}"), r) for i, r in enumerate(reqs)], now=0.0)
+        outs[label] = (
+            [(r.node, None if r.mapping is None else dict(r.mapping), r.round_no)
+             for r in results],
+            stats.scheduled,
+        )
+    assert outs["mesh"] == outs["single"] == outs["jax mesh"]
+    assert outs["mesh"][1] == sum(1 for n, _, _ in outs["mesh"][0] if n) > 0

@@ -25,8 +25,9 @@ Every parity case runs one tile worker on both sides
 sensitive under load (ROADMAP Queue 3). One port-only case holds three
 workers equal to one. No case sleeps or waits on a timeout.
 
-Not ported here: tests/test_streaming.py's mesh case (:152), which waits
-for the port's multi-GPU slice (ROADMAP Queue 1 item 7).
+tests/test_streaming.py's mesh case (:152) runs the tiler over the
+port's 8 CPU shards and the reference's 8 virtual devices, each against
+its own single-device run.
 """
 
 from __future__ import annotations
@@ -680,3 +681,33 @@ def test_launch_counts_add_up_across_threads():
             for i, n in enumerate(kernels.KERNELS)}
     assert total == want
     assert {n: sum(c[n] for c in per_thread.values()) for n in kernels.KERNELS} == want
+
+
+def test_streaming_over_mesh_equals_single_device(monkeypatch):
+    """Streaming composes with the sharded batch path: tiles over time,
+    nodes within a tile over the 8-shard mesh — placements, totals and
+    end state equal the single-device streaming run, on both packages."""
+    from nhd_tpu.parallel.sharding import make_mesh as jx_make_mesh
+    from nhd_tpu_torch.parallel.sharding import make_mesh
+
+    import jax
+
+    outs = {}
+    for root in PACKAGES:
+        pkg = _pkg(root)
+        reqs = [simple_request(pkg, gpus=i % 2, proc=2 + 2 * (i % 3))
+                for i in range(30)]
+        mesh = make_mesh(["cpu"] * 8) if pkg.port else jx_make_mesh(jax.devices()[:8])
+        for label, m in (("mesh", mesh), ("single", None)):
+            nodes = pkg.sim.make_cluster(10)
+            kw = {"mesh": m} if pkg.port else {"mesh": m, "device_state": True}
+            streaming = pkg.Streaming if pkg.port else (
+                lambda **k: importlib.import_module(
+                    "nhd_tpu.solver.streaming").StreamingScheduler(**k))
+            results, stats = streaming(
+                tile_nodes=4, chunk_pods=9, respect_busy=False, **kw,
+            ).schedule(nodes, items(pkg, reqs), now=0.0)
+            outs[root, label] = _obs(results, stats, nodes)
+        assert outs[root, "mesh"] == outs[root, "single"]
+    assert outs["nhd_tpu_torch", "mesh"] == outs["nhd_tpu", "mesh"]
+    assert outs["nhd_tpu_torch", "mesh"]["scheduled"] > 0
