@@ -153,11 +153,26 @@ Phases (one line each; the last line is the contract line):
    (``chip_smoke.mesh_child``): the global sharded solve over 2 x 4
    shards equal to the one-process mesh and to one device, and each
    rank's region of a 16-node federation placed as on the CPU;
-14. the kernels JSON line: per kernel its launches in phases 4-7 and
-   9-13 (counts set to 0 just before each counted run and read just
+14. the port's nhdsan and nhdrace on the card, in a fresh process that
+   installs the deadlock sanitizer before any port module builds a lock
+   (``chip_smoke.race_child``; its log in chiprun_out/race-child.log):
+   (a) phase 11's cells through the storm on cuda under ``NHD_RACE=1
+   NHD_SAN=1`` (the reference's device-chaos posture, phase 11's knobs):
+   each cell's bound set and faults by site equal to phase 11's
+   uninstrumented card run, 0 race witnesses; (b) cfg5's 10,000 nodes in
+   three 4,096-node tiles, 2,000 pods (phase 9 (d)'s cut), the tile
+   workers launching on cuda under nhdrace with the tiler's merge state
+   watched: placements equal to the same input run uninstrumented in
+   this process while the child starts, 0 race witnesses; (c) one cell
+   (seed 0, 4 nodes, 5 steps: the injected race fires at install) with
+   ``NHD_RACE_INJECT=1`` must report the injected race; over the child's
+   life 0 wait-for-graph cycles. Each leg's wall beside its
+   uninstrumented one; every kernel launches in (a) and in (b);
+15. the kernels JSON line: per kernel its launches in phases 4-7 and
+   9-14 (counts set to 0 just before each counted run and read just
    after; phase 10's and the subprocesses of 12 and 13 are those
    processes' own, from start to exit; 13's (a) and (b) are
-   comparisons, not counted),
+   comparisons, not counted; 14's are its child's (a) and (b) runs),
    its time, its plain version's time and its bound — the solve kernels
    at the cfg4 G=2 bucket, the claim kernels at cfg4's first megaround
    iteration. A bound counts the bytes and operations of the real type
@@ -241,6 +256,14 @@ MESH_BATCH_SHARDS = 4
 MESH_R = 512
 CFG6 = (4096, 1024, 8, 4)
 MESH_RANKS, MESH_RANK_SHARDS = 2, 4
+#: phase 14, the sanitized legs: phase 11's cells under nhdsan and
+#: nhdrace (the reference's device-chaos posture, Makefile:198), the
+#: tiler's three 4,096-node tiles of cfg5 at phase 9 (d)'s 2,000-pod cut,
+#: the injected-race control (seeds, nodes, steps) and the child's limit
+RACE_ENV = dict(CHAOS_ENV, NHD_RACE="1", NHD_SAN="1")
+RACE_TILER_PODS = STREAM_DAEMON_PODS
+RACE_CONTROL = (1, 4, 5)
+RACE_CHILD_S = 600
 #: the cfg4 batch's results on one card and on the CPU, by cell name,
 #: for phase 13's placements
 RESULTS = {}
@@ -2899,6 +2922,194 @@ def mesh_phase(torch, report, launches_total, smi):
         f"the phase {phase}; every number: {smi}; one card, so no multi-GPU speed")
 
 
+def race_child(workdir):
+    """Phase 14, in a fresh process: nhdsan installed before any port
+    module builds a lock (torch first, so its own stay raw), then (a)
+    phase 11's cells through the storm on cuda under ``NHD_RACE=1``, (b)
+    the tiler's three tiles of cfg5 on cuda under nhdrace, (c) one cell
+    with ``NHD_RACE_INJECT=1``. Writes race.json into *workdir*."""
+    import torch
+
+    os.environ.update(RACE_ENV)
+    from nhd_tpu_torch.sanitizer import install
+
+    san = install()
+    from nhd_tpu_torch import kernels
+    from nhd_tpu_torch.sanitizer import install_races, uninstall_races
+    from nhd_tpu_torch.sim import storm
+
+    def run_storm(label, seeds, nodes, steps):
+        path = os.path.join(workdir, label + ".json")
+        (rc, _), wall, launches = counted(torch, lambda: (storm.main([
+            "--profiles", "device-faults", "--seeds", str(seeds),
+            "--steps", str(steps), "--nodes", str(nodes), "--device-plane",
+            "--bind-parity", "--device", "cuda", "--json-out", path,
+        ]), None))
+        with open(path) as fh:
+            summary = json.load(fh)
+        return {"rc": rc, "wall_s": wall, "launches": launches,
+                "ok": summary["ok"],
+                "races": [r["key"] for r in summary["races"]["races"]],
+                "watched": summary["races"]["watched_fields"],
+                "cells": [{k: c.get(k) for k in (
+                    "seed", "ok", "bind_parity", "bound_set",
+                    "faults_by_site")} for c in summary["cells"]]}
+
+    out = {"storms": {label: run_storm(label, seeds, nodes, steps)
+                      for label, seeds, nodes, steps in CHAOS_CELLS}}
+    # (b) the tiler: warm on one tile's worth of nodes, then counted
+    rs = install_races()
+    rem = FED_NODES % FED_SPLIT_TILE
+    streamer("cuda", FED_SPLIT_TILE).schedule(
+        fed_nodes(FED_SPLIT_TILE + rem), fed_items(FED_WARM_PODS, "w"),
+        now=0.0)
+    split = streamer("cuda", FED_SPLIT_TILE)
+    nodes, items = fed_nodes(), fed_items(RACE_TILER_PODS)
+    with spans(split) as got:
+        (res, _), wall, launches = counted(
+            torch, lambda: split.schedule(nodes, items, now=0.0))
+    uninstall_races()
+    rep = rs.report()
+    out["tiler"] = {
+        "wall_s": wall, "launches": launches,
+        "placed": [repr(p) for p in placed_as(res)],
+        "threads": len({t for t, c, _w in got["calls"] if any(c.values())}),
+        "races": [r["key"] for r in rep["races"]],
+        "watched": rep["watched_fields"]}
+    # (c) the negative control: the injected race must be reported
+    os.environ["NHD_RACE_INJECT"] = "1"
+    out["control"] = run_storm("control", *RACE_CONTROL)
+    del os.environ["NHD_RACE_INJECT"]
+    report = san.report()
+    out["cycles"] = report["cycles"]
+    out["hold_while_blocking"] = [
+        {k: w.get(k) for k in ("blocking", "at", "held", "count")}
+        for w in report["hold_while_blocking"]]
+    out["locks"] = len(report["locks"])
+    with open(os.path.join(workdir, "race.json"), "w") as fh:
+        json.dump(out, fh)
+    return 0
+
+
+def race_phase(torch, report, launches_total, smi):
+    """Phase 14: the port's nhdsan and nhdrace on the card (module
+    docstring, parts a-c)."""
+    import tempfile
+
+    from nhd_tpu_torch import kernels
+
+    dev = card(torch)
+    out = {"smi": smi}
+    with tempfile.TemporaryDirectory(prefix="nhd-race-") as work:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-c",
+             "import sys, chip_smoke; "
+             "sys.exit(chip_smoke.race_child(sys.argv[1]))", work],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            cwd=ROOT)
+        try:
+            # (b)'s plain leg, in this process (warm since phase 9), while
+            # the child starts up (its storms come after its imports)
+            split = streamer(dev, FED_SPLIT_TILE)
+            nodes, items = fed_nodes(), fed_items(RACE_TILER_PODS)
+            (res, _), plain_wall, plain_launches = counted(
+                torch, lambda: split.schedule(nodes, items, now=0.0))
+            plain = [repr(p) for p in placed_as(res)]
+            del nodes, res
+            text, _ = proc.communicate(timeout=RACE_CHILD_S)
+        except subprocess.TimeoutExpired:
+            fail(f"race (a-c): the child ran past {RACE_CHILD_S} s")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        child_s = time.perf_counter() - t0
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", "race-child.log"), "w") as fh:
+            fh.write(text)
+        if proc.returncode != 0:
+            fail(f"race (a-c): the child exited {proc.returncode}: "
+                 f"{text[-2000:]}")
+        with open(os.path.join(work, "race.json")) as fh:
+            got = json.load(fh)
+    phase = dict.fromkeys(kernels.KERNELS, 0)
+
+    def launched_all(label, launches):
+        missing = [k for k in kernels.KERNELS if not launches[k]]
+        if missing:
+            fail(f"{label}: kernels {missing} were never launched")
+        for k in kernels.KERNELS:
+            phase[k] += launches[k]
+
+    # (a) phase 11's cells: bound as the uninstrumented card run, 0 races
+    for label, seeds, nodes_n, steps in CHAOS_CELLS:
+        leg, ref = got["storms"][label], report["chaos"][label]["cuda"]
+        if leg["rc"] != 0 or not leg["ok"]:
+            fail(f"race (a) {label}: the storm failed under nhdsan/nhdrace "
+                 f"(exit {leg['rc']}, races {leg['races']})")
+        if leg["races"]:
+            fail(f"race (a) {label}: race witnesses {leg['races']}")
+        for c, rc in zip(leg["cells"], ref["cells"], strict=True):
+            for key in ("bound_set", "faults_by_site"):
+                if c[key] != rc[key]:
+                    fail(f"race (a) {label} seed {c['seed']}: {key} differs "
+                         f"from phase 11's uninstrumented card run")
+        launched_all(f"race (a) {label}", leg["launches"])
+        log(f"race (a) {label}: {seeds} seed(s) x {steps} steps x {nodes_n} "
+            f"nodes on cuda under NHD_RACE=1 NHD_SAN=1: bound sets and faults "
+            f"by site equal phase 11's uninstrumented run, 0 race witnesses "
+            f"({len(leg['watched'])} watched fields); wall {leg['wall_s']:.2f}s "
+            f"instrumented against {ref['wall_s']:.2f}s plain "
+            f"({leg['wall_s'] / ref['wall_s']:.2f}x); launches "
+            f"{leg['launches']}; {smi}")
+        out[label] = {"wall_s": leg["wall_s"], "plain_wall_s": ref["wall_s"],
+                      "launches": leg["launches"],
+                      "watched": len(leg["watched"])}
+    # (b) the tiler under nhdrace: placed as the plain run, 0 races
+    tiler = got["tiler"]
+    if tiler["placed"] != plain:
+        diff = sum(a != b for a, b in zip(tiler["placed"], plain))
+        fail(f"race (b): {diff} pods placed differently under nhdsan/nhdrace")
+    if tiler["races"]:
+        fail(f"race (b): race witnesses {tiler['races']}")
+    if not any(k.endswith("BatchStats.rounds") for k in tiler["watched"]):
+        fail("race (b): the tiler's merge state was not watched")
+    if tiler["threads"] < 2:
+        fail(f"race (b): the tiles launched from {tiler['threads']} thread(s)")
+    launched_all("race (b)", tiler["launches"])
+    log(f"race (b) tiler: {FED_NODES} cfg5 nodes in tiles of {FED_SPLIT_TILE}, "
+        f"{RACE_TILER_PODS} pods ({STREAM_DAEMON_CUT}), {tiler['threads']} tile "
+        f"threads launching on cuda under nhdsan/nhdrace: placements equal the "
+        f"plain run, 0 race witnesses; wall {tiler['wall_s']:.4f}s instrumented "
+        f"against {plain_wall:.4f}s plain ({tiler['wall_s'] / plain_wall:.2f}x); "
+        f"launches {tiler['launches']} (plain {plain_launches}); {smi}")
+    out["tiler"] = {"wall_s": tiler["wall_s"], "plain_wall_s": plain_wall,
+                    "threads": tiler["threads"], "launches": tiler["launches"]}
+    # (c) the negative control, and no cycle over the child's life
+    control = got["control"]
+    if control["rc"] == 0 or control["races"] != [
+            "sanitizer/races:_InjectedRace.counter"]:
+        fail(f"race (c): the injected race was not reported "
+             f"(exit {control['rc']}, races {control['races']})")
+    if got["cycles"]:
+        fail(f"race: {len(got['cycles'])} wait-for-graph cycle(s): "
+             f"{got['cycles'][:1]}")
+    log(f"race (c) control (NHD_RACE_INJECT=1, seed 0, 4 nodes, "
+        f"{RACE_CONTROL[2]} steps): "
+        f"exit {control['rc']}, reported {control['races']}; over the child "
+        f"0 cycle witnesses, hold-while-blocking sites "
+        f"{got['hold_while_blocking']}, {got['locks']} instrumented locks; "
+        f"child process "
+        f"{child_s:.1f}s; {smi}")
+    for k in kernels.KERNELS:
+        launches_total[k] += phase[k]
+    out.update(control=control["races"], cycles=0, child_s=child_s,
+               hold_while_blocking=got["hold_while_blocking"],
+               launches=phase)
+    report["race"] = out
+
+
 def main():
     try:
         import torch
@@ -2998,12 +3209,16 @@ def main():
     # 13. the node mesh on the card
     t2 = time.perf_counter()
     mesh_phase(torch, report, launches_total, smi)
-    report["phase_s"] = {"11": t1 - t0, "12": t2 - t1,
-                         "13": time.perf_counter() - t2}
-    log(f"phases 11 / 12 / 13: {t1 - t0:.1f} / {report['phase_s']['12']:.1f} / "
-        f"{report['phase_s']['13']:.1f} s of command time")
+    # 14. nhdsan and nhdrace on the card
+    t3 = time.perf_counter()
+    race_phase(torch, report, launches_total, smi)
+    report["phase_s"] = {"11": t1 - t0, "12": t2 - t1, "13": t3 - t2,
+                         "14": time.perf_counter() - t3}
+    log("phases 11 / 12 / 13 / 14: " + " / ".join(
+        f"{report['phase_s'][p]:.1f}" for p in ("11", "12", "13", "14"))
+        + " s of command time")
 
-    # 14. kernels line
+    # 15. kernels line
     meta = {
         "nic_node_masks": ("nhd_tpu_torch/kernels/nic_node_masks.cu",
                            "nhd_tpu/solver/kernel.py:136"),

@@ -45,6 +45,11 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
 
+#: seconds one nvcc process may take before it is killed and the build
+#: fails: a compiler that hangs must not hold ``_LOCK`` (every thread's
+#: first launch waits on it) forever
+NVCC_TIMEOUT_S = 300.0
+
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 #: wall seconds of the last build_all (0.0 when every library was cached)
@@ -189,7 +194,12 @@ def build_all() -> Dict[str, str]:
     logs: Dict[str, str] = {}
     failed = []
     for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
+        try:
+            log, _ = proc.communicate(timeout=NVCC_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            log, _ = proc.communicate(timeout=NVCC_TIMEOUT_S)
+            log = f"killed after {NVCC_TIMEOUT_S:g} s\n{log}"
         logs[name] = log
         if proc.returncode == 0:
             os.replace(tmp, out)
@@ -211,7 +221,8 @@ def build_all() -> Dict[str, str]:
 def _open(name: str) -> ctypes.CDLL:
     """dlopen kernel *name*'s library and bind its entry points; raises
     OSError or AttributeError for a library that is not what it says."""
-    lib = ctypes.CDLL(str(library_path(name)))
+    # the one caller, load, memoizes the handle in _LIBS
+    lib = ctypes.CDLL(str(library_path(name)))  # nhdlint: ignore[NHD104]
     spec = ABI[name]
     try:
         fn = getattr(lib, spec.entry)

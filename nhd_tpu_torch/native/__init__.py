@@ -58,7 +58,8 @@ def _load() -> Optional[ctypes.CDLL]:
             if not _SO.exists():
                 return None
     try:
-        lib = ctypes.CDLL(str(_SO))
+        # the one caller, _lib, memoizes the handle in _STATE
+        lib = ctypes.CDLL(str(_SO))  # nhdlint: ignore[NHD104]
     except OSError:
         return None
     # all pointers as c_void_p: callers pass raw integer addresses

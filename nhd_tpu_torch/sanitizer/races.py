@@ -1,5 +1,5 @@
 """nhdrace runtime — Eraser-style dynamic race detection (the dynamic
-half of NHD81x; ``nhd_tpu/analysis/ownership.py`` is the static half).
+half of NHD81x; ``nhd_tpu_torch/analysis/ownership.py`` is the static half).
 
 Write-focused lockset intersection on *registered* shared objects:
 product classes call :func:`maybe_watch` at the end of ``__init__``
@@ -23,7 +23,7 @@ Reports ride the existing NHD_SAN surfaces: ``report()`` merges into
 the conftest report dump, witnesses mirror into the flight recorder /
 chrome trace as ``nhdsan.race`` spans.
 
-Knobs (all registered in nhd_tpu/config/knobs.py):
+Knobs (all registered in nhd_tpu_torch/config/knobs.py):
 
 * ``NHD_RACE=1`` — conftest/chaos install the race layer (implies
   nhdsan install: locksets need the instrumented locks).
@@ -34,11 +34,6 @@ Knobs (all registered in nhd_tpu/config/knobs.py):
   allowlist (witness recorded as suppressed, run stays green); the
   dynamic mirror of the static pack's written-justification inline
   suppressions.
-
-Port difference: :func:`_mod_label` is a copy of the six-line helper of
-the reference's analysis/lockgraph.py, which ``field_key`` imported
-lazily from there; the static-analysis package is not ported, and
-importing it would pull in its whole core.
 """
 
 from __future__ import annotations
@@ -48,7 +43,6 @@ import os
 import threading
 import weakref
 from fnmatch import fnmatch
-from pathlib import Path
 from typing import Dict, List, Optional, Set, Tuple
 
 from nhd_tpu_torch.sanitizer.runtime import Sanitizer, _site, get_sanitizer, install
@@ -59,18 +53,11 @@ __all__ = [
 ]
 
 
-def _mod_label(path: str) -> str:
-    """Stable per-module label: last two path components, extension
-    dropped — agrees between the gate's absolute paths and the CLI's
-    relative ones (same convention as Finding.fingerprint)."""
-    parts = Path(path).with_suffix("").parts
-    return "/".join(parts[-2:]) if len(parts) >= 2 else parts[0]
-
-
 def field_key(cls: type, attr: str) -> str:
     """The shared-state identity: ``mod/label:Class.attr``, where the
     label is the class's defining file's last two path components — the
     same key the static ownership model derives from the AST."""
+    from nhd_tpu_torch.analysis.lockgraph import _mod_label
     try:
         path = inspect.getfile(cls)
     except TypeError:           # builtins / C types

@@ -439,6 +439,16 @@ _TIMED_OUT: list = []
 
 def main(argv=None) -> int:
     del _TIMED_OUT[:]  # fresh run (main is re-entrant under tests)
+    race_san = None
+    if os.environ.get("NHD_RACE") == "1":
+        # race-instrument the whole matrix (nhdrace): install BEFORE any
+        # sim import constructs schedulers/pipelines so their
+        # maybe_watch() registrations land in the live registry.
+        # install_races() pulls in nhdsan too — locksets come from its
+        # instrumented locks — and honours NHD_RACE_INJECT/NHD_RACE_ALLOW.
+        from nhd_tpu_torch.sanitizer import install_races
+
+        race_san = install_races()
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--seeds", type=int, default=6,
                     help="seeds per profile (default 6)")
@@ -608,6 +618,13 @@ def main(argv=None) -> int:
         print(f"profile {profile:>9}: {clean}/{args.seeds} seeds clean "
               f"(faults injected: {totals}{extra})")
 
+    race_report = None
+    if race_san is not None:
+        from nhd_tpu_torch.sanitizer import uninstall_races
+
+        uninstall_races()  # main is re-entrant: next call reinstalls fresh
+        race_report = race_san.report()
+
     failed = [c for c in cells if not c["ok"]]
     summary = {
         "matrix": {
@@ -627,6 +644,7 @@ def main(argv=None) -> int:
         "cells_total": len(cells),
         "cells_failed": len(failed),
         "wall_seconds": round(time.time() - t0, 1),
+        "races": race_report,
         "cells": cells,
     }
     if args.json_out:
@@ -639,6 +657,13 @@ def main(argv=None) -> int:
 
     if failed:
         print(f"chaos matrix FAILED: {len(failed)}/{len(cells)} cells")
+        return 1
+    if race_report is not None and race_report["races"]:
+        print(f"chaos matrix FAILED: {len(race_report['races'])} "
+              f"unsuppressed data race(s) on watched shared state: "
+              f"{[r['key'] for r in race_report['races']]} "
+              f"(fix the race or allowlist via NHD_RACE_ALLOW with a "
+              f"written justification)")
         return 1
     mode = (
         f", federation {args.federation} shards x {args.replicas} replicas"

@@ -235,7 +235,7 @@ def audit_device_rows(dev, rows: Iterable[int]) -> List[str]:
                         tuple(g.shape), g.dtype, raw.numel()))
         parts.append(raw)
     # the audit IS a sanctioned host pull of device-resident values
-    pulled = torch.cat(parts).cpu().numpy()
+    pulled = torch.cat(parts).cpu().numpy()  # nhdlint: ignore[NHD107]
     off = 0
     for name, idx, shp, dtype, nbytes in gathers:
         got = pulled[off: off + nbytes].view(

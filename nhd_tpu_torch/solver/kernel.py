@@ -412,7 +412,8 @@ def _all_gather_nodes(t: Tensor, group) -> Tensor:
     copy; NCCL gathers them on the card."""
     import torch.distributed as dist
 
-    send = t.cpu() if dist.get_backend(group) == "gloo" else t
+    # gloo's host copy: the gather itself is a sync point of the mesh
+    send = t.cpu() if dist.get_backend(group) == "gloo" else t  # nhdlint: ignore[NHD107]
     bufs = [torch.empty_like(send)
             for _ in range(dist.get_world_size(group))]
     dist.all_gather(bufs, send, group=group)

@@ -63,6 +63,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from nhd_tpu_torch.core.node import HostNode
+from nhd_tpu_torch.sanitizer.races import maybe_watch
 from nhd_tpu_torch.core.topology import MapMode
 from nhd_tpu_torch.solver.batch import (
     BatchAssignment,
@@ -675,6 +676,11 @@ class StreamingScheduler:
         else:
             start_blocks.append((0, schedulable))
 
+        # from here the tile workers merge their sub-calls into these under
+        # the pipeline lock (nhdrace watches them when installed; the
+        # serial pre-pass above wrote them before any worker started)
+        maybe_watch(stats, ("rounds", "solve_seconds", "select_seconds",
+                            "assign_seconds", "scheduled"))
         with ThreadPoolExecutor(
             max_workers=n_workers, thread_name_prefix="nhd-stream"
         ) as pool:

@@ -19,6 +19,14 @@ PORT = ROOT / "nhd_tpu_torch"
 REF = ROOT / "nhd_tpu"
 
 VERBATIM = (
+    "analysis/__main__.py",
+    "analysis/lockgraph.py",
+    "analysis/rules_determinism.py",
+    "analysis/rules_excepts.py",
+    "analysis/rules_fencing.py",
+    "analysis/rules_locks.py",
+    "analysis/rules_metrics.py",
+    "analysis/rules_races.py",
     "config/__init__.py",
     "config/jsoncfg.py",
     "config/knobs.py",
@@ -47,6 +55,7 @@ VERBATIM = (
     "obs/histo.py",
     "obs/jitstats.py",
     "obs/journal.py",
+    "obs/perf.py",
     "obs/recorder.py",
     "obs/slo.py",
     "policy/__init__.py",
@@ -58,6 +67,7 @@ VERBATIM = (
     "rpc/nhd_stats_pb2.py",
     "rpc/server.py",
     "sanitizer/__init__.py",
+    "sanitizer/races.py",
     "sanitizer/runtime.py",
     "scheduler/__init__.py",
     "scheduler/commitpipe.py",
@@ -79,6 +89,37 @@ VERBATIM = (
 DIFFERS = {
     "__init__.py": "the port's package docstring; exports resolve_device "
                    "beside NHD_SCHED_NAME",
+    "analysis/__init__.py": "the docstring names the port's packs: the "
+                            "tracing pack aimed at torch, the contract "
+                            "pack at the kernel ABI",
+    "analysis/cli.py": "the parser's description names the port's packs",
+    "analysis/contracts.py": "the port's contract facts: by-name reads of "
+                             "dict(zip(_ARG_ORDER, ...)), padded_args "
+                             "block spans, the abi.py rows, the plain "
+                             "versions' signatures, the kernel call sites "
+                             "and their argument builders, file-hash "
+                             "fingerprints, NHDC_* reads and the port's "
+                             "registry; no in_shardings or pod_args "
+                             "stride sites (the port has neither)",
+    "analysis/core.py": "the rule catalogue describes the torch-aimed "
+                        "NHD1xx and the ABI-aimed NHD7xx rules",
+    "analysis/ownership.py": "the port's thread roots (the CLI's entry "
+                             "thread, the tile workers) and the journal "
+                             "pointer's single writer",
+    "analysis/rules_contract.py": "NHD701/702 over the kernel ABI's four "
+                                  "layers (abi.py, .cu entry points, "
+                                  "plain versions, call sites), NHD703 "
+                                  "over the library fingerprint too, "
+                                  "NHD710 as the host-alias hazard of "
+                                  "in-place kernel arguments and "
+                                  "index_copy_, NHD720 over two "
+                                  "registries by prefix",
+    "analysis/rules_tracing.py": "NHD101-106 over CUDA-graph captures "
+                                 "(torch.cuda.graph blocks, graphed "
+                                 "callables), NHD104 over library opens "
+                                 "and graph construction, NHD107 over "
+                                 "torch host syncs outside HostPull; "
+                                 "NHD108 sanctions matcher:find_nodes",
     "cli.py": "--device (default cuda, resolved before any thread starts, "
               "non-zero exit without a GPU) passed to the scheduler, "
               "explain, replay and the prewarm; no JAX_PLATFORMS block; "
@@ -104,9 +145,6 @@ DIFFERS = {
                               "no virtual devices or XLA flags; the parity "
                               "leg compares val > 0 slots; prewarm passes "
                               "the probe's mesh",
-    "sanitizer/races.py": "keeps its own copy of analysis/lockgraph.py's "
-                          "_mod_label; the static-analysis package is not "
-                          "ported",
     "scheduler/core.py": "device seams: Scheduler(device=), the mesh knob "
                          "resolved by the port's parallel.sharding (imported "
                          "at the top), the stream tile size, and the "

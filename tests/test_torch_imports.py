@@ -95,6 +95,31 @@ def test_daemon_planes_import_without_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_lint_sanitizer_and_perf_import_without_jax():
+    """nhdlint for the port (every module of analysis/), the sanitizer's
+    pytest plugin, obs/perf.py and the port's knob registry import in a
+    fresh interpreter with nothing of jax or nhd_tpu behind them."""
+    analysis = sorted(p.stem for p in (PORT / "analysis").glob("*.py")
+                      if p.stem not in ("__init__", "__main__"))
+    assert len(analysis) == 13
+    code = (
+        "import importlib, sys\n"
+        f"for name in {analysis!r}:\n"
+        "    importlib.import_module('nhd_tpu_torch.analysis.' + name)\n"
+        "import nhd_tpu_torch.sanitizer.pytest_plugin\n"
+        "import nhd_tpu_torch.obs.perf, nhd_tpu_torch.config.port_knobs\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'nhd_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], env=subprocess_env(),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 @pytest.mark.parametrize("module,args", [
     ("nhd_tpu_torch.sim.storm",
      ["--device", "cpu", "--profiles", "light", "--seeds", "1",
