@@ -21,17 +21,24 @@ Phases (one line each; the last line is the contract line):
    card's default (round 0 is the speculative megaround; one warm
    schedule, reset, one timed schedule), then the same batch on
    ``device="cpu"`` with ``NHD_TPU_SPECULATE=1``: every pod must land on
-   the same node with the same mapping and NICs; then one more cuda
-   schedule that copies the inputs of every solve (classic rounds and
-   megaround iterations) and of every claim-kernel call, and each kernel
-   against its plain version on each copy (the claim kernels timed at
+   the same node with the same mapping and NICs; round 0 must be one
+   graph replay (one ``megaround_graph`` launch, ``spec_iters()`` of
+   ``spec_gate`` and of each claim kernel); then one more cuda schedule,
+   its megaround's fixed trip issued launch by launch
+   (``speculate.REPLAY`` off), that copies the inputs of every solve
+   (classic rounds and live megaround buckets) and of every call of
+   ``spec_gate`` and the claim kernels, and each kernel against its plain
+   version on each copy (dead iterations' calls, which return at once,
+   counted, not compared; the claim kernels and ``spec_gate`` timed at
    the first iteration); then the whole megaround replayed from its
-   starting state on the card and through the plain versions: claims,
-   counts, need left and iterations equal;
+   starting state on the card's host loop and through the plain versions
+   on the CPU: claims, counts, need left and iterations equal;
 5. cfg3:10kx1k-sat, speculative: the same on bench_cluster nodes
    (NIC-saturated);
 6. cfg4:10kx1k-cap, classic: phase 4 with ``NHD_TPU_SPECULATE=0`` on both
-   sides (the classic rounds stay checked on the card);
+   sides (the classic rounds stay checked on the card); its profile read
+   op by op (``rank_attribution``: the solve kernels, then ``torch.topk``,
+   the gathers, the sums and the stack of ``rank_planes``);
 7. the daemon: cfg4's pending set (nhd_tpu_torch/sim/pending.py: 10,000
    Triad-config pods of workload_mix's three shapes on 1,000 cfg4 nodes of
    a FakeClusterBackend) through the port's ``Scheduler(device="cuda")``
@@ -76,9 +83,9 @@ Phases (one line each; the last line is the contract line):
    wall;
 10. the CLI over HTTP: the port's ``StubApiServer`` (k8s/apistub.py), in
    this process, holds 1,000 cfg4 nodes with NFD labels and a ConfigMap
-   for each of 1,500 pods of workload_mix's three Triad shapes (cut from
+   for each of 1,000 pods of workload_mix's three Triad shapes (cut from
    10,000: each pod costs three HTTP writes on a threading stub; 2,000
-   until phases 11-12 joined). (b)
+   until phases 11-12 joined, 1,500 until phase 15 did). (b)
    ``python -m nhd_tpu_torch.cli --device cuda`` runs as a subprocess
    whose in-cluster REST client points at the stub, with
    ``NHD_MIN_BUSY_SECS=0``, a metrics port and a journal. Once it is up
@@ -114,7 +121,7 @@ Phases (one line each; the last line is the contract line):
 12. the kernel cache (nhd_tpu_torch/solver/aot.py) on the card, each
    probe a fresh ``python -m nhd_tpu_torch.solver.aot --first-bind-probe
    --device cuda`` in a temporary ``NHDC_AOT_DIR``: (a) cold, empty,
-   ``--save`` (nvcc builds all six libraries inside the bind); (b) a
+   ``--save`` (nvcc builds all seven libraries inside the bind); (b) a
    restart without prewarm; (c) a restart with ``--prewarm`` (no build,
    no library load inside the bind); (d) a copy with one library
    truncated and one meta's fingerprint edited, ``--prewarm``: both
@@ -168,13 +175,25 @@ Phases (one line each; the last line is the contract line):
    ``NHD_RACE_INJECT=1`` must report the injected race; over the child's
    life 0 wait-for-graph cycles. Each leg's wall beside its
    uninstrumented one; every kernel launches in (a) and in (b);
-15. the kernels JSON line: per kernel its launches in phases 4-7 and
+15. the megaround as one CUDA graph replay: from the starting state of
+   the megarounds of phases 4, 5 and 9 (cfg4, cfg3 and cfg5's
+   16,384-row tile), the graph (a cache of its own, so its first
+   dispatch captures) against the host loop on the card, the plain
+   versions on the card and, for cfg4 and cfg3, the plain replay on the
+   CPU of phases 4-5: claims, counts, need left, iterations and node
+   state bit for bit; then the host loop, the graph and the graph with
+   every iteration dead (no need), in turns from the starting state,
+   ``GRAPH_TIMED`` times each: host wall per dispatch, wall to its end
+   and CUDA-event device time; the capture's time, the dead iterations
+   and a dead iteration's cost;
+16. the kernels JSON line: per kernel its launches in phases 4-7 and
    9-14 (counts set to 0 just before each counted run and read just
-   after; phase 10's and the subprocesses of 12 and 13 are those
-   processes' own, from start to exit; 13's (a) and (b) are
-   comparisons, not counted; 14's are its child's (a) and (b) runs),
-   its time, its plain version's time and its bound — the solve kernels
-   at the cfg4 G=2 bucket, the claim kernels at cfg4's first megaround
+   after; a megaround graph replay adds what its capture recorded;
+   phase 10's and the subprocesses of 12 and 13 are those processes'
+   own, from start to exit; 13's (a) and (b) are comparisons, not
+   counted; 14's are its child's (a) and (b) runs), its time, its plain
+   version's time and its bound — the solve kernels at the cfg4 G=2
+   bucket, the claim kernels and ``spec_gate`` at cfg4's first megaround
    iteration. A bound counts the bytes and operations of the real type
    and node rows only (padded rows are sliced off and need no work); a
    claim kernel's counts what its iteration's data needs (the live type
@@ -225,11 +244,11 @@ STREAM_DAEMON_CUT = ("pods cut from 100,000 to 2,000: this part tests the "
 #: (longer than the daemon's 30 s idle before a periodic scan; once
 #: every pod is bound, a short settle), the CLI's own time limit, and
 #: the wait for its first bind after the first pod
-CLI_NODES, CLI_PODS = 1_000, 1_500
-CLI_CUT = ("pods cut from 10,000 to 1,500: each pod costs three HTTP writes "
+CLI_NODES, CLI_PODS = 1_000, 1_000
+CLI_CUT = ("pods cut from 10,000 to 1,000: each pod costs three HTTP writes "
            "(annotate, bind, event) on a threading stub; phase 7 keeps the "
            "10,000-pod set on the fake backend; 2,000 until phases 11-12 "
-           "joined the smoke")
+           "joined the smoke, 1,500 until phase 15 did")
 CLI_QUIET_S, CLI_SETTLE_S, CLI_RUN_S, CLI_FIRST_BIND_S = 40.0, 2.0, 300, 120.0
 #: phase 10: the wait for the CLI to come up, and the most pods created
 #: and not yet bound at a time, below the admission queue's tenant lane
@@ -267,6 +286,16 @@ RACE_CHILD_S = 600
 #: the cfg4 batch's results on one card and on the CPU, by cell name,
 #: for phase 13's placements
 RESULTS = {}
+#: phase 15: each megaround's starting state (``Capture.megarounds``) by
+#: cell, and the plain replay's results on the CPU (phases 4, 5 and 9)
+SNAPS = {}
+PLAIN_REPLAYS = {}
+#: phase 15: replays timed per cell, and the dead-iteration probe's
+GRAPH_TIMED = 20
+#: the kernels of a mesh's path: its megaround is the host loop, which
+#: opens no iteration with spec_gate
+MESH_PATH = ("nic_node_masks", "nic_any_first", "solve_planes",
+             "spec_elect", "spec_fill", "spec_apply")
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_JOURNAL = os.path.join(ROOT, "tests", "fixtures", "journal",
                               "golden_churn.journal.jsonl")
@@ -284,6 +313,12 @@ def log(msg):
 def fail(msg):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def add_launches(total, launches):
+    """Add one reading of ``kernels.LAUNCHES`` (or a part of it) to *total*."""
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
 
 
 def smi_line():
@@ -356,7 +391,7 @@ def needed_ops(name, args, outs, real):
     """The compares and adds this data needs, over the real T and N."""
     T, N = real["T"], real["N"]
     if name == "nic_node_masks":
-        nic_count, _sw, gpu_free_sw, combo, _pick, _need = args
+        nic_count, _sw, gpu_free_sw, combo = args[:4]
         U, S, G = nic_count.shape[1], gpu_free_sw.shape[1], combo.shape[1]
         return N * outs[0].shape[1] * (U + S + G * G + G)
     if name == "nic_any_first":
@@ -367,7 +402,7 @@ def needed_ops(name, args, outs, real):
         passing = int(outs[2][:T, :N].sum())
         return T * N * unchosen.shape[0] + 2 * chosen_min * passing
     # solve_planes: per (t, n) the combo, GPU, CPU and misc-slot loops
-    C, U, G = args[-3].shape[2], args[8].shape[1], args[18].shape[1]
+    C, U, G = args[21].shape[2], args[8].shape[1], args[18].shape[1]
     return T * N * (10 + C * (U * G + U * (U * G + U + 1) + 4))
 
 
@@ -473,9 +508,18 @@ def claim_needs(name, t, real, kw):
     return moved, ops
 
 
+def gate_needs(t):
+    """(bytes, ops) of one ``spec_gate`` call: the status vector and the
+    bucket offsets read once, the control tensor read and written; one
+    add a type row, one compare a bucket and the alive flag's three."""
+    TT1, B1 = t["status"].shape[0], t["offsets"].shape[0]
+    return 4 * TT1 + 4 * B1 + 8 * (B1 + 1), (TT1 - 1) + 2 * (B1 - 1) + 3
+
+
 def claim_bound(name, t, real, kw):
-    """(bound_ms, bound_by, bytes, ops) of one claim-kernel call."""
-    moved, ops = claim_needs(name, t, real, kw)
+    """(bound_ms, bound_by, bytes, ops) of one claim-kernel (or
+    ``spec_gate``) call."""
+    moved, ops = gate_needs(t) if name == "spec_gate" else claim_needs(name, t, real, kw)
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / VECTOR_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), moved, ops
@@ -570,23 +614,27 @@ class Capture:
     """What one schedule sends to the kernels, copied as it happens: every
     solve (classic rounds through ``solve_ranked``, megaround iterations
     through ``speculate.solve_planes``) as (G, real, node tensors, pod
-    tensors); every claim-kernel call as (name, its tensors by interface
+    tensors), a megaround solve whose bucket gate was 0 only counted
+    (``dead_solves``: its kernels launch and return at once); every call
+    of a claim kernel or ``spec_gate`` as (name, its tensors by interface
     name as the call found them, keywords); every megaround's starting
     state as (node tensors by name, bucket pods, needs, respect_busy)."""
 
     def __init__(self):
         self.solves, self.claims, self.megarounds = [], [], []
+        self.dead_solves = 0
 
 
 @contextlib.contextmanager
 def spy_claims(calls):
-    """While inside, every claim-kernel call appends (name, its input
-    tensors by interface name, cloned as the call found them, keywords)
-    to *calls*."""
+    """While inside, every call of a claim kernel or ``spec_gate`` appends
+    (name, its input tensors by interface name, cloned as the call found
+    them, keywords) to *calls*."""
     from nhd_tpu_torch import kernels
     from nhd_tpu_torch.kernels.abi import ABI
 
-    orig = {name: getattr(kernels, name) for name in kernels.CLAIM_KERNELS}
+    orig = {name: getattr(kernels, name)
+            for name in (kernels.GATE_KERNEL, *kernels.CLAIM_KERNELS)}
 
     def spy(name):
         names = [a.name for a in ABI[name].inputs]
@@ -608,9 +656,11 @@ def spy_claims(calls):
 
 def capture_schedule(torch, sched, nodes, items):
     """One more schedule of the batch (allocation state reset) through the
-    spies of ``Capture``. Runs after the counted run, so its launches are
-    not counted; fails unless the spies saw every launch of the schedule.
-    Returns (results, stats, Capture)."""
+    spies of ``Capture``, the megaround's fixed trip issued launch by
+    launch (``speculate.REPLAY`` off: a replay runs no Python to spy on).
+    Runs after the counted run, so its launches are not counted; fails
+    unless the spies saw every launch of the schedule. Returns (results,
+    stats, Capture)."""
     from nhd_tpu_torch import kernels
     from nhd_tpu_torch.solver import speculate
     from nhd_tpu_torch.solver.device_state import DeviceClusterState
@@ -640,12 +690,15 @@ def capture_schedule(torch, sched, nodes, items):
         ))
         return megaround(self, bucket_pods, needs, respect_busy)
 
-    def spy_planes(G, U, K, node, pod, out=None, **place):
-        cap.solves.append((
-            G, {"T": real_types[G], "N": real_types["N"]},
-            [t.clone() for t in node], pod,
-        ))
-        return solve_planes(G, U, K, node, pod, out=out, **place)
+    def spy_planes(G, U, K, node, pod, out=None, gate=None, **place):
+        if gate is not None and int(gate[0]) == 0:
+            cap.dead_solves += 1
+        else:
+            cap.solves.append((
+                G, {"T": real_types[G], "N": real_types["N"]},
+                [t.clone() for t in node], pod,
+            ))
+        return solve_planes(G, U, K, node, pod, out=out, gate=gate, **place)
 
     for n in nodes.values():
         n.reset_resources()
@@ -653,6 +706,7 @@ def capture_schedule(torch, sched, nodes, items):
     DeviceClusterState.solve_ranked = spy_ranked
     DeviceClusterState.megaround = spy_megaround
     speculate.solve_planes = spy_planes
+    speculate.REPLAY = False
     try:
         with spy_claims(cap.claims):
             results, stats = sched.schedule(nodes, items, now=0.0)
@@ -660,13 +714,14 @@ def capture_schedule(torch, sched, nodes, items):
         DeviceClusterState.solve_ranked = solve_ranked
         DeviceClusterState.megaround = megaround
         speculate.solve_planes = solve_planes
+        speculate.REPLAY = True
     torch.cuda.synchronize()
     # the spies saw every launch, or a seam moved and a check would miss it
     for name in kernels.SOLVE_KERNELS:
-        if kernels.LAUNCHES[name] != len(cap.solves):
+        if kernels.LAUNCHES[name] != len(cap.solves) + cap.dead_solves:
             fail(f"{name} launched {kernels.LAUNCHES[name]} times, but the spies "
-                 f"saw {len(cap.solves)} solves")
-    for name in kernels.CLAIM_KERNELS:
+                 f"saw {len(cap.solves)} solves and {cap.dead_solves} dead ones")
+    for name in (kernels.GATE_KERNEL, *kernels.CLAIM_KERNELS):
         seen = sum(1 for c in cap.claims if c[0] == name)
         if kernels.LAUNCHES[name] != seen:
             fail(f"{name} launched {kernels.LAUNCHES[name]} times, but the spies "
@@ -674,15 +729,23 @@ def capture_schedule(torch, sched, nodes, items):
     return results, stats, cap
 
 
+def claim_args(name, t):
+    """Kernel *name*'s inputs from *t* by interface name; a gate the call
+    did not pass (the host loop of a mesh passes none) is the live one."""
+    from nhd_tpu_torch import kernels
+    from nhd_tpu_torch.kernels.abi import ABI
+
+    dev = next(iter(t.values())).device
+    return [t[a.name] if a.name in t else kernels.live_gate(dev)
+            for a in ABI[name].inputs]
+
+
 def run_claim(torch, fn, name, snap, kw):
     """Call claim kernel (or plain version) *fn* on a copy of *snap*;
     returns the copy (in-place tensors updated) with ``plan`` set to the
     plan the call wrote or read."""
-    from nhd_tpu_torch.kernels.abi import ABI
-
     t = {k: v.clone() for k, v in snap.items()}
-    args = [t[a.name] for a in ABI[name].inputs]
-    out = fn(*args, **kw)
+    out = fn(*claim_args(name, t), **kw)
     if name == "spec_elect":
         t["plan"] = out
     return t
@@ -699,7 +762,11 @@ def check_claims(torch, label, calls, report, real, *, timed, floors=None):
     from nhd_tpu_torch.kernels.abi import ABI
 
     out = {}
+    dead = 0
     for i, (name, snap, kw) in enumerate(calls):
+        if "gate" in snap and int(snap["gate"][0]) == 0:
+            dead += 1  # a dead iteration: the kernel returns at once
+            continue
         kfn = getattr(kernels, name)
         pfn = getattr(reference, name)
         got = run_claim(torch, kfn, name, snap, kw)
@@ -720,11 +787,12 @@ def check_claims(torch, label, calls, report, real, *, timed, floors=None):
             for k in written:
                 work[k].copy_(snap[k])
 
-        args = [work[a.name] for a in ABI[name].inputs]
+        args = claim_args(name, work)
         ms = cuda_time_ms(torch, lambda: kfn(*args, **kw), prep=prep)
         plain_ms = cuda_time_ms(torch, lambda: pfn(*args, **kw), prep=prep)
         t = dict(snap)
-        t["plan"] = want["plan"]
+        if name != "spec_gate":
+            t["plan"] = want["plan"]
         bound_ms, bound_by, moved, ops = claim_bound(name, t, real, kw)
         out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
@@ -741,6 +809,9 @@ def check_claims(torch, label, calls, report, real, *, timed, floors=None):
             f"{out[name]['largest_buffer']} elements)")
     if timed:
         report["kernels"][label] = out
+    if dead:
+        log(f"{label}: {dead} calls of dead iterations returned at once "
+            "(not compared: they write nothing)")
     return out
 
 
@@ -776,6 +847,7 @@ def replay_megaround(torch, label, snap, report):
     for g, w in zip(got, want):
         if not torch.equal(g, w):
             fail(f"{label}: the megaround on the card and its plain replay differ")
+    PLAIN_REPLAYS[label] = want
     its = int(want[3])
     log(f"{label}: megaround replay exact (claims, counts, need left, "
         f"{its} iterations, node state); card {ms:.2f} ms (its table setup "
@@ -880,7 +952,8 @@ def sweep_check(torch, dev, report):
         plan = reference.spec_elect(*(t[k].clone() for k in sweep.SPEC_ELECT_ARGS), **kw)
         status = t["status"].clone()
         status[0] = 0
-        calls.append(("spec_fill", {"plan": plan, "status": status}, {}))
+        calls.append(("spec_fill", {"plan": plan, "status": status,
+                                    "gate": t["gate"]}, {}))
         plan = plan.clone()
         reference.spec_fill(plan, status.clone())
         calls.append(("spec_apply", {"plan": plan, **{k: t[k] for k in sweep.SPEC_APPLY_ARGS}},
@@ -890,14 +963,22 @@ def sweep_check(torch, dev, report):
     for i, shape in enumerate(sweep.FILL_SWEEP):
         plan, status = (up(a) for a in sweep.fill_case(i, *shape))
         check_claims(torch, f"fill sweep (TT, N, fill)={shape}",
-                     [("spec_fill", {"plan": plan, "status": status}, {})],
+                     [("spec_fill", {"plan": plan, "status": status,
+                                     "gate": kernels.live_gate(dev)}, {})],
                      report, {"N": shape[1]}, timed=False)
+    for i, shape in enumerate(sweep.GATE_SWEEP):
+        status, offsets, ctl = (up(a) for a in sweep.gate_case(i, *shape))
+        check_claims(torch, f"gate sweep (TT, B, fill)={shape}",
+                     [("spec_gate", {"status": status, "offsets": offsets,
+                                     "ctl": ctl}, {})],
+                     report, {}, timed=False)
     report["sweep"] = {
         "nic_node_masks": [list(s) for s in sweep.NODE_SWEEP],
         "nic_any_first": [list(s) for s in sweep.NIC_SWEEP],
         "solve_planes": [list(s) for s in sweep.PLANE_SWEEP],
         "claim_kernels": [repr(s) for s in sweep.SPEC_SWEEP],
         "spec_fill": [list(s) for s in sweep.FILL_SWEEP],
+        "spec_gate": [list(s) for s in sweep.GATE_SWEEP],
     }
     log(f"sweep: nic_node_masks exact on {len(sweep.NODE_SWEEP)} shapes (G in "
         f"{sorted({s[4] for s in sweep.NODE_SWEEP})}, C*A in "
@@ -917,7 +998,11 @@ def sweep_check(torch, dev, report):
         f"spec_fill exact on {len(sweep.FILL_SWEEP)} fill shapes (TT in "
         f"{sorted({s[0] for s in sweep.FILL_SWEEP})}, N in "
         f"{sorted({s[1] for s in sweep.FILL_SWEEP})}, fills "
-        f"{sorted({s[2] for s in sweep.FILL_SWEEP})})")
+        f"{sorted({s[2] for s in sweep.FILL_SWEEP})}); spec_gate exact on "
+        f"{len(sweep.GATE_SWEEP)} shapes (TT in "
+        f"{sorted({s[0] for s in sweep.GATE_SWEEP})}, B in "
+        f"{sorted({s[1] for s in sweep.GATE_SWEEP})}, fills "
+        f"{sorted({s[2] for s in sweep.GATE_SWEEP})})")
 
 
 def oracle_check(dev):
@@ -1030,7 +1115,8 @@ def device_profile(torch, fn):
             us, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     busy_us = sum(us for us, _ in by_name.values())
-    top_dev = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    ops = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    top_dev = ops[:6]
     top_host = sorted(
         prof.key_averages(), key=lambda e: e.self_cpu_time_total, reverse=True
     )[:5]
@@ -1038,9 +1124,47 @@ def device_profile(torch, fn):
         "wall_s": wall, "device_busy_s": busy_us / 1e6,
         "idle_share": 1.0 - busy_us / 1e6 / wall if busy_us else None,
         "top_device": [(k[:60], round(us, 1), n) for k, (us, n) in top_dev],
+        "device_ops": [(k[:120], us, n) for k, (us, n) in ops],
         "top_host": [(e.key, round(e.self_cpu_time_total, 1), e.count)
                      for e in top_host],
     }
+
+
+#: profiler name fragments of a classic round's device work, in order: the
+#: three solve kernels, then the chain of rank_planes (solver/kernel.py:
+#: torch.topk, the gathers and indexing, the free-total sums, the stack)
+RANK_GROUPS = (
+    ("nic_node_masks", ("nic_node_masks",)),
+    ("nic_any_first", ("nic_any_first",)),
+    ("solve_planes", ("solve_planes",)),
+    ("topk", ("topk", "sort", "radix", "bitonic")),
+    ("row update", ("index_copy",)),
+    ("gather", ("scatter_gather", "gather")),
+    ("index", ("index",)),
+    ("sum", ("reduce",)),
+    ("stack", ("cat",)),
+    ("copy", ("memcpy", "memset", "copy", "elementwise")),
+)
+RANK_CHAIN = ("topk", "gather", "index", "sum", "stack")
+
+
+def rank_attribution(name, profile):
+    """The device time of one classic schedule by op group (``RANK_GROUPS``)
+    and the share the rank chain holds of the busy time."""
+    groups = {}
+    for op, us, n in profile["device_ops"]:
+        low = op.lower()
+        g = next((k for k, frags in RANK_GROUPS if any(f in low for f in frags)),
+                 "other")
+        t_us, t_n = groups.get(g, (0.0, 0))
+        groups[g] = (t_us + us, t_n + n)
+    busy = sum(us for us, _ in groups.values())
+    share = sum(groups.get(g, (0.0, 0))[0] for g in RANK_CHAIN) / busy if busy else None
+    log(f"{name} device time by op (us, launches): " + "; ".join(
+        f"{g} {us:.1f} ({n})" for g, (us, n) in groups.items())
+        + f"; the rank chain {share if share is None else round(share, 4)} of "
+        f"{busy:.1f} us busy; every op: {profile['device_ops']}")
+    return {"groups_us": groups, "rank_share": share, "busy_us": busy}
 
 
 def run_cell(torch, name, cluster_fn, report, launches_total, *, speculative):
@@ -1071,11 +1195,22 @@ def run_cell(torch, name, cluster_fn, report, launches_total, *, speculative):
     for k in path:
         if launches[k] == 0:
             fail(f"{name}: kernel {k} was never launched on the main path")
-    for k, v in launches.items():
-        launches_total[k] += v
+    add_launches(launches_total, launches)
     spec_it = stats.counters.get("spec_iterations", 0)
     if speculative and not spec_it:
         fail(f"{name}: the card's default did not run the speculative round 0")
+    if speculative:
+        # round 0 is one replay: spec_gate and each claim kernel launch
+        # spec_iters() times in it, dead iterations included
+        from nhd_tpu_torch.solver.speculate import spec_iters
+
+        want = {kernels.GRAPH: 1, **{k: spec_iters() for k in (
+            kernels.GATE_KERNEL, *kernels.CLAIM_KERNELS)}}
+        got = {k: launches[k] for k in want}
+        if got != want:
+            fail(f"{name}: the megaround was not one graph replay: {got}")
+    elif launches[kernels.GRAPH]:
+        fail(f"{name}: NHD_TPU_SPECULATE=0 replayed a megaround graph")
     if not speculative and spec_it:
         fail(f"{name}: NHD_TPU_SPECULATE=0 still ran the megaround")
     placed = sum(1 for r in results if r.node)
@@ -1120,16 +1255,20 @@ def run_cell(torch, name, cluster_fn, report, launches_total, *, speculative):
         check_kernels(torch, f"{name} solve {i} G={G} T={real['T']}",
                       node, pod, report, real, timed=False)
     log(f"{name} kernels vs plain: all {len(cap.solves)} solves of the batch "
-        f"(buckets {sorted({s[0] for s in cap.solves})}, every round and "
-        "megaround iteration; as many as the solve kernels' launches), exact")
+        f"(buckets {sorted({s[0] for s in cap.solves})}, every round and live "
+        f"megaround bucket; with the {cap.dead_solves} gated ones as many as the "
+        "solve kernels' launches), exact")
     cell = {}
     if speculative:
         if not cap.megarounds or not cap.claims:
             fail(f"{name}: the captured schedule ran no megaround")
         real = {"N": cap.megarounds[0][4]}
         check_claims(torch, f"{name} megaround", cap.claims, report, real, timed=True)
-        log(f"{name} claim kernels vs plain: all {len(cap.claims)} calls "
-            f"({len(cap.claims) // 3} iterations), exact")
+        its = sum(1 for c in cap.claims if c[0] == kernels.GATE_KERNEL)
+        log(f"{name} claim kernels and spec_gate vs plain: all {len(cap.claims)} "
+            f"calls ({its} iterations of the fixed trip, {cap.dead_solves} solves "
+            "of dead buckets or iterations), exact")
+        SNAPS[name] = cap.megarounds[0]
         replays = [replay_megaround(torch, f"{name} megaround {i}", snap, report)
                    for i, snap in enumerate(cap.megarounds)]
         cell["megaround_replay_ms"] = [ms for ms, _, _ in replays]
@@ -1142,6 +1281,8 @@ def run_cell(torch, name, cluster_fn, report, launches_total, *, speculative):
         f"{profile['device_busy_s']:.6f}s idle_share="
         f"{'not measured' if idle is None else f'{idle:.4f}'}; "
         f"top device: {profile['top_device']}; top host: {profile['top_host']}")
+    if not speculative:
+        cell["rank_attribution"] = rank_attribution(name, profile)
     cell.update({
         "profile": profile, "speculative": speculative,
         "placed": placed, "pods": len(items), "rounds": stats.rounds,
@@ -1221,7 +1362,7 @@ def daemon_phase(torch, report, launches_total, smi):
     for k in kernels.KERNELS:
         if launches[k] == 0:
             fail(f"daemon: kernel {k} was never launched through the daemon")
-        launches_total[k] += launches[k]
+    add_launches(launches_total, launches)
     now = API_COUNTERS.snapshot()
     moved = {k: now[k] - base[k] for k in (
         "guard_faults_total", "guard_retries_total", "guard_degradations_total")}
@@ -1324,7 +1465,7 @@ def spans(stream_sched):
         finally:
             after = kernels.thread_launches()
             got["calls"].append((threading.get_ident(),
-                                 {n: after[n] - before[n] for n in kernels.KERNELS},
+                                 {n: after[n] - before[n] for n in kernels.COUNTED},
                                  time.perf_counter() - t0))
 
     batch.schedule, batch.make_context = spy, timed(make, "contexts")
@@ -1387,8 +1528,7 @@ def stream_phase(torch, report, launches_total, smi):
         missing = [k for k in kernels.KERNELS if launches[k] == 0]
         if missing:
             fail(f"{label}: kernels {missing} were never launched")
-        for k, v in launches.items():
-            launches_total[k] += v
+        add_launches(launches_total, launches)
 
     def summary(label, res, stats, wall, launches):
         placed = sum(1 for r in res if r.node)
@@ -1453,7 +1593,7 @@ def stream_phase(torch, report, launches_total, smi):
     del nodes_b
     launched_all("cfg5 (b)", launches_b)
     calls = got_b["calls"]
-    summed = {k: sum(c[k] for _t, c, _w in calls) for k in kernels.KERNELS}
+    summed = {k: sum(c[k] for _t, c, _w in calls) for k in kernels.COUNTED}
     if summed != launches_b:
         fail(f"cfg5 (b): launch counts {launches_b} differ from the sum over "
              f"the tile sub-calls {summed}")
@@ -1495,6 +1635,7 @@ def stream_phase(torch, report, launches_total, smi):
     real = {"N": cap.megarounds[0][4]}
     check_claims(torch, "cfg5 megaround", cap.claims, report, real, timed=True,
                  floors=floors)
+    SNAPS["cfg5:100kx10k-stream tile"] = cap.megarounds[0]
     log(f"cfg5 (c) kernels vs plain: all {len(cap.solves)} solves and "
         f"{len(cap.claims)} claim-kernel calls of the batch, exact")
     out["c"] = {"solves": len(cap.solves), "claim_calls": len(cap.claims)}
@@ -1965,6 +2106,9 @@ def run_cli(device, n_nodes, n_pods, workdir, label, log_dir="chiprun_out",
     if len(printed) != 1:
         fail(f"cli {label}: no 'kernel launches' line{log_tail(log_path)}")
     out["launches"] = json.loads(printed[0].split(": ", 1)[1])
+    graphs = [line for line in text.splitlines()
+              if line.startswith("megaround graphs: ")]
+    out["graphs"] = json.loads(graphs[0].split(": ", 1)[1]) if graphs else None
     out["rpc_line"] = next((line.split(": ", 1)[-1] for line in text.splitlines()
                             if "stats RPC" in line), "no stats RPC line")
     out["bound"], out["total"], out["fed"] = len(bound_at), n_pods, fed
@@ -2157,14 +2301,20 @@ def cli_phase(torch, report, launches_total, smi):
         log(f"cli cuda /metrics jit: {'; '.join(got['jit'])}")
         log(f"cli cuda: kernel launches the CLI process printed at its exit: "
             f"{got['launches']}; {smi}")
+        g = got["graphs"] or {}
+        per = {k[:-2]: g[k] / g["dispatches"] * 1e3
+               for k in g if k.endswith("_s") and k != "capture_s" and g.get("dispatches")}
+        log(f"cli cuda: megaround graphs {g}; host ms a dispatch by part "
+            f"{ {k: round(v, 4) for k, v in per.items()} }, in all "
+            f"{sum(per.values()):.4f} ms")
         if got["bound"] != CLI_PODS:
             fail(f"cli cuda: bound {got['bound']}/{CLI_PODS}")
-        if sorted(got["launches"]) != sorted(kernels.KERNELS):
+        if sorted(got["launches"]) != sorted(kernels.COUNTED):
             fail(f"cli cuda: launch counts for {sorted(got['launches'])}")
-        for k in kernels.KERNELS:
+        for k in kernels.COUNTED:
             if got["launches"][k] == 0:
-                fail(f"cli cuda: kernel {k} was never launched")
-            launches_total[k] += got["launches"][k]
+                fail(f"cli cuda: {k} was never launched")
+        add_launches(launches_total, got["launches"])
         cpu, cpu_outcome = run_cli("cpu", CLI_NODES, CLI_PODS, work, "cpu")
         log(f"cli cpu: up {cpu['ready_s']:.2f}s, bound {cpu['bound']}/"
             f"{cpu['total']}, {cpu['binds_per_s'] or 0:.1f} binds/s, "
@@ -2247,7 +2397,7 @@ def chaos_phase(torch, report, launches_total, smi):
     from nhd_tpu_torch.solver import guard
 
     out = {"smi": smi}
-    phase = dict.fromkeys(kernels.KERNELS, 0)
+    phase = dict.fromkeys(kernels.COUNTED, 0)
     sites_total = {}
     flips_total = 0
     with tempfile.TemporaryDirectory(prefix="nhd-chaos-") as work:
@@ -2256,8 +2406,8 @@ def chaos_phase(torch, report, launches_total, smi):
                 "cuda", seeds, nodes, steps, os.path.join(work, label + ".json"))
             cpu, _ = storm_matrix(
                 "cpu", seeds, nodes, steps, os.path.join(work, label + "-cpu.json"))
-            for k in kernels.KERNELS:
-                phase[k] += launches[k]
+            for k in kernels.COUNTED:
+                phase[k] += launches.get(k, 0)
             for c, cc in zip(got["cells"], cpu["cells"], strict=True):
                 seed = c["seed"]
                 if not c.get("bind_parity"):
@@ -2314,8 +2464,8 @@ def chaos_phase(torch, report, launches_total, smi):
             control = dict(kernels.LAUNCHES)
             repaired = API_COUNTERS.get("guard_repairs_total") - repairs
             guard.GUARD.reset()
-        for k in kernels.KERNELS:
-            phase[k] += control[k]
+        for k in kernels.COUNTED:
+            phase[k] += control.get(k, 0)
         log(f"chaos negative control (NHD_GUARD=0, flips only, seed 0, "
             f"{CHAOS_CONTROL_STEPS} steps on cuda): {sim.stats.bit_flips} "
             f"flips, {fired} survived their step (the audit reports them), "
@@ -2329,7 +2479,7 @@ def chaos_phase(torch, report, launches_total, smi):
     for k in kernels.KERNELS:
         if phase[k] == 0:
             fail(f"chaos: kernel {k} was never launched in the phase")
-        launches_total[k] += phase[k]
+    add_launches(launches_total, phase)
     log(f"chaos: faults by site over the matrix {sites_total}, bit flips "
         f"{flips_total}; launches in the phase {phase}; {smi}")
     out.update(sites=sites_total, flips=flips_total, launches=phase,
@@ -2358,7 +2508,8 @@ def probe(label, directory, *args):
         f"prewarm_s={got['prewarm_s']:.4f} programs={got['programs']} "
         f"quarantined={got['quarantined']} libraries={got['libraries']} "
         f"built={got['built']} (in the bind: {got['bind_builds']} built, "
-        f"{got['bind_loads']} loaded) bound={got['bound']} "
+        f"{got['bind_loads']} loaded, {got.get('bind_captures')} megaround graphs "
+        f"captured) bound={got['bound']} "
         f"process={wall:.2f}s")
     return got
 
@@ -2411,13 +2562,13 @@ def prewarm_phase(torch, report, launches_total, smi):
     from nhd_tpu_torch.solver import aot, guard
 
     out = {"smi": smi}
-    phase = dict.fromkeys(kernels.KERNELS, 0)
+    phase = dict.fromkeys(kernels.COUNTED, 0)
     # the name prefixes of the cache's manifest entries
     manifest = tuple(f"{kind}_" for kind in aot.JIT_KIND)
 
     def add(launches):
-        for k in kernels.KERNELS:
-            phase[k] += launches[k]
+        for k in kernels.COUNTED:
+            phase[k] += launches.get(k, 0)
 
     with tempfile.TemporaryDirectory(prefix="nhd-aot-") as work:
         cache = os.path.join(work, "aot")
@@ -2532,7 +2683,7 @@ def prewarm_phase(torch, report, launches_total, smi):
     for k in kernels.KERNELS:
         if phase[k] == 0:
             fail(f"prewarm: kernel {k} was never launched in the phase")
-        launches_total[k] += phase[k]
+    add_launches(launches_total, phase)
     out.update(cold=cold, restart=restart, prewarmed=warm, damaged=fixed,
                zero_recompile=z, cli=starts, launches=phase)
     report["prewarm"] = out
@@ -2708,7 +2859,7 @@ def mesh_batch(torch, label, mesh, items, speculative):
     shapes = JIT_STATS.snapshot()["shapes"]
     if not any(k.endswith(f"_M{mesh_desc(mesh)}") for k in shapes):
         fail(f"{label}: no dispatch ran on the mesh: {sorted(shapes)}")
-    path = kernels.KERNELS if speculative else kernels.SOLVE_KERNELS
+    path = MESH_PATH if speculative else kernels.SOLVE_KERNELS
     if any(launches[k] == 0 for k in path):
         fail(f"{label}: a kernel of the path did not launch: {launches}")
     return sched, nodes, results, stats, wall, launches
@@ -2757,11 +2908,11 @@ def mesh_phase(torch, report, launches_total, smi):
 
     dev = card(torch)
     report["mesh"] = out = {}
-    phase = dict.fromkeys(kernels.KERNELS, 0)
+    phase = dict.fromkeys(kernels.COUNTED, 0)
 
     def count(launches):
-        for k in kernels.KERNELS:
-            phase[k] += launches[k]
+        for k in kernels.COUNTED:
+            phase[k] += launches.get(k, 0)
 
     cluster = encode_cluster(cap_cluster(CELL_NODES, GROUPS), now=0.0)
     cluster.busy[:] = False
@@ -2909,10 +3060,11 @@ def mesh_phase(torch, report, launches_total, smi):
         f"region placed as on the CPU, an exact cover")
 
     t["end"] = time.perf_counter()
-    for k in kernels.KERNELS:
+    # the mesh's megaround is the host loop: no spec_gate on its path
+    for k in MESH_PATH:
         if phase[k] == 0:
             fail(f"mesh: kernel {k} was never launched in the phase")
-        launches_total[k] += phase[k]
+    add_launches(launches_total, phase)
     steps = "abcdef"
     out["seconds"] = {p: (t[steps[i + 1]] if i + 1 < len(steps) else t["end"]) - t[p]
                       for i, p in enumerate(steps)}
@@ -3033,14 +3185,14 @@ def race_phase(torch, report, launches_total, smi):
                  f"{text[-2000:]}")
         with open(os.path.join(work, "race.json")) as fh:
             got = json.load(fh)
-    phase = dict.fromkeys(kernels.KERNELS, 0)
+    phase = dict.fromkeys(kernels.COUNTED, 0)
 
     def launched_all(label, launches):
         missing = [k for k in kernels.KERNELS if not launches[k]]
         if missing:
             fail(f"{label}: kernels {missing} were never launched")
-        for k in kernels.KERNELS:
-            phase[k] += launches[k]
+        for k in kernels.COUNTED:
+            phase[k] += launches.get(k, 0)
 
     # (a) phase 11's cells: bound as the uninstrumented card run, 0 races
     for label, seeds, nodes_n, steps in CHAOS_CELLS:
@@ -3102,12 +3254,177 @@ def race_phase(torch, report, launches_total, smi):
         f"{got['hold_while_blocking']}, {got['locks']} instrumented locks; "
         f"child process "
         f"{child_s:.1f}s; {smi}")
-    for k in kernels.KERNELS:
-        launches_total[k] += phase[k]
+    add_launches(launches_total, phase)
     out.update(control=control["races"], cycles=0, child_s=child_s,
                hold_while_blocking=got["hold_while_blocking"],
                launches=phase)
     report["race"] = out
+
+
+@contextlib.contextmanager
+def plain_on_card():
+    """While inside, every kernel wrapper takes its plain version, on the
+    card's tensors too (a check, never the port's path)."""
+    from nhd_tpu_torch import kernels
+
+    on_cpu = kernels._on_cpu
+    kernels._on_cpu = lambda t: True
+    try:
+        yield
+    finally:
+        kernels._on_cpu = on_cpu
+
+
+def graph_phase(torch, report, smi):
+    """Phase 15: the megaround as one graph replay (module docstring)."""
+    import numpy as np
+
+    from nhd_tpu_torch.solver.kernel import _MUTABLE, _pad_pow2, upload_pods
+    from nhd_tpu_torch.solver.speculate import (
+        MegaroundCache,
+        run_megaround,
+        spec_iters,
+    )
+
+    dev = card(torch)
+    iters = spec_iters()
+    out = report["graph"] = {"smi": smi, "iters": iters}
+    t_phase = time.perf_counter()
+    for label, snap in SNAPS.items():
+        state, bucket_pods, needs, respect_busy, _n = snap
+        U = int(state["cpu_free"].shape[1])
+        K = int(state["nic_free"].shape[2])
+        start = {k: v.to(dev, copy=True) for k, v in state.items()}
+        pods = [upload_pods(p, _pad_pow2(p.n_types), U, K, dev) for p in bucket_pods]
+        cache = MegaroundCache()  # its own, so its first dispatch captures
+
+        def loop(node, need=needs):
+            return run_megaround(node, bucket_pods, pods, need, U, K, iters,
+                                 respect_busy)
+
+        def graph(node, need=needs):
+            return cache.run(node, bucket_pods, need, U, K, iters, respect_busy)
+
+        def result(res, node):
+            return [t.cpu() for t in res] + [node[k].cpu() for k in _MUTABLE]
+
+        runs = {}
+        for kind, fn in (("host loop", loop), ("graph", graph), ("plain", loop)):
+            node = {k: v.clone() for k, v in start.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if kind == "plain":
+                with plain_on_card():
+                    res = fn(node)
+            else:
+                res = fn(node)
+            torch.cuda.synchronize()
+            runs[kind] = (result(res, node), time.perf_counter() - t0, node)
+        entry = cache.entries()[0]
+        if dev.type == "cuda" and entry.graph is None:
+            fail(f"graph {label}: the dispatch captured no graph")
+        replay = entry.trip if entry.graph is None else entry.graph.replay
+        want = runs["host loop"][0]
+        cpu = PLAIN_REPLAYS.get(f"{label} megaround 0")
+        for kind, got in (("graph", runs["graph"][0]), ("plain", runs["plain"][0]),
+                          ("CPU plain replay", cpu)):
+            if got is not None and not all(torch.equal(g, w) for g, w in zip(got, want)):
+                fail(f"graph {label}: the host loop and the {kind} differ")
+        its = int(want[3])
+
+        # the host loop against the graph, in turns from the start state:
+        # host wall per dispatch (the loop's includes its per-iteration
+        # pulls; the graph's is the enqueue) and device time by events
+        times = {k: {"host_ms": [], "wall_ms": [], "device_ms": []}
+                 for k in ("host loop", "graph", "graph, every iteration dead")}
+        zero = [np.zeros_like(n) for n in needs]
+        plan = (("host loop", loop, needs), ("graph", graph, needs),
+                ("graph, every iteration dead", graph, zero))
+        for r in range(GRAPH_TIMED):
+            for kind, fn, need in (plan if r % 2 == 0 else plan[::-1]):
+                node = runs["graph" if fn is graph else "host loop"][2]
+                for k in _MUTABLE:
+                    node[k].copy_(start[k])
+                torch.cuda.synchronize()
+                s = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                s.record()
+                fn(node, need)
+                e.record()
+                host = time.perf_counter() - t0
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                times[kind]["host_ms"].append(host * 1e3)
+                times[kind]["wall_ms"].append(wall * 1e3)
+                times[kind]["device_ms"].append(s.elapsed_time(e))
+        med = {k: {m: statistics.median(v) for m, v in t.items()} for k, t in times.items()}
+        dead = iters - its
+        # the replay alone, on the card: its buffers restored on the card
+        # before each launch (cuda_time_ms), live and with every iteration
+        # dead; and the host's parts of a dispatch
+        from nhd_tpu_torch.solver.kernel import _ARG_ORDER
+        from nhd_tpu_torch.solver.speculate import _shapes, trip_arrays
+
+        shapes = _shapes(bucket_pods)
+        Np = int(start["hp_free"].shape[0])
+        host_ms = {"table build": [], "replay enqueue": []}
+        for _ in range(GRAPH_TIMED):
+            t0 = time.perf_counter()
+            live_arrays = trip_arrays(bucket_pods, needs, shapes, U, K, Np)
+            host_ms["table build"].append((time.perf_counter() - t0) * 1e3)
+        tables = {}
+        for kind, need in (("live", needs), ("dead", zero)):
+            entry.buf.fill(trip_arrays(bucket_pods, need, shapes, U, K, Np))
+            tables[kind] = entry.buf.dev.clone()
+        entry._digest = None  # filled by hand: the next dispatch rebuilds
+
+        def restore(kind):
+            entry.buf.dev.copy_(tables[kind])
+            for k in _ARG_ORDER:
+                entry.node[k].copy_(start[k])
+
+        replay_ms = {kind: cuda_time_ms(torch, replay,
+                                        prep=functools.partial(restore, kind))
+                     for kind in ("live", "dead")}
+        for _ in range(GRAPH_TIMED):
+            restore("live")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            replay()
+            host_ms["replay enqueue"].append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+        host_ms = {k: statistics.median(v) for k, v in host_ms.items()}
+        host_ms["dispatch parts"] = {k: round(v / entry.dispatches * 1e3, 4)
+                                     for k, v in entry.host_s.items()}
+        del live_arrays
+        per_dead = replay_ms["dead"] / iters
+        cell = {
+            "iterations": its, "dead_iterations": dead,
+            "capture_s": entry.capture_s, "first_dispatch_s": runs["graph"][1],
+            "host_loop_first_s": runs["host loop"][1], "medians": med,
+            "dead_ms_per_iteration": per_dead, "tally": entry.tally,
+            "replay_device_ms": replay_ms, "host_parts_ms": host_ms,
+            "node_rows": int(start["hp_free"].shape[0]),
+        }
+        out[label] = cell
+        log(f"graph {label} (Np={cell['node_rows']}): graph == host loop == plain "
+            f"on the card{' == plain replay on the CPU' if cpu is not None else ''} "
+            f"(claims, counts, need left, {its} iterations, node state); "
+            f"{iters} iterations a replay, {dead} dead; capture "
+            f"{'none' if entry.capture_s is None else f'{entry.capture_s * 1e3:.2f} ms'} "
+            f"(first dispatch {runs['graph'][1] * 1e3:.2f} ms, the host loop's first "
+            f"{runs['host loop'][1] * 1e3:.2f} ms); medians of {GRAPH_TIMED}: "
+            + "; ".join(f"{k} host {m['host_ms']:.3f} ms, wall {m['wall_ms']:.3f} ms, "
+                        f"device {m['device_ms']:.4f} ms" for k, m in med.items())
+            + f"; the replay alone on the card {replay_ms['live']:.4f} ms, with every "
+            f"iteration dead {replay_ms['dead']:.4f} ms, so a dead iteration "
+            f"{per_dead:.4f} ms; host: the table build {host_ms['table build']:.3f} ms, "
+            f"the replay's enqueue {host_ms['replay enqueue']:.3f} ms, a dispatch's "
+            f"parts (mean ms) {host_ms['dispatch parts']}; "
+            f"launches a replay {entry.tally}; {smi}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"graph: phase 15 in {out['seconds']:.1f}s of command time")
 
 
 def main():
@@ -3179,7 +3496,7 @@ def main():
     oracle_check(dev)
 
     # 4, 5, 6. main path: the card's default (speculative), then classic
-    launches_total = {k: 0 for k in kernels.KERNELS}
+    launches_total = dict.fromkeys(kernels.COUNTED, 0)
     run_cell(torch, "cfg4:10kx1k-cap", cap_cluster, report, launches_total,
              speculative=True)
     run_cell(torch, "cfg3:10kx1k-sat", bench_cluster, report, launches_total,
@@ -3212,13 +3529,16 @@ def main():
     # 14. nhdsan and nhdrace on the card
     t3 = time.perf_counter()
     race_phase(torch, report, launches_total, smi)
+    t4 = time.perf_counter()
+    # 15. the megaround as one graph replay against the host loop
+    graph_phase(torch, report, smi)
     report["phase_s"] = {"11": t1 - t0, "12": t2 - t1, "13": t3 - t2,
-                         "14": time.perf_counter() - t3}
-    log("phases 11 / 12 / 13 / 14: " + " / ".join(
-        f"{report['phase_s'][p]:.1f}" for p in ("11", "12", "13", "14"))
+                         "14": t4 - t3, "15": time.perf_counter() - t4}
+    log("phases 11 / 12 / 13 / 14 / 15: " + " / ".join(
+        f"{report['phase_s'][p]:.1f}" for p in ("11", "12", "13", "14", "15"))
         + " s of command time")
 
-    # 15. kernels line
+    # 16. kernels line
     meta = {
         "nic_node_masks": ("nhd_tpu_torch/kernels/nic_node_masks.cu",
                            "nhd_tpu/solver/kernel.py:136"),
@@ -3232,6 +3552,8 @@ def main():
                       "nhd_tpu/solver/speculate.py:406"),
         "spec_apply": ("nhd_tpu_torch/kernels/spec_apply.cu",
                        "nhd_tpu/solver/speculate.py:448"),
+        "spec_gate": ("nhd_tpu_torch/kernels/spec_gate.cu",
+                      "nhd_tpu/solver/speculate.py:533"),
     }
     at = {**headline, **claim_headline}
     line = {"kernels": [
@@ -3246,6 +3568,8 @@ def main():
         for name in kernels.KERNELS
     ]}
     report["kernels_line"] = line
+    report["launches_total"] = launches_total
+    log(f"launches over phases 4-7 and 9-14: {launches_total}")
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke_report.json"), "w") as fh:
         json.dump(report, fh, indent=1, default=str)

@@ -4,9 +4,11 @@
     python3 kernel_variants.py [--probe] [--only=KERNEL[,KERNEL...]]
 
 A variant is a committed kernel source with one text substitution
-(``VARIANTS``): a tuning constant changed, or the kernel body cut to an
+(``VARIANTS``): a tuning constant changed, the kernel body cut to an
 immediate return, which times the launch of the same grid and nothing
-else (the floor under every time chip_smoke.py reports). Each variant is
+else (the floor under every time chip_smoke.py reports), or the
+megaround's gate word left out or tested before any other load
+(``GATE_VARIANTS``: what the gate costs a live launch). Each variant is
 built with build.py's nvcc flags, checked against the kernel's plain
 version (empty bodies excepted) and timed with chip_smoke.py's
 CUDA-event median in four passes that alternate the order of the
@@ -31,19 +33,24 @@ import subprocess
 import sys
 
 KDIR = os.path.join("nhd_tpu_torch", "kernels")
+#: the first line of every gated kernel's body: its gate word's load
+GATE_LOAD = "    const int open = *gate;  // 0: nothing reaches device memory\n"
 EMPTY = {
-    "nic_node_masks": ("    const int NB = nodes_per_block;\n",
-                       "    if (N > 0) return;\n    const int NB = nodes_per_block;\n"),
-    "nic_any_first": ("    const int NB = nodes_per_block;\n",
-                      "    if (T > 0) return;\n    const int NB = nodes_per_block;\n"),
-    "solve_planes": ("    const int t = blockIdx.y;\n    const int sub",
-                     "    if (T > 0) return;\n    const int t = blockIdx.y;\n    const int sub"),
-    "spec_elect": ("    if (blockIdx.x == 0 && threadIdx.x == 0) status[0] = 0;\n",
-                   "    if (N > 0) return;\n"),
-    "spec_fill": ("    const int t = blockIdx.x;\n",
-                  "    if (N > 0) return;\n    const int t = blockIdx.x;\n"),
-    "spec_apply": ("    extern __shared__ float s_delta_all[];",
-                   "    if (N > 0) return;\n    extern __shared__ float s_delta_all[];"),
+    **{k: (GATE_LOAD, f"    if ({dim} > 0) return;\n" + GATE_LOAD)
+       for k, dim in (("nic_node_masks", "N"), ("nic_any_first", "T"),
+                      ("solve_planes", "T"), ("spec_elect", "N"),
+                      ("spec_fill", "N"), ("spec_apply", "N"))},
+    "spec_gate": ("    extern __shared__ unsigned long long s_need[];",
+                  "    if (TT > 0) return;\n    extern __shared__ unsigned long long s_need[];"),
+}
+#: the gate's cost at a live launch: the body without it (its load made a
+#: constant 1, so the check folds away), and the gate tested at the top
+#: before any other load (one round trip before the first of them)
+GATED = ("nic_node_masks", "nic_any_first", "solve_planes", "spec_elect",
+         "spec_fill", "spec_apply")
+GATE_VARIANTS = {
+    "ungated": "    const int open = 1;\n",
+    "gatefirst": "    if (*gate == 0) return;\n    const int open = 1;\n",
 }
 WARPS8 = "constexpr int WARPS = 8;"
 #: the claim kernels' offsets in 32-bit or 64-bit arithmetic
@@ -69,7 +76,7 @@ FILL_LOADS = """    load_row(elect, v_elect, mine, N, -1, e);
     load_row(hi, v_hi, mine, N, 0, h);
     load_row(cap, v_cap, mine, N, 0, c);
 """
-FILL_EXIT = "    if (need <= 0) return;  // spec_elect elected no node for this row\n"
+FILL_EXIT = "    if (!open || need <= 0) return;  // a dead iteration, or no node elected this row\n"
 NIC_TARGET = "const long long want = ((long long)C * A <= 32 ? 1LL : 2LL) * sm_count(device);"
 PLANES_TARGET = "const long long want = 2LL * sm_count(device);"
 #: (kernel, variant) -> (text in the committed source, its replacement)
@@ -103,6 +110,9 @@ VARIANTS = {
     ("spec_apply", "empty"): EMPTY["spec_apply"],
     ("spec_apply", "warps4"): (WARPS8, "constexpr int WARPS = 4;"),
     ("spec_apply", "idx64"): (IDX32, IDX64),
+    ("spec_gate", "committed"): None,
+    ("spec_gate", "empty"): EMPTY["spec_gate"],
+    **{(k, v): (GATE_LOAD, text) for k in GATED for v, text in GATE_VARIANTS.items()},
 }
 SOLVE = ("nic_node_masks", "nic_any_first", "solve_planes")
 CLAIM = ("spec_elect", "spec_fill", "spec_apply")
@@ -242,8 +252,9 @@ def claim_inputs(torch, dev):
         elect = tuple(t[k] for k in sweep.SPEC_ELECT_ARGS)
         work = [a.clone() for a in elect]
         plan = reference.spec_elect(*work, **kw)
-        fill = (plan.clone(), work[-1])  # status[0] cleared, as elect leaves it
-        reference.spec_fill(plan, work[-1].clone())
+        status = work[sweep.SPEC_ELECT_ARGS.index("status")]
+        fill = (plan.clone(), status, t["gate"])  # status[0] cleared, as elect leaves it
+        reference.spec_fill(plan, status.clone())
         staged = {
             "spec_elect": (elect, kw),
             "spec_fill": (fill, {}),

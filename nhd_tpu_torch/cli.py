@@ -497,13 +497,16 @@ def main(argv=None) -> int:
 
     def report_launches() -> None:
         """The kernels this process launched on the card, by name (all
-        0 on the CPU, where the wrappers run their plain versions)."""
+        0 on the CPU, where the wrappers run their plain versions), and
+        the megaround graphs' dispatches with their host seconds."""
         import json
 
         from nhd_tpu_torch import kernels
+        from nhd_tpu_torch.solver.speculate import graph_stats
 
         print(f"kernel launches: {json.dumps(dict(kernels.LAUNCHES))}",
               flush=True)
+        print(f"megaround graphs: {json.dumps(graph_stats())}", flush=True)
 
     def release_leadership() -> None:
         """Clean exits hand the lease over NOW: without the voluntary

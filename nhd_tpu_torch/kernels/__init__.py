@@ -1,7 +1,7 @@
 """The port's hand-written Hopper kernels and their wrappers.
 
-Six CUDA C++ kernels (sources beside this file, built by ``build.py`` at
-first use). Three carry the solve:
+Seven CUDA C++ kernels (sources beside this file, built by ``build.py``
+at first use). Three carry the solve:
 
 * ``nic_node_masks`` — pick validity and the PCI-switch check per
   (node, combo·pick) slot (reference: nhd_tpu/solver/kernel.py:136-160);
@@ -18,6 +18,17 @@ Three carry the claims of the speculative megaround between its solves
 * ``spec_apply`` — the claim deltas on the resident node state (in
   place) and the packed claim words.
 
+One carries the megaround's loop condition (reference: the
+``lax.while_loop`` cond at nhd_tpu/solver/speculate.py:533-535 and the
+``lax.cond`` that skips a bucket with no need, :286-289):
+
+* ``spec_gate`` — at the start of each iteration, the alive flag, the
+  iterations used and one live flag per bucket, in the control tensor.
+
+Every other kernel takes a ``gate`` (its last input, ``abi.py``): a word
+of that control tensor in the megaround, where 0 makes it return at
+once, and ``live_gate(device)``, always 1, elsewhere (the default).
+
 ``sweep.py`` makes random inputs at the shapes where the kernels' index
 logic can break; chip_smoke.py and the card tests hold the kernels to
 their plain versions on them.
@@ -27,6 +38,16 @@ on the CPU. For CUDA tensors it checks shapes, types and contiguity
 against the kernel's interface table (``abi.ABI``), launches the kernel
 on PyTorch's current stream, adds one to ``LAUNCHES[name]`` and raises if
 the launch failed: there is no fallback.
+
+A megaround on one device is a CUDA graph (solver/speculate.py): the
+wrappers run once, at its capture, where nothing launches, and each
+replay launches what they recorded. So a capture's launches go to a
+tally of its own (``capturing``), not to the counts, and each replay
+(``count_replay``) adds one to ``LAUNCHES["megaround_graph"]`` and the
+tally to each kernel's count: one replay of an ``iters``-deep graph
+counts ``iters`` launches of ``spec_gate`` and of each claim kernel and
+``iters`` of each solve kernel per bucket, dead iterations included
+(they launch and return at once).
 
 Threads: the streaming tiler (solver/streaming.py) launches from several
 worker threads at once. The counts are kept under a lock, and each
@@ -39,8 +60,9 @@ card; the build is under ``build._LOCK``.
 
 from __future__ import annotations
 
+import contextlib
 import threading
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 
@@ -55,18 +77,25 @@ KERNELS = tuple(ABI)
 SOLVE_KERNELS = ("nic_node_masks", "nic_any_first", "solve_planes")
 #: the megaround's claim kernels, in launch order (after the solves)
 CLAIM_KERNELS = ("spec_elect", "spec_fill", "spec_apply")
-assert set(KERNELS) == set(SOLVE_KERNELS + CLAIM_KERNELS)
+#: the megaround's loop condition, launched first in every iteration
+GATE_KERNEL = "spec_gate"
+assert set(KERNELS) == set(SOLVE_KERNELS + CLAIM_KERNELS + (GATE_KERNEL,))
+#: the count of megaround graph replays
+GRAPH = "megaround_graph"
+#: every name ``LAUNCHES`` counts: the kernels, then the graph replays
+COUNTED = KERNELS + (GRAPH,)
 
 #: launches per kernel since the last reset_launches() — counted where a
-#: wrapper launches its kernel and nowhere else
-LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+#: wrapper launches its kernel, or where a graph replay launches what the
+#: wrappers recorded at its capture, and nowhere else
+LAUNCHES: Dict[str, int] = {name: 0 for name in COUNTED}
 _COUNT_LOCK = threading.Lock()
 _THREAD = threading.local()
 
 
 def reset_launches() -> None:
     with _COUNT_LOCK:
-        for name in KERNELS:
+        for name in COUNTED:
             LAUNCHES[name] = 0
 
 
@@ -74,16 +103,61 @@ def thread_launches() -> Dict[str, int]:
     """The calling thread's launches per kernel since the thread started
     (never reset): the difference of two readings is what the thread
     launched between them."""
-    return dict(getattr(_THREAD, "counts", None) or dict.fromkeys(KERNELS, 0))
+    return dict(getattr(_THREAD, "counts", None) or dict.fromkeys(COUNTED, 0))
+
+
+def _add(counts: Dict[str, int]) -> None:
+    with _COUNT_LOCK:
+        for name, n in counts.items():
+            LAUNCHES[name] += n
+    mine = getattr(_THREAD, "counts", None)
+    if mine is None:
+        mine = _THREAD.counts = dict.fromkeys(COUNTED, 0)
+    for name, n in counts.items():
+        mine[name] += n
 
 
 def _count(name: str) -> None:
-    with _COUNT_LOCK:
-        LAUNCHES[name] += 1
-    counts = getattr(_THREAD, "counts", None)
-    if counts is None:
-        counts = _THREAD.counts = dict.fromkeys(KERNELS, 0)
-    counts[name] += 1
+    tally = getattr(_THREAD, "tally", None)
+    if tally is not None:
+        tally[name] += 1
+        return
+    _add({name: 1})
+
+
+@contextlib.contextmanager
+def capturing() -> Iterator[Dict[str, int]]:
+    """While inside, the calling thread's launches go to the yielded
+    tally and not to the counts: a graph capture, where the wrappers
+    record their kernels and nothing launches."""
+    prev = getattr(_THREAD, "tally", None)
+    tally = _THREAD.tally = dict.fromkeys(KERNELS, 0)
+    try:
+        yield tally
+    finally:
+        _THREAD.tally = prev
+
+
+def count_replay(tally: Dict[str, int]) -> None:
+    """One replay of a graph whose capture recorded *tally*."""
+    _add({GRAPH: 1, **tally})
+
+
+_LIVE: Dict[torch.device, Tensor] = {}
+
+
+def live_gate(device) -> Tensor:
+    """The gate word of a launch outside the megaround on *device*: an
+    int32 [1] tensor holding 1, made once per device and never written."""
+    dev = torch.device(device)
+    gate = _LIVE.get(dev)
+    if gate is None:
+        gate = _LIVE.setdefault(dev, torch.ones(1, dtype=torch.int32, device=dev))
+    return gate
+
+
+def _gate(gate: Optional[Tensor], like: Tensor) -> Tensor:
+    return live_gate(like.device) if gate is None else gate
 
 
 def _on_cpu(t: Tensor) -> bool:
@@ -146,8 +220,9 @@ def _launch(name: str, inputs: Sequence[Tensor], sizes: Dict[str, int],
 
 def sizes_for(name: str, args: Sequence[Tensor], **kw) -> Dict[str, int]:
     """Kernel *name*'s size symbols on *args* (its input tensors in
-    ``ABI`` order) and the wrapper's keywords *kw*: the wrappers and any
-    direct caller of an entry point derive them here alone."""
+    ``ABI`` order, the gate included) and the wrapper's keywords *kw*:
+    the wrappers and any direct caller of an entry point derive them
+    here alone."""
     t = dict(zip((a.name for a in ABI[name].inputs), args, strict=True))
     if name == "nic_node_masks":
         N, U = t["nic_count"].shape
@@ -168,6 +243,9 @@ def sizes_for(name: str, args: Sequence[Tensor], **kw) -> Dict[str, int]:
                     NCLS=t["class_score"].shape[-1], G1=G + 1, P=len(PLANES),
                     node_base=base,
                     n_global=N if n_global is None else int(n_global))
+    if name == "spec_gate":
+        TT1, B1 = t["status"].shape[0], t["offsets"].shape[0]
+        return dict(TT=TT1 - 1, TT1=TT1, B=B1 - 1, B1=B1, B2=B1 + 1)
     if name == "spec_fill":
         TT1 = t["status"].shape[0]
         return dict(TT=TT1 - 1, TT1=TT1, N=t["plan"].shape[1])
@@ -189,9 +267,11 @@ def sizes_for(name: str, args: Sequence[Tensor], **kw) -> Dict[str, int]:
 def nic_node_masks(
     nic_count: Tensor, nic_sw: Tensor, gpu_free_sw: Tensor,
     combo: Tensor, pick: Tensor, need_max: Tensor,
+    gate: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Tensor]:
     """(valid [N, C*A] bool, pci_ok [N, C*A] bool)."""
-    args = (nic_count, nic_sw, gpu_free_sw, combo, pick, need_max)
+    args = (nic_count, nic_sw, gpu_free_sw, combo, pick, need_max,
+            _gate(gate, nic_count))
     if _on_cpu(nic_count):
         return reference.nic_node_masks(*args)
     valid, pci_ok = _launch("nic_node_masks", args, sizes_for("nic_node_masks", args))
@@ -201,17 +281,20 @@ def nic_node_masks(
 def nic_any_first(
     free_rx: Tensor, free_tx: Tensor, dem_rx: Tensor, dem_tx: Tensor,
     unchosen: Tensor, valid: Tensor, pci_ok: Tensor, map_pci: Tensor,
+    gate: Optional[Tensor] = None,
     *, U: int, K: int, C: int, A: int,
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """(nic_any [T, N, C] bool, first_a [T, N, C] int32, n_picks [T, N, C]
     int32), the signature of attic/nic_pallas.py nic_any_first."""
+    gate = _gate(gate, free_rx)
     if _on_cpu(free_rx):
         return reference.nic_any_first(
             free_rx, free_tx, dem_rx, dem_tx, unchosen, valid, pci_ok,
-            map_pci, U=U, K=K, C=C, A=A,
+            map_pci, gate, U=U, K=K, C=C, A=A,
         )
     map_pci = (map_pci if map_pci.dtype == torch.bool else map_pci != 0).contiguous()
-    args = (free_rx, free_tx, dem_rx, dem_tx, unchosen, valid, pci_ok, map_pci)
+    args = (free_rx, free_tx, dem_rx, dem_tx, unchosen, valid, pci_ok, map_pci,
+            gate)
     nic_any, first_a, n_picks = _launch(
         "nic_any_first", args, sizes_for("nic_any_first", args, U=U, K=K, C=C, A=A),
     )
@@ -224,22 +307,26 @@ def solve_planes(
     cpu_dem_smt, cpu_dem_raw, gpu_dem, hp, needs_gpu, pod_gmask,
     class_score,
     combo, maxdig, skew,
-    nic_any, first_a, n_picks,
+    nic_any, first_a, n_picks, gate=None,
     *, out: Optional[Tensor] = None, node_base: int = 0,
     n_global: Optional[int] = None,
 ) -> Tensor:
     """[8, T, N] int32 planes, rows in ``PLANES`` order; written into
-    *out* when given (a contiguous [8, T, N] int32 tensor). On a mesh
-    shard, the N nodes are global rows [node_base, node_base + N) of
-    *n_global* (default N), and sel ranks them by their global index."""
+    *out* when given (a contiguous [8, T, N] int32 tensor), which a dead
+    *gate* leaves as it was. On a mesh shard, the N nodes are global rows
+    [node_base, node_base + N) of *n_global* (default N), and sel ranks
+    them by their global index."""
     args = (
         numa_nodes, smt, active, maintenance, busy, gpuless, node_gmask,
         hp_free, cpu_free, gpu_free, node_class,
         cpu_dem_smt, cpu_dem_raw, gpu_dem, hp, needs_gpu, pod_gmask,
         class_score, combo, maxdig, skew, nic_any, first_a, n_picks,
+        _gate(gate, numa_nodes),
     )
     place = dict(node_base=node_base, n_global=n_global)
     if _on_cpu(numa_nodes):
+        if out is not None and reference._dead(args[-1]):
+            return out
         planes = reference.solve_planes(*args, **place)
         return planes if out is None else out.copy_(planes)
     if class_score.shape[-1] < 1:
@@ -250,13 +337,26 @@ def solve_planes(
     return planes
 
 
+def spec_gate(status: Tensor, offsets: Tensor, ctl: Tensor) -> None:
+    """Open one megaround iteration: write its alive flag, iteration
+    count and per-bucket live flags into *ctl* (``abi.py``) from the
+    progress flag and the need in *status* and the buckets' first rows
+    *offsets*."""
+    args = (status, offsets, ctl)
+    if _on_cpu(status):
+        return reference.spec_gate(*args)
+    _launch("spec_gate", args, sizes_for("spec_gate", args))
+    return None
+
+
 def spec_elect(
     planes, plane_off, trow, smt, cpu_free, gpu_free, hp_free, nic_free,
-    cpu_g, cpu_m, gpu_g, nic_occ, status, *, sharing: bool, respect_busy: bool,
+    cpu_g, cpu_m, gpu_g, nic_occ, status, gate=None, *, sharing: bool,
+    respect_busy: bool,
 ) -> Tensor:
     """The per-node plan [7, N] int32 (``PLAN`` rows); clears status[0]."""
     args = (planes, plane_off, trow, smt, cpu_free, gpu_free, hp_free,
-            nic_free, cpu_g, cpu_m, gpu_g, nic_occ, status)
+            nic_free, cpu_g, cpu_m, gpu_g, nic_occ, status, _gate(gate, planes))
     if _on_cpu(planes):
         return reference.spec_elect(*args, sharing=sharing,
                                     respect_busy=respect_busy)
@@ -266,24 +366,25 @@ def spec_elect(
     return plan
 
 
-def spec_fill(plan: Tensor, status: Tensor) -> None:
+def spec_fill(plan: Tensor, status: Tensor, gate: Optional[Tensor] = None) -> None:
     """Fill plan's count row; update the need and progress in *status*."""
+    args = (plan, status, _gate(gate, plan))
     if _on_cpu(plan):
-        return reference.spec_fill(plan, status)
-    _launch("spec_fill", (plan, status), sizes_for("spec_fill", (plan, status)))
+        return reference.spec_fill(*args)
+    _launch("spec_fill", args, sizes_for("spec_fill", args))
     return None
 
 
 def spec_apply(
     plan, trow, smt, nic_sw, cpu_g, cpu_m, gpu_g, nic_occ, gpu_uk, nic_rx,
     nic_tx, busy, hp_free, cpu_free, gpu_free, nic_free, gpu_free_sw,
-    claims, counts, *, it: int, sharing: bool, respect_busy: bool,
+    claims, counts, gate=None, *, it: int, sharing: bool, respect_busy: bool,
 ) -> None:
     """Apply the claims of *plan* to the node tensors in place and record
     them in row *it* of claims and counts."""
     args = (plan, trow, smt, nic_sw, cpu_g, cpu_m, gpu_g, nic_occ, gpu_uk,
             nic_rx, nic_tx, busy, hp_free, cpu_free, gpu_free, nic_free,
-            gpu_free_sw, claims, counts)
+            gpu_free_sw, claims, counts, _gate(gate, plan))
     if _on_cpu(plan):
         return reference.spec_apply(*args, it=it, sharing=sharing,
                                     respect_busy=respect_busy)

@@ -21,6 +21,15 @@ padded rows, bucket after bucket; ``TT1`` = TT + 1 for the status
 vector), with ``CM`` and ``CAM`` the largest C and C*A of its buckets,
 ``PL`` the length of the flat solve-plane buffer and ``IT`` the
 iteration depth; ``it``, ``SHARING`` and ``BUSY`` are plain ints.
+
+Every kernel but ``spec_gate`` takes a ``gate`` (its last input): one
+int32 word, and where it is 0 the kernel returns at once. In the
+megaround it is a word of the control tensor ``ctl`` [B + 2] (``B``
+buckets; ``B1`` = B + 1 bucket offsets, ``B2`` = B + 2) that
+``spec_gate`` writes at the start of each iteration: ``ctl[0]`` the
+loop's alive flag (the claim kernels' gate), ``ctl[1]`` the iterations
+used, ``ctl[2 + b]`` bucket b's live flag (its solve kernels' gate).
+Elsewhere it is a word that is always 1 (``kernels.live_gate``).
 """
 
 from __future__ import annotations
@@ -69,6 +78,7 @@ ABI: Dict[str, KernelABI] = {
             _a("combo", "int32", "C G"),
             _a("pick", "int32", "A G"),
             _a("need_max", "int32", "C A U"),
+            _a("gate", "int32", "ONE"),
             _a("valid", "bool", "N CA", out=True),
             _a("pci_ok", "bool", "N CA", out=True),
         ),
@@ -85,6 +95,7 @@ ABI: Dict[str, KernelABI] = {
             _a("valid", "bool", "N CA"),
             _a("pci_ok", "bool", "N CA"),
             _a("map_pci", "bool", "T"),
+            _a("gate", "int32", "ONE"),
             _a("nic_any", "bool", "T N C", out=True),
             _a("first_a", "int32", "T N C", out=True),
             _a("n_picks", "int32", "T N C", out=True),
@@ -118,6 +129,7 @@ ABI: Dict[str, KernelABI] = {
             _a("nic_any", "bool", "T N C"),
             _a("first_a", "int32", "T N C"),
             _a("n_picks", "int32", "T N C"),
+            _a("gate", "int32", "ONE"),
             _a("out", "int32", "P T N", out=True),
         ),
         ("T", "N", "U", "G", "C", "NCLS", "node_base", "n_global"),
@@ -138,6 +150,7 @@ ABI: Dict[str, KernelABI] = {
             _a("gpu_g", "float32", "TT CM U"),
             _a("nic_occ", "float32", "TT CAM U"),
             _io("status", "int32", "TT1"),
+            _a("gate", "int32", "ONE"),
             _a("plan", "int32", "PLAN N", out=True),
         ),
         ("TT", "N", "U", "K", "CM", "CAM", "SHARING", "BUSY"),
@@ -147,6 +160,7 @@ ABI: Dict[str, KernelABI] = {
         (
             _io("plan", "int32", "PLAN N"),
             _io("status", "int32", "TT1"),
+            _a("gate", "int32", "ONE"),
         ),
         ("TT", "N"),
     ),
@@ -172,13 +186,23 @@ ABI: Dict[str, KernelABI] = {
             _io("gpu_free_sw", "int32", "N S"),
             _io("claims", "int32", "IT N"),
             _io("counts", "int32", "IT N"),
+            _a("gate", "int32", "ONE"),
         ),
         ("TT", "N", "U", "K", "S", "CM", "CAM", "IT", "it", "SHARING", "BUSY"),
+    ),
+    "spec_gate": KernelABI(
+        "nhd_spec_gate",
+        (
+            _a("status", "int32", "TT1"),
+            _a("offsets", "int32", "B1"),
+            _io("ctl", "int32", "B2"),
+        ),
+        ("TT", "B"),
     ),
 }
 
 #: fixed size symbols: the small constant axes of the claim kernels' tables
-FIXED = {"TWO": 2, "FOUR": 4, "PLAN": 7}
+FIXED = {"TWO": 2, "FOUR": 4, "PLAN": 7, "ONE": 1}
 
 def shape(arg: Arg, sizes: Dict[str, int]) -> Tuple[int, ...]:
     """The shape of *arg* at *sizes*."""

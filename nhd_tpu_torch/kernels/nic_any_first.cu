@@ -50,6 +50,14 @@
 //     blocks), G=1 and cfg3 run NB=32 (256 blocks) and the wide bucket
 //     amortises its setup over 64 nodes.
 
+// Gate: *gate* is one int32 word of the megaround's control tensor (the
+// bucket's live flag, written by spec_gate.cu). Where it is 0 every block
+// returns before it writes device memory: a dead iteration of the
+// fixed-trip megaround, or a bucket with no need left. Its load issues
+// beside the kernel's first loads and is tested after them, so a live
+// launch waits for no extra round trip. Outside the megaround it is a
+// word that is always 1.
+
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -150,12 +158,14 @@ __global__ void __launch_bounds__(THREADS) nic_any_first_kernel(
     const uint8_t* __restrict__ valid,     // [N, CA]
     const uint8_t* __restrict__ pci_ok,    // [N, CA]
     const uint8_t* __restrict__ map_pci,   // [T]
+    const int32_t* __restrict__ gate,      // [1]: 0 = a dead megaround bucket
     uint8_t* __restrict__ nic_any,         // [T, N, C]
     int32_t* __restrict__ first_a,         // [T, N, C]
     int32_t* __restrict__ n_picks,         // [T, N, C]
     int T, int N, int UK, int C, int A,
     int nodes_per_block, int combos_per_block)
 {
+    const int open = *gate;  // 0: nothing reaches device memory
     const int NB = nodes_per_block;
     const int CPB = combos_per_block;
     extern __shared__ __align__(16) unsigned char smem[];
@@ -186,6 +196,7 @@ __global__ void __launch_bounds__(THREADS) nic_any_first_kernel(
             s_head[i] = make_float2(free_rx[n0 * UK + i], free_tx[n0 * UK + i]);
     }
     __syncthreads();
+    if (!open) return;  // the whole block: the gate's load beside the staging's
 
     // Warps over (chunk, nodes): with at least WARPS chunks a warp takes
     // every WARPS-th chunk and all nodes, starting at its own node so that
@@ -315,7 +326,7 @@ cudaError_t launch(
     const Plan& pl,
     const void* free_rx, const void* free_tx, const void* dem_rx,
     const void* dem_tx, const void* unchosen, const void* valid,
-    const void* pci_ok, const void* map_pci,
+    const void* pci_ok, const void* map_pci, const void* gate,
     void* nic_any, void* first_a, void* n_picks,
     int T, int N, int UK, int C, int A, cudaStream_t stream)
 {
@@ -324,7 +335,7 @@ cudaError_t launch(
         (const float*)free_rx, (const float*)free_tx,
         (const float*)dem_rx, (const float*)dem_tx,
         (const uint8_t*)unchosen, (const uint8_t*)valid,
-        (const uint8_t*)pci_ok, (const uint8_t*)map_pci,
+        (const uint8_t*)pci_ok, (const uint8_t*)map_pci, (const int32_t*)gate,
         (uint8_t*)nic_any, (int32_t*)first_a, (int32_t*)n_picks,
         T, N, UK, C, A, pl.nodes_per_block, pl.combos_per_block);
     return cudaGetLastError();
@@ -336,7 +347,7 @@ extern "C" int nhd_nic_any_first(
     const void* free_rx, const void* free_tx,
     const void* dem_rx, const void* dem_tx,
     const void* unchosen, const void* valid, const void* pci_ok,
-    const void* map_pci,
+    const void* map_pci, const void* gate,
     void* nic_any, void* first_a, void* n_picks,
     int T, int N, int UK, int C, int A,
     int device, void* stream)
@@ -350,10 +361,10 @@ extern "C" int nhd_nic_any_first(
         return (int)cudaErrorInvalidConfiguration;
     err = pl.staged
         ? launch<true>(pl, free_rx, free_tx, dem_rx, dem_tx, unchosen, valid, pci_ok,
-                       map_pci, nic_any, first_a, n_picks, T, N, UK, C, A,
+                       map_pci, gate, nic_any, first_a, n_picks, T, N, UK, C, A,
                        (cudaStream_t)stream)
         : launch<false>(pl, free_rx, free_tx, dem_rx, dem_tx, unchosen, valid, pci_ok,
-                        map_pci, nic_any, first_a, n_picks, T, N, UK, C, A,
+                        map_pci, gate, nic_any, first_a, n_picks, T, N, UK, C, A,
                         (cudaStream_t)stream);
     return (int)err;
 }

@@ -27,6 +27,14 @@
 // A node row past 48 KB of shared memory (U*K in the thousands) is read
 // from global memory through the same pointer instead of being staged.
 
+// Gate: *gate* is one int32 word of the megaround's control tensor (the
+// bucket's live flag, written by spec_gate.cu). Where it is 0 every block
+// returns before it writes device memory: a dead iteration of the
+// fixed-trip megaround, or a bucket with no need left. Its load issues
+// beside the kernel's first loads and is tested after them, so a live
+// launch waits for no extra round trip. Outside the megaround it is a
+// word that is always 1.
+
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -50,11 +58,13 @@ __global__ void __launch_bounds__(THREADS) nic_node_masks_kernel(
     const int32_t* __restrict__ combo,        // [C, G]
     const int32_t* __restrict__ pick,         // [A, G]
     const int32_t* __restrict__ need_max,     // [C, A, U] == [C*A, U]
+    const int32_t* __restrict__ gate,         // [1]: 0 = a dead megaround bucket
     uint8_t* __restrict__ valid,              // [N, C*A]
     uint8_t* __restrict__ pci_ok,             // [N, C*A]
     int N, int U, int K, int S, int G, int C, int A,
     int ca_chunk, int nodes_per_pass, int nodes_per_block, int staged)
 {
+    const int open = *gate;  // 0: nothing reaches device memory
     extern __shared__ int32_t smem[];
     const int CA = C * A;
     const int UK = U * K;
@@ -77,6 +87,7 @@ __global__ void __launch_bounds__(THREADS) nic_node_masks_kernel(
         }
     }
     __syncthreads();
+    if (!open) return;  // the whole block: the gate's load beside the staging's
     for (int j = threadIdx.x; j < nb; j += blockDim.x) {
         bool ok = true;
         for (int s = 0; s < S; ++s) ok = ok && (s_fsw[j * S + s] >= 0);
@@ -135,7 +146,7 @@ __global__ void __launch_bounds__(THREADS) nic_node_masks_kernel(
 extern "C" int nhd_nic_node_masks(
     const void* nic_count, const void* nic_sw, const void* gpu_free_sw,
     const void* combo, const void* pick, const void* need_max,
-    void* valid, void* pci_ok,
+    const void* gate, void* valid, void* pci_ok,
     int N, int U, int K, int S, int G, int C, int A,
     int device, void* stream)
 {
@@ -174,14 +185,14 @@ extern "C" int nhd_nic_node_masks(
             (const int32_t*)nic_count, (const int32_t*)nic_sw,
             (const int32_t*)gpu_free_sw, (const int32_t*)combo,
             (const int32_t*)pick, (const int32_t*)need_max,
-            (uint8_t*)valid, (uint8_t*)pci_ok, N, U, K, S, G, C, A,
+            (const int32_t*)gate, (uint8_t*)valid, (uint8_t*)pci_ok, N, U, K, S, G, C, A,
             ca_chunk, per_pass, NB, staged);
     } else {
         nic_node_masks_kernel<NHD_MAX_G><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
             (const int32_t*)nic_count, (const int32_t*)nic_sw,
             (const int32_t*)gpu_free_sw, (const int32_t*)combo,
             (const int32_t*)pick, (const int32_t*)need_max,
-            (uint8_t*)valid, (uint8_t*)pci_ok, N, U, K, S, G, C, A,
+            (const int32_t*)gate, (uint8_t*)valid, (uint8_t*)pci_ok, N, U, K, S, G, C, A,
             ca_chunk, per_pass, NB, staged);
     }
     return (int)cudaGetLastError();

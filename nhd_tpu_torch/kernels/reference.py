@@ -9,6 +9,10 @@ integer cast, which returns the FIRST maximum as ``jnp.argmax`` does
 
 The NIC stage loops over the U*K slots the way the TPU kernel unrolled
 them, so its largest temporary is [T, N, C*A], never [T, N, C*A, U*K].
+
+Each takes the kernel's ``gate`` word (``abi.py``; None reads as 1) and
+honours it as the kernel does: a gate of 0 writes nothing in place, and
+an output the kernel would leave unwritten comes back as zeros.
 """
 
 from __future__ import annotations
@@ -18,6 +22,11 @@ from typing import Optional, Tuple
 import torch
 
 Tensor = torch.Tensor
+
+def _dead(gate: Optional[Tensor]) -> bool:
+    """A gate word of 0: the kernel returns at once."""
+    return gate is not None and int(gate[0]) == 0
+
 
 #: solve_planes output rows, in order
 PLANES = (
@@ -32,6 +41,7 @@ def nic_node_masks(
     combo: Tensor,        # [C, G] int32
     pick: Tensor,         # [A, G] int32
     need_max: Tensor,     # [C, A, U] int32
+    gate: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Tensor]:
     """(valid, pci_ok), each [N, C*A] bool (kernel.py:136-160 of the
     reference)."""
@@ -39,6 +49,9 @@ def nic_node_masks(
     S = gpu_free_sw.shape[1]
     C, G = combo.shape
     A = pick.shape[0]
+    if _dead(gate):
+        zero = torch.zeros((N, C * A), dtype=torch.bool, device=nic_count.device)
+        return zero, zero.clone()
     valid = (need_max[None] <= nic_count[:, None, None, :]).all(-1)  # [N,C,A]
     u_idx = combo.long()[:, None, :].expand(C, A, G)
     k_idx = pick.long()[None, :, :].expand(C, A, G)
@@ -63,11 +76,15 @@ def nic_any_first(
     valid: Tensor,     # [N, C*A] bool
     pci_ok: Tensor,    # [N, C*A] bool
     map_pci: Tensor,   # [T] bool or int
+    gate: Optional[Tensor] = None,
     *, U: int, K: int, C: int, A: int,
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """(nic_any [T, N, C] bool, first_a [T, N, C] int32, n_picks [T, N, C]
     int32) — attic/nic_pallas.py nic_any_first."""
     T, N = dem_rx.shape[0], free_rx.shape[0]
+    if _dead(gate):
+        zero = torch.zeros((T, N, C), dtype=torch.int32, device=free_rx.device)
+        return zero.bool(), zero, zero.clone()
     pci = map_pci != 0
     fit = valid[None] & (pci_ok[None] | ~pci[:, None, None])  # [T, N, CA]
     for uk in range(U * K):
@@ -89,7 +106,7 @@ def solve_planes(
     cpu_dem_smt, cpu_dem_raw, gpu_dem, hp, needs_gpu, pod_gmask,
     class_score,
     combo, maxdig, skew,
-    nic_any, first_a, n_picks,
+    nic_any, first_a, n_picks, gate=None,
     *, node_base: int = 0, n_global: Optional[int] = None,
 ) -> Tensor:
     """[8, T, N] int32 planes in PLANES order (kernel.py:41-204 minus the
@@ -102,6 +119,8 @@ def solve_planes(
     G = combo.shape[1]
     dev = nic_any.device
     i32 = torch.int32
+    if _dead(gate):
+        return torch.zeros((len(PLANES), T, N), dtype=i32, device=dev)
     onehot = (
         combo.long()[:, :, None] == torch.arange(U, device=dev)
     ).to(i32)  # [C, G, U]
@@ -209,12 +228,15 @@ def _div_min_u(free_u: Tensor, dem_u: Tensor) -> Tensor:
 
 def spec_elect(
     planes, plane_off, trow, smt, cpu_free, gpu_free, hp_free, nic_free,
-    cpu_g, cpu_m, gpu_g, nic_occ, status, *, sharing: bool, respect_busy: bool,
+    cpu_g, cpu_m, gpu_g, nic_occ, status, gate=None, *, sharing: bool,
+    respect_busy: bool,
 ) -> Tensor:
     """The election and the capacity (speculate.py:301-404): [7, N] int32
     in PLAN order. Clears the progress flag status[0]."""
     N, U = cpu_free.shape
     i32 = torch.int32
+    if _dead(gate):
+        return torch.zeros((len(PLAN), N), dtype=i32, device=planes.device)
     need = status[1:]
     rows, ps = _plane_rows(planes, plane_off, N)
     cand = planes[rows + ps] != 0
@@ -259,12 +281,14 @@ def spec_elect(
     return plan
 
 
-def spec_fill(plan: Tensor, status: Tensor) -> None:
+def spec_fill(plan: Tensor, status: Tensor, gate: Optional[Tensor] = None) -> None:
     """The balanced fill (speculate.py:406-448, 529): each type's copies
     go to its elected nodes at ceil(need / winners) each, pref-2 winners by
     node index first, then pref-1 winners. Writes plan's count row,
     subtracts the takes from the need (status[1:]) and sets the progress
     flag status[0] when anything was taken."""
+    if _dead(gate):
+        return
     TT, N = status.shape[0] - 1, plan.shape[1]
     i32 = torch.int32
     need = status[1:]
@@ -293,7 +317,7 @@ def spec_fill(plan: Tensor, status: Tensor) -> None:
 def spec_apply(
     plan, trow, smt, nic_sw, cpu_g, cpu_m, gpu_g, nic_occ, gpu_uk, nic_rx,
     nic_tx, busy, hp_free, cpu_free, gpu_free, nic_free, gpu_free_sw,
-    claims, counts, *, it: int, sharing: bool, respect_busy: bool,
+    claims, counts, gate=None, *, it: int, sharing: bool, respect_busy: bool,
 ) -> None:
     """The claim deltas and the claim record (speculate.py:448-527) for the
     nodes that took copies: cpu, gpu and hugepages, NIC bandwidth (sharing
@@ -301,6 +325,8 @@ def spec_apply(
     through nic_sw, busy; the packed claim word and the count go to row
     *it* of claims and counts. Every float step is the reference's: f32
     arithmetic, then a truncating cast back."""
+    if _dead(gate):
+        return
     U = cpu_free.shape[1]
     K = nic_sw.shape[2]
     S = gpu_free_sw.shape[1]
@@ -338,3 +364,22 @@ def spec_apply(
     word = t.to(i32) * (1 << _T_SHIFT) + (p[3] * U + p[4]) * trow[t, 0] + p[5]
     claims[it, ns] = word
     counts[it, ns] = p[6]
+
+
+def spec_gate(status: Tensor, offsets: Tensor, ctl: Tensor) -> None:
+    """The megaround's loop condition (spec_gate.cu; the reference's
+    while-loop cond, speculate.py:533-535, and its per-bucket skip,
+    :286-289), written into *ctl* [B + 2] from the progress flag
+    status[0], the need status[1:] and the buckets' first rows *offsets*
+    [B + 1]: ctl[0] = ctl[0] and status[0] and sum(need) > 0 (alive),
+    ctl[1] += alive, ctl[2 + b] = alive and bucket b's need sum > 0."""
+    need = status[1:].long()
+    TT, B = need.shape[0], offsets.shape[0] - 1
+    rows = torch.arange(TT, device=status.device)
+    bucket = torch.searchsorted(offsets[1:].long(), rows, right=True)
+    per = torch.zeros(B, dtype=torch.int64, device=status.device)
+    per.index_add_(0, bucket, need)
+    alive = (ctl[0] != 0) & (status[0] != 0) & (per.sum() > 0)
+    ctl[1] += alive.to(ctl.dtype)
+    ctl[2:] = ((per > 0) & alive).to(ctl.dtype)
+    ctl[0] = alive.to(ctl.dtype)

@@ -56,6 +56,14 @@
 // The 64-bit group-mask AND stays `long long` (the JAX reference cuts it
 // to 32 bits; the port does not).
 
+// Gate: *gate* is one int32 word of the megaround's control tensor (the
+// bucket's live flag, written by spec_gate.cu). Where it is 0 every block
+// returns before it writes device memory: a dead iteration of the
+// fixed-trip megaround, or a bucket with no need left. Its load issues
+// beside the kernel's first loads and is tested after them, so a live
+// launch waits for no extra round trip. Outside the megaround it is a
+// word that is always 1.
+
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -113,10 +121,12 @@ __global__ void solve_planes_kernel(
     const uint8_t* __restrict__ nic_any,       // [T, N, C]
     const int32_t* __restrict__ first_a,       // [T, N, C]
     const int32_t* __restrict__ n_picks,       // [T, N, C]
+    const int32_t* __restrict__ gate,          // [1]: 0 = a dead megaround bucket
     int32_t* __restrict__ out,                 // [8, T, N]
     int T, int N, int U, int G, int C, int NCLS, int L, int staged,
     int node_base, int n_global)
 {
+    const int open = *gate;  // 0: nothing reaches device memory
     const int t = blockIdx.y;
     const int sub = threadIdx.x & (L - 1);
     const int per_block = blockDim.x / L;
@@ -150,6 +160,7 @@ __global__ void solve_planes_kernel(
     const bool nic0 = first_live && nic_any[row + sub] != 0;
     const int a0 = first_live ? first_a[row + sub] : 0;
     const int p0 = first_live ? n_picks[row + sub] : 0;
+    if (!open) return;  // the whole block: the gate's load beside the scalars'
     if (staged) {
         const long long row_base = n0 * U;
         const long long node_end = (long long)N * U;
@@ -291,7 +302,7 @@ extern "C" int nhd_solve_planes(
     const void* class_score,
     const void* combo, const void* maxdig, const void* skew,
     const void* nic_any, const void* first_a, const void* n_picks,
-    void* out,
+    const void* gate, void* out,
     int T, int N, int U, int G, int C, int NCLS, int node_base, int n_global,
     int device, void* stream)
 {
@@ -329,7 +340,7 @@ extern "C" int nhd_solve_planes(
         (const int32_t*)class_score,
         (const int32_t*)combo, (const int32_t*)maxdig, (const int32_t*)skew,
         (const uint8_t*)nic_any, (const int32_t*)first_a,
-        (const int32_t*)n_picks, (int32_t*)out,
+        (const int32_t*)n_picks, (const int32_t*)gate, (int32_t*)out,
         T, N, U, G, C, NCLS, L, staged ? 1 : 0, node_base, n_global);
     return (int)cudaGetLastError();
 }

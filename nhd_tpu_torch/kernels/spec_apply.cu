@@ -56,6 +56,13 @@
 //     elements or more: 64-bit offsets timed up to 0.0002 ms slower at
 //     cfg4's and cfg3's shapes on an H100 (kernel_variants.py, idx64).
 
+// Gate: *gate* is one int32 word of the megaround's control tensor (its
+// alive flag, written by spec_gate.cu). Where it is 0 every block returns
+// before it writes device memory: a dead iteration of the fixed-trip
+// megaround. Its load issues beside the kernel's first loads and is
+// tested after them, so a live launch waits for no extra round trip.
+// Outside the megaround it is a word that is always 1.
+
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -98,9 +105,11 @@ __global__ void __launch_bounds__(THREADS) spec_apply_kernel(
     int32_t* __restrict__ gpu_free_sw,     // [N, S]
     int32_t* __restrict__ claims,          // [IT, N]
     int32_t* __restrict__ counts,          // [IT, N]
+    const int32_t* __restrict__ gate,      // [1]: 0 = a dead megaround iteration
     int TT, int N, int U, int K, int S, int CM, int CAM, int it,
     int sharing, int respect_busy)
 {
+    const int open = *gate;  // 0: nothing reaches device memory
     extern __shared__ float s_delta_all[];  // [warps a block, S]
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int n = blockIdx.x * (blockDim.x >> 5) + warp;
@@ -114,7 +123,7 @@ __global__ void __launch_bounds__(THREADS) spec_apply_kernel(
     const int a = plan[5 * row + n];
     const int k = plan[6 * row + n];
     const bool smt_n = smt[n];
-    if (t < 0 || k <= 0) return;
+    if (!open || t < 0 || k <= 0) return;  // a dead iteration, or no copies
 
     const int A_t = trow[4 * t], C_t = trow[4 * t + 1], hp_t = trow[4 * t + 3];
     const int cb = min(max(c, 0), C_t - 1);
@@ -199,7 +208,7 @@ extern "C" int nhd_spec_apply(
     const void* cpu_g, const void* cpu_m, const void* gpu_g, const void* nic_occ,
     const void* gpu_uk, const void* nic_rx, const void* nic_tx,
     void* busy, void* hp_free, void* cpu_free, void* gpu_free, void* nic_free,
-    void* gpu_free_sw, void* claims, void* counts,
+    void* gpu_free_sw, void* claims, void* counts, const void* gate,
     int TT, int N, int U, int K, int S, int CM, int CAM, int IT, int it,
     int SHARING, int BUSY, int device, void* stream)
 {
@@ -227,7 +236,7 @@ extern "C" int nhd_spec_apply(
         (const float*)nic_rx, (const float*)nic_tx, (bool*)busy,
         (int32_t*)hp_free, (int32_t*)cpu_free, (int32_t*)gpu_free,
         (float*)nic_free, (int32_t*)gpu_free_sw, (int32_t*)claims,
-        (int32_t*)counts, TT, N, U, K, S, CM, CAM, it, SHARING, BUSY);
+        (int32_t*)counts, (const int32_t*)gate, TT, N, U, K, S, CM, CAM, it, SHARING, BUSY);
     return (int)cudaGetLastError();
 }
 

@@ -49,6 +49,13 @@
 // must match XLA's bit for bit. The key is computed in unsigned arithmetic,
 // so a pref large enough to wrap wraps as int32 tensors do.
 
+// Gate: *gate* is one int32 word of the megaround's control tensor (its
+// alive flag, written by spec_gate.cu). Where it is 0 every block returns
+// before it writes device memory: a dead iteration of the fixed-trip
+// megaround. Its load issues beside the kernel's first loads and is
+// tested after them, so a live launch waits for no extra round trip.
+// Outside the megaround it is a word that is always 1.
+
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -90,16 +97,19 @@ __global__ void __launch_bounds__(THREADS) spec_elect_kernel(
     const float* __restrict__ gpu_g,          // [TT, CM, U]
     const float* __restrict__ nic_occ,        // [TT, CAM, U]
     int32_t* __restrict__ status,             // [TT + 1]: progress, need
+    const int32_t* __restrict__ gate,         // [1]: 0 = a dead megaround iteration
     int32_t* __restrict__ plan,               // [7, N]
     int TT, int N, int U, int K, int CM, int CAM, int sharing, int respect_busy)
 {
-    if (blockIdx.x == 0 && threadIdx.x == 0) status[0] = 0;
+    const int open = *gate;  // 0: nothing reaches device memory
     const int32_t* need = status + 1;
     const int lane = threadIdx.x & 31;
     const int n = blockIdx.x * WARPS + (threadIdx.x >> 5);
     if (n >= N) return;  // the whole warp
     const bool smt_n = smt[n];
     const int hp_n = hp_free[n];
+    if (!open) return;  // the gate's load beside the node's first two
+    if (n == 0 && lane == 0) status[0] = 0;  // block 0's first thread
 
     // --- the election: lanes across type rows ---
     int best_key = INT32_MIN, best_t = INT32_MAX, best_pref = 0;
@@ -198,7 +208,8 @@ extern "C" int nhd_spec_elect(
     const void* planes, const void* plane_off, const void* trow, const void* smt,
     const void* cpu_free, const void* gpu_free, const void* hp_free,
     const void* nic_free, const void* cpu_g, const void* cpu_m,
-    const void* gpu_g, const void* nic_occ, void* status, void* plan,
+    const void* gpu_g, const void* nic_occ, void* status, const void* gate,
+    void* plan,
     int TT, int N, int U, int K, int CM, int CAM, int SHARING, int BUSY,
     int device, void* stream)
 {
@@ -212,7 +223,7 @@ extern "C" int nhd_spec_elect(
         (const bool*)smt, (const int32_t*)cpu_free, (const int32_t*)gpu_free,
         (const int32_t*)hp_free, (const float*)nic_free, (const float*)cpu_g,
         (const float*)cpu_m, (const float*)gpu_g, (const float*)nic_occ,
-        (int32_t*)status, (int32_t*)plan, TT, N, U, K, CM, CAM, SHARING, BUSY);
+        (int32_t*)status, (const int32_t*)gate, (int32_t*)plan, TT, N, U, K, CM, CAM, SHARING, BUSY);
     return (int)cudaGetLastError();
 }
 

@@ -62,6 +62,13 @@
 // bits; the launcher refuses an N above 2^31 - 1 - TILE, where a tile's
 // last node index would overflow.
 
+// Gate: *gate* is one int32 word of the megaround's control tensor (its
+// alive flag, written by spec_gate.cu). Where it is 0 every block returns
+// before it writes device memory: a dead iteration of the fixed-trip
+// megaround. Its load issues beside the kernel's first loads and is
+// tested after them, so a live launch waits for no extra round trip.
+// Outside the megaround it is a word that is always 1.
+
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -109,8 +116,10 @@ __device__ __forceinline__ int capw_of(int e, int c, int t, int fair)
 __global__ void __launch_bounds__(THREADS) spec_fill_kernel(
     int32_t* __restrict__ plan,    // [7, N]
     int32_t* __restrict__ status,  // [TT + 1]
+    const int32_t* __restrict__ gate,  // [1]: 0 = a dead megaround iteration
     int N)
 {
+    const int open = *gate;  // 0: nothing reaches device memory
     __shared__ int s_win[WARPS];
     __shared__ int s_hi[WARPS];
     __shared__ int2 s_scan[2][WARPS];
@@ -128,7 +137,7 @@ __global__ void __launch_bounds__(THREADS) spec_fill_kernel(
     load_row(elect, v_elect, mine, N, -1, e);
     load_row(hi, v_hi, mine, N, 0, h);
     load_row(cap, v_cap, mine, N, 0, c);
-    if (need <= 0) return;  // spec_elect elected no node for this row
+    if (!open || need <= 0) return;  // a dead iteration, or no node elected this row
 
     // the winner count: one barrier
     int wins = 0;
@@ -231,14 +240,15 @@ __global__ void __launch_bounds__(THREADS) spec_fill_kernel(
 }  // namespace
 
 extern "C" int nhd_spec_fill(
-    void* plan, void* status, int TT, int N, int device, void* stream)
+    void* plan, void* status, const void* gate, int TT, int N, int device,
+    void* stream)
 {
     if (TT < 0 || N < 0 || N > INT_MAX - TILE) return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if (TT == 0 || N == 0) return 0;
     spec_fill_kernel<<<(unsigned)TT, THREADS, 0, (cudaStream_t)stream>>>(
-        (int32_t*)plan, (int32_t*)status, N);
+        (int32_t*)plan, (int32_t*)status, (const int32_t*)gate, N);
     return (int)cudaGetLastError();
 }
 

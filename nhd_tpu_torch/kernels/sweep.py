@@ -310,6 +310,7 @@ def spec_case(seed: int, N: int, U: int, K: int, S: int, buckets, sharing: bool,
         status=np.concatenate([[1], need]).astype(i32),
         claims=np.full((4, N), -1, i32),
         counts=np.zeros((4, N), i32),
+        gate=np.ones(1, i32),
         it=int(rng.integers(0, 4)), sharing=sharing, respect_busy=respect_busy,
     )
     if fill == "tie":
@@ -400,7 +401,53 @@ def fill_case(seed: int, TT: int, N: int, fill: str = "rand") -> Tuple[np.ndarra
 #: argument names of the claim kernels, in their wrappers' order
 SPEC_ELECT_ARGS = ("planes", "plane_off", "trow", "smt", "cpu_free", "gpu_free",
                    "hp_free", "nic_free", "cpu_g", "cpu_m", "gpu_g", "nic_occ",
-                   "status")
+                   "status", "gate")
 SPEC_APPLY_ARGS = ("trow", "smt", "nic_sw", "cpu_g", "cpu_m", "gpu_g", "nic_occ",
                    "gpu_uk", "nic_rx", "nic_tx", "busy", "hp_free", "cpu_free",
-                   "gpu_free", "nic_free", "gpu_free_sw", "claims", "counts")
+                   "gpu_free", "nic_free", "gpu_free_sw", "claims", "counts",
+                   "gate")
+
+#: (TT, B, fill) of ``spec_gate``: one row and one bucket; rows that are
+#: no multiple of the 256-thread block, and past it and past four of it
+#: (a thread sums rows of several buckets); more buckets than rows of a
+#: thread's stride, and buckets of one row. ``fill`` "rand" draws need
+#: and flags, "dead" starts the loop dead (ctl[0] 0), "stalled" has no
+#: progress (status[0] 0), "spent" has no need left, "one" need in the
+#: last bucket only, "neg" negative entries (a bucket is live on its sum,
+#: not on any row) and "big" needs near 2^31 (the sums are 64-bit).
+GATE_SWEEP = (
+    (1, 1, "rand"), (7, 3, "rand"), (256, 2, "rand"), (257, 5, "rand"),
+    (1023, 64, "rand"), (1023, 1023, "rand"), (48, 4, "dead"),
+    (48, 4, "stalled"), (48, 4, "spent"), (600, 9, "one"), (300, 6, "neg"),
+    (512, 3, "big"),
+)
+
+
+def gate_case(seed: int, TT: int, B: int, fill: str = "rand"
+              ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(status [TT + 1], offsets [B + 1], ctl [B + 2]) of ``spec_gate``,
+    int32: B buckets of at least one row each over TT rows, need and
+    flags as *fill* says (the ``GATE_SWEEP`` notes)."""
+    rng = np.random.default_rng(seed)
+    cuts = np.sort(rng.choice(np.arange(1, TT), B - 1, replace=False)) if B > 1 else []
+    offsets = np.concatenate([[0], cuts, [TT]]).astype(np.int32)
+    need = rng.integers(0, 5, TT) * (rng.random(TT) < 0.3)
+    progress = int(rng.random() < 0.8)
+    ctl = np.concatenate([[1, rng.integers(0, 16)], rng.integers(0, 2, B)])
+    if fill == "dead":
+        ctl[0] = 0
+    elif fill == "stalled":
+        progress = 0
+    elif fill == "spent":
+        need[:] = 0
+    elif fill == "one":
+        need[:] = 0
+        need[offsets[-2]:] = rng.integers(1, 3, TT - offsets[-2])
+    elif fill == "neg":
+        need = rng.integers(-3, 4, TT)
+        progress = 1
+    elif fill == "big":
+        need = rng.integers(2**30, 2**31 - 1, TT)
+        progress = 1
+    status = np.concatenate([[progress], need]).astype(np.int32)
+    return status, offsets, ctl.astype(np.int32)

@@ -2,7 +2,7 @@
 
 The counterpart of the reference's nhd_tpu/solver/aot.py, which keeps
 one StableHLO program per compiled solve shape. The port compiles no
-per-shape program: each of its six CUDA kernels is one library, built
+per-shape program: each of its seven CUDA kernels is one library, built
 by ``nvcc`` from its source (kernels/build.py) and shape-generic. So
 its cache keeps the reference's contract on two kinds of artifact:
 
@@ -29,9 +29,11 @@ its cache keeps the reference's contract on two kinds of artifact:
   ``aot_export_failures_total`` and logs once.
 
 ``prewarm(progress=, device=, mesh=)`` (daemon flag ``--prewarm``)
-builds any missing library and loads all six, creates the CUDA context,
-and for every manifest key runs the solve kernels (and, for a megaround
-key, the claim kernels) once on zeros at that shape, a mesh key over the
+builds any missing library and loads all seven, creates the CUDA context,
+and for every manifest key runs the solve kernels (and, for a
+single-device megaround key, captures the key's graph into the
+process's cache and replays it; on a mesh, the host loop's claim
+kernels) once on zeros at that shape, a mesh key over the
 caller's mesh when its descriptor matches, else over a mesh rebuilt on
 the local devices; a mesh key that needs more devices than the host has
 is skipped (left in place, neither warmed nor quarantined, as the
@@ -504,13 +506,22 @@ def _warm_ranked(spec: dict, device, mesh=None) -> None:
 
 
 def _warm_megaround(spec: dict, device, mesh=None) -> None:
-    """One iteration of the claim loop at the bucket set's shapes: one
+    """One dispatch of the claim loop at the bucket set's shapes: one
     pending pod of the first type row, on zero node state, so every
-    solve and claim kernel launches once and nothing is claimed."""
+    solve and claim kernel launches and nothing is claimed. On one
+    device that is the graph path: the key's graph captured into the
+    process's cache (``speculate.GRAPHS``) and replayed once over the
+    zero state, for both busy rules (the daemon respects the GPU busy
+    window, a bare batch need not), so the first batch of the key
+    replays it."""
     import numpy as np
 
     from nhd_tpu_torch.solver.kernel import _ARG_ORDER, upload_pods
-    from nhd_tpu_torch.solver.speculate import run_megaround_shards, spec_iters
+    from nhd_tpu_torch.solver.speculate import (
+        GRAPHS,
+        run_megaround_shards,
+        spec_iters,
+    )
 
     devices, shards = _shard_zeros(spec["node"], device, mesh)
     bucket_pods, tensors, needs = [], [], []
@@ -522,6 +533,12 @@ def _warm_megaround(spec: dict, device, mesh=None) -> None:
         need = np.zeros(Tp, np.int32)
         need[0] = 1
         needs.append(need)
+    if mesh is None:
+        for respect_busy in (False, True):
+            GRAPHS.run(dict(zip(_ARG_ORDER, shards[0], strict=True)),
+                       bucket_pods, needs, spec["U"], spec["K"], spec_iters(),
+                       respect_busy)
+        return
     run_megaround_shards(
         [dict(zip(_ARG_ORDER, node, strict=True)) for node in shards],
         bucket_pods, [[pt[s] for pt in tensors] for s in range(len(shards))],
@@ -616,12 +633,17 @@ def _first_bind_probe(prewarm_first: bool, save: bool, device) -> dict:
     backend.create_pod(
         "aot-probe-0", cfg_text=make_triad_config(gpus_per_group=1)
     )
+    from nhd_tpu_torch.solver.speculate import graph_stats
+
     before = dict(build.COUNTS)
+    captures = graph_stats()["captures"]
     t0 = time.perf_counter()
     sched.attempt_scheduling_batch([("aot-probe-0", "default", "uid-aot")])
     out["first_bind_s"] = time.perf_counter() - t0
     out["bind_builds"] = build.COUNTS["builds"] - before["builds"]
     out["bind_loads"] = build.COUNTS["loads"] - before["loads"]
+    # megaround graphs captured inside the bind (0 after a prewarm)
+    out["bind_captures"] = graph_stats()["captures"] - captures
     out["bound"] = backend.pods[("default", "aot-probe-0")].node
     if out["bound"] is None:
         # a failed bind is usually FASTER than a successful one

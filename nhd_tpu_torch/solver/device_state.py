@@ -313,8 +313,11 @@ class DeviceClusterState:
         """Run the speculative multi-round (solver/speculate.py) against
         the resident tensors: up to spec_iters() claim rounds for every
         bucket jointly, the claim kernels updating the mutable tensors in
-        place (the reference donated them to its jitted loop); on a mesh
-        each shard's, with the balanced fill over the gathered plan.
+        place (the reference donated them to its jitted loop). On one
+        device it is one replay of the key's graph (``speculate.GRAPHS``,
+        captured at the key's first dispatch in the process; the trip
+        launch by launch on the CPU); on a mesh each shard's host loop,
+        with the balanced fill over the gathered plan.
 
         ``bucket_pods``: PodTypeArrays per bucket, in bucket-dict order;
         ``needs``: per-bucket int32 [Tp] pending-pod counts. Returns the
@@ -323,7 +326,11 @@ class DeviceClusterState:
         lead device. If anything raises, the mutable tensors are rebuilt
         from the host mirror (source of truth) before the error
         propagates."""
-        from nhd_tpu_torch.solver.speculate import run_megaround_shards, spec_iters
+        from nhd_tpu_torch.solver.speculate import (
+            GRAPHS,
+            run_megaround_shards,
+            spec_iters,
+        )
 
         self._flush_staged()
         shapes = tuple(
@@ -338,13 +345,19 @@ class DeviceClusterState:
 
         guard.maybe_inject("megaround", f"B{len(bucket_pods)}_N{self.Np}")
         try:
-            tensors = [self.shard_pod_tensors(pods) for pods in bucket_pods]
             aot.maybe_record(aot.ShapeKey("megaround", key), lambda: dict(
                 U=self.cluster.U, K=self.cluster.K, mesh=desc,
                 node=aot.arg_spec(self.shard_tensors()[0]),
-                buckets=[dict(G=pods.G, pod=aot.arg_spec(pt[0].args))
-                         for pods, pt in zip(bucket_pods, tensors)],
+                buckets=[dict(G=pods.G, pod=aot.arg_spec(self.pod_tensors(pods).args))
+                         for pods in bucket_pods],
             ))
+            if self.mesh is None:
+                # the graph takes the pods' host arrays in its staging
+                # copy: nothing is uploaded for it here
+                return GRAPHS.run(
+                    self._dev, bucket_pods, needs, self.cluster.U,
+                    self.cluster.K, spec_iters(), respect_busy)
+            tensors = [self.shard_pod_tensors(pods) for pods in bucket_pods]
             return run_megaround_shards(
                 self.shards, bucket_pods,
                 [[pt[s] for pt in tensors] for s in range(len(self.shards))],

@@ -34,12 +34,13 @@ from __future__ import annotations
 import os
 from dataclasses import dataclass
 from functools import lru_cache
-from typing import List, NamedTuple, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from nhd_tpu_torch import kernels
+from nhd_tpu_torch.kernels import live_gate
 from nhd_tpu_torch.device import DeviceLike, resolve_device
 from nhd_tpu_torch.obs.jitstats import JIT_STATS
 from nhd_tpu_torch.solver.combos import get_tables
@@ -279,32 +280,45 @@ def upload_pods(pods, Tp: int, U: int, K: int, device: torch.device) -> PodTenso
     )
 
 
-def mask_args(node: Sequence[Tensor], pod: PodTensors) -> tuple:
-    """The arguments of ``kernels.nic_node_masks`` for one solve."""
+def _gate(gate: Optional[Tensor], node: Sequence[Tensor]) -> Tensor:
+    return live_gate(node[0].device) if gate is None else gate
+
+
+def mask_args(node: Sequence[Tensor], pod: PodTensors,
+              gate: Optional[Tensor] = None) -> tuple:
+    """The arguments of ``kernels.nic_node_masks`` for one solve, its
+    *gate* last (default: always live)."""
     a = dict(zip(_ARG_ORDER, node))
     tb = pod.tables
     return (a["nic_count"], a["nic_sw"], a["gpu_free_sw"],
-            tb.combo, tb.pick, tb.need_max)
+            tb.combo, tb.pick, tb.need_max, _gate(gate, node))
+
+
+def free_planes(node: Sequence[Tensor]) -> Tuple[Tensor, Tensor]:
+    """The node NIC headroom split into contiguous rx/tx [N, U*K] planes."""
+    a = dict(zip(_ARG_ORDER, node))
+    nic_free = a["nic_free"].reshape(a["nic_free"].shape[0], -1, 2)
+    return nic_free[..., 0].contiguous(), nic_free[..., 1].contiguous()
 
 
 def nic_args(node: Sequence[Tensor], pod: PodTensors, valid: Tensor,
-             pci_ok: Tensor):
+             pci_ok: Tensor, gate: Optional[Tensor] = None,
+             free: Optional[Tuple[Tensor, Tensor]] = None):
     """(args, keywords) of ``kernels.nic_any_first`` for one solve: the
-    node NIC headroom split into contiguous rx/tx [N, U*K] planes."""
-    a = dict(zip(_ARG_ORDER, node))
+    headroom planes *free* (default ``free_planes(node)``)."""
     tb = pod.tables
-    N = a["numa_nodes"].shape[0]
-    nic_free = a["nic_free"].reshape(N, tb.U * tb.K, 2)
     map_pci = pod.args[_POD_ARG_ORDER.index("map_pci")]
     return (
-        (nic_free[..., 0].contiguous(), nic_free[..., 1].contiguous(),
-         pod.dem_rx, pod.dem_tx, tb.unchosen, valid, pci_ok, map_pci),
+        (*(free_planes(node) if free is None else free),
+         pod.dem_rx, pod.dem_tx, tb.unchosen, valid, pci_ok, map_pci,
+         _gate(gate, node)),
         dict(U=tb.U, K=tb.K, C=tb.C, A=tb.A),
     )
 
 
 def plane_args(node: Sequence[Tensor], pod: PodTensors, nic_any: Tensor,
-               first_a: Tensor, n_picks: Tensor) -> tuple:
+               first_a: Tensor, n_picks: Tensor,
+               gate: Optional[Tensor] = None) -> tuple:
     """The arguments of ``kernels.solve_planes`` for one solve."""
     a = dict(zip(_ARG_ORDER, node))
     p = dict(zip(_POD_ARG_ORDER, pod.args))
@@ -316,25 +330,31 @@ def plane_args(node: Sequence[Tensor], pod: PodTensors, nic_any: Tensor,
         p["cpu_dem_smt"], p["cpu_dem_raw"], p["gpu_dem"], p["hp"],
         p["needs_gpu"], p["group_mask"], p["class_score"],
         tb.combo, tb.maxdig, tb.skew, nic_any, first_a, n_picks,
+        _gate(gate, node),
     )
 
 
 def solve_planes(G: int, U: int, K: int, node: Sequence[Tensor],
                  pod: PodTensors, out: Optional[Tensor] = None, *,
-                 node_base: int = 0, n_global: Optional[int] = None) -> Tensor:
+                 node_base: int = 0, n_global: Optional[int] = None,
+                 gate: Optional[Tensor] = None,
+                 free: Optional[Tuple[Tensor, Tensor]] = None) -> Tensor:
     """The padded solve: [8, Tp, Np] int32 planes (kernels.PLANES order)
     from the 15 node tensors (``_ARG_ORDER``) and one bucket's pod
     tensors — three kernel launches on CUDA tensors. With *out*, the
     planes are written there (the megaround's plane buffer). On a mesh
     shard, *node* holds global rows [node_base, node_base + Ns) of a
-    padded axis of *n_global* rows, and sel ranks by the global index."""
+    padded axis of *n_global* rows, and sel ranks by the global index.
+    *gate*: the bucket's live flag in the megaround (``kernels/abi.py``):
+    where it is 0 the three kernels return at once and *out* keeps its
+    planes. *free*: ``free_planes(node)``, when the caller has them."""
     tb = pod.tables
     if (tb.G, tb.U, tb.K) != (G, U, K):
         raise ValueError(f"pod tensors were built for {(tb.G, tb.U, tb.K)}")
-    valid, pci_ok = kernels.nic_node_masks(*mask_args(node, pod))
-    args, kw = nic_args(node, pod, valid, pci_ok)
+    valid, pci_ok = kernels.nic_node_masks(*mask_args(node, pod, gate))
+    args, kw = nic_args(node, pod, valid, pci_ok, gate, free)
     nic = kernels.nic_any_first(*args, **kw)
-    return kernels.solve_planes(*plane_args(node, pod, *nic), out=out,
+    return kernels.solve_planes(*plane_args(node, pod, *nic, gate), out=out,
                                 node_base=node_base, n_global=n_global)
 
 

@@ -13,19 +13,34 @@ per (iteration, node) plus a counts plane. The host then re-verifies
 every claim through the native assignment, exactly like a classic round;
 what it rejects retries in the classic rounds that follow.
 
-The reference runs the loop as one ``lax.while_loop``. Here it is a host
-loop of at most ``spec_iters()`` iterations: per iteration the three
-solve kernels for each live bucket (nhd_tpu_torch/kernels), then the
-three claim kernels ``spec_elect``, ``spec_fill`` and ``spec_apply``,
-then ONE small pull of the status vector (the progress flag and the need
-of every type row). The loop stops where the reference's ``cond`` stops
-it and skips a bucket with no need where its ``lax.cond`` does, so the
-iteration count and the claims are the reference's. The per-bucket
-demand projections are hoisted out of the loop into tables over the
-global type axis, as the reference hoists them (speculate.py:176-248).
-The claim kernels update the resident node tensors in place.
+The reference runs the loop as one ``lax.while_loop``. On one device
+the port runs it as one CUDA graph: ``megaround_trip`` issues a fixed
+trip of ``spec_iters()`` iterations, each opened by the ``spec_gate``
+kernel, which decides on the card what the reference's ``cond`` decides
+(progress, need left; the trip itself is the ``it < iters`` bound) and
+which buckets still have need (its ``lax.cond``); every other kernel of
+the iteration (the three solve kernels of each bucket, then
+``spec_elect``, ``spec_fill`` and ``spec_apply``) returns at once where
+its gate word is 0. An iteration after the exit takes nothing and
+changes nothing, so the fixed trip's claims, counts, need and node state
+are the loop's, and the gate counts the iterations the loop would run.
+``MegaroundGraph`` holds the trip's buffers at fixed addresses (its own
+copy of the node tensors, the pod arrays, the hoisted tables, the status
+and control tensors, refilled through one pinned staging copy a
+dispatch) and captures the trip once per key in the process
+(``GRAPHS``); a dispatch is one replay and no device-to-host read. The
+CPU runs the same trip launch by launch through the plain versions. The
+per-bucket demand projections are hoisted out of the loop into tables
+over the global type axis, as the reference hoists them
+(speculate.py:176-248). The claim kernels update the node tensors in
+place.
 
-On a node mesh (parallel/sharding.py) the loop body is per node except
+``run_megaround_shards`` keeps the host loop: per iteration the solves
+of each live bucket and the claim kernels, then one small pull of the
+status vector to decide the next. ``run_megaround`` is its one-device
+case, kept as the yardstick the graph is held to.
+
+On a node mesh (parallel/sharding.py), the host loop's body is per node except
 the balanced fill, which takes each type's winner count and its
 exclusive scans over all nodes, and the need and progress flag, which
 are global: GSPMD placed those collectives for the reference. Here each
@@ -44,13 +59,18 @@ Claim word (one int32, -1 = no claim):
 
 from __future__ import annotations
 
+import collections
+import hashlib
 import os
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+import threading
+import time
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from nhd_tpu_torch import kernels
+from nhd_tpu_torch.kernels import capturing, count_replay
 from nhd_tpu_torch.kernels.reference import (
     FLAG_HAS_NIC,
     FLAG_MAP_PCI,
@@ -60,15 +80,20 @@ from nhd_tpu_torch.solver.combos import get_tables
 from nhd_tpu_torch.solver.device_state import HostPull
 from nhd_tpu_torch.solver.kernel import (
     _ARG_ORDER,
+    _MUTABLE,
     _POD_ARG_ORDER,
     PodTensors,
+    _pad_pow2,
     _pad_rows_to,
     bucket_tables,
+    free_planes,
+    nic_demand,
     solve_planes,
     to_device,
 )
 
 Tensor = torch.Tensor
+_HOST = torch.device("cpu")
 
 # t_global < 1024 (the 31 - _T_SHIFT bound enforced at dispatch,
 # batch._speculate_dispatch) and (c*U + m)*A + a < 2^21 for every
@@ -115,13 +140,25 @@ class SpecTables(NamedTuple):
     nic_tx: Tensor
 
 
-def spec_tables(bucket_pods: Sequence, pod_tensors: Sequence[PodTensors],
-                U: int, K: int, Np: int, device: torch.device) -> SpecTables:
-    """Build the hoisted tables (speculate.py:176-248 of the reference):
-    every entry is an integer or a sum of bandwidths on the request grid,
+def _shapes(bucket_pods: Sequence, pod_tensors: Optional[Sequence[PodTensors]] = None
+            ) -> List[Tuple[int, int]]:
+    """(G, Tp) per bucket: Tp from the uploads when given, else the
+    power-of-two padding ``DeviceClusterState.pod_tensors`` uploads."""
+    if pod_tensors is not None:
+        return [(p.G, int(pt.dem_rx.shape[0])) for p, pt in zip(bucket_pods, pod_tensors)]
+    return [(p.G, _pad_pow2(p.n_types)) for p in bucket_pods]
+
+
+def table_arrays(bucket_pods: Sequence, shapes: Sequence[Tuple[int, int]],
+                 U: int, K: int, Np: int) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
+    """The hoisted tables (speculate.py:176-248 of the reference) on the
+    host, with each bucket's padded pod arrays and NIC demand as
+    ``upload_pods`` makes them: (offsets, {name: array}), the tables by
+    their ``SpecTables`` names and bucket b's pod arrays as
+    ``"{b}.{name}"`` (``_POD_ARG_ORDER``, then ``dem_rx``, ``dem_tx``).
+    Every entry is an integer or a sum of bandwidths on the request grid,
     so the float32 values are the reference's einsums exactly."""
     f32 = np.float32
-    shapes = [(p.G, int(pt.dem_rx.shape[0])) for p, pt in zip(bucket_pods, pod_tensors)]
     offsets = np.cumsum([0] + [tp for _, tp in shapes])
     TT = int(offsets[-1])
     tabs = [get_tables(G, U, K) for G, _ in shapes]
@@ -135,12 +172,19 @@ def spec_tables(bucket_pods: Sequence, pod_tensors: Sequence[PodTensors],
     gpu_g = np.zeros((TT, CM, U), f32)
     nic_occ = np.zeros((TT, CAM, U), f32)
     gpu_uk = np.zeros((TT, CAM, UK), f32)
+    nic_rx = np.zeros((TT, CAM, UK), f32)
+    nic_tx = np.zeros((TT, CAM, UK), f32)
+    out: Dict[str, np.ndarray] = {}
     base = 0
     for b, (pods, tb, (G, Tp)) in enumerate(zip(bucket_pods, tabs, shapes)):
         lo = int(offsets[b])
         rows = slice(lo, lo + Tp)
         host = {name: _pad_rows_to(getattr(pods, name), Tp) for name in _POD_ARG_ORDER}
         C, A = tb.C, tb.A
+        dev_tb = bucket_tables(G, U, K, _HOST)
+        dem_rx, dem_tx = nic_demand(host["rx"], host["tx"], dev_tb)
+        out.update({f"{b}.{name}": a for name, a in host.items()})
+        out[f"{b}.dem_rx"], out[f"{b}.dem_tx"] = dem_rx, dem_tx
         onehot = tb.combo_onehot  # [C, G, U]
         for s, name in enumerate(("cpu_dem_smt", "cpu_dem_raw")):
             dem = host[name].astype(f32)
@@ -151,7 +195,7 @@ def spec_tables(bucket_pods: Sequence, pod_tensors: Sequence[PodTensors],
         rx, tx = host["rx"].astype(f32), host["tx"].astype(f32)
         needs_nic = (rx + tx) > 0                      # [Tp, G]
         map_pci = host["map_pci"].astype(bool)
-        slot = bucket_tables(G, U, K, device).slot     # [C*A, G] u*K + k
+        slot = dev_tb.slot                             # [C*A, G] u*K + k
         ca_rows = np.arange(C * A)
         occ = np.zeros((Tp, C * A, UK), f32)
         guk = np.zeros((Tp, C * A, UK), f32)
@@ -161,6 +205,8 @@ def spec_tables(bucket_pods: Sequence, pod_tensors: Sequence[PodTensors],
             guk[:, ca_rows, slot[:, g]] += (gpu_dem[:, g] * map_pci)[:, None]
         nic_occ[rows, : C * A] = (occ > 0).reshape(Tp, C * A, U, K).sum(-1)
         gpu_uk[rows, : C * A] = guk
+        nic_rx[rows, : C * A] = dem_rx
+        nic_tx[rows, : C * A] = dem_tx
         flags = (
             FLAG_NEEDS_GPU * host["needs_gpu"].astype(np.int32)
             + FLAG_MAP_PCI * map_pci.astype(np.int32)
@@ -171,20 +217,24 @@ def spec_tables(bucket_pods: Sequence, pod_tensors: Sequence[PodTensors],
         plane_off[rows, 0] = base + np.arange(Tp, dtype=np.int64) * Np
         plane_off[rows, 1] = Tp * Np
         base += 8 * Tp * Np
+    out.update(trow=trow, plane_off=plane_off, cpu_g=cpu_g, cpu_m=cpu_m,
+               gpu_g=gpu_g, nic_occ=nic_occ, gpu_uk=gpu_uk, nic_rx=nic_rx,
+               nic_tx=nic_tx)
+    return offsets, out
 
+
+def spec_tables(bucket_pods: Sequence, pod_tensors: Sequence[PodTensors],
+                U: int, K: int, Np: int, device: torch.device) -> SpecTables:
+    """The hoisted tables of ``table_arrays`` uploaded to *device*, with
+    a fresh plane buffer (the type rows padded as *pod_tensors* are)."""
+    shapes = _shapes(bucket_pods, pod_tensors)
+    offsets, host = table_arrays(bucket_pods, shapes, U, K, Np)
     planes, views = plane_buffer(shapes, Np, device)
-
-    def pad_slots(t: Tensor, C: int, A: int) -> Tensor:
-        out = torch.zeros((t.shape[0], CAM, UK), dtype=t.dtype, device=device)
-        out[:, : C * A] = t
-        return out
-
-    nic_rx = torch.cat([pad_slots(pt.dem_rx, tb.C, tb.A) for pt, tb in zip(pod_tensors, tabs)])
-    nic_tx = torch.cat([pad_slots(pt.dem_tx, tb.C, tb.A) for pt, tb in zip(pod_tensors, tabs)])
-    up = lambda a: to_device(a, device)  # noqa: E731
+    up = lambda name: to_device(host[name], device)  # noqa: E731
     return SpecTables(
-        offsets, up(trow), up(plane_off), planes, views, up(cpu_g), up(cpu_m),
-        up(gpu_g), up(nic_occ), up(gpu_uk), nic_rx, nic_tx,
+        offsets, up("trow"), up("plane_off"), planes, views, up("cpu_g"),
+        up("cpu_m"), up("gpu_g"), up("nic_occ"), up("gpu_uk"), up("nic_rx"),
+        up("nic_tx"),
     )
 
 
@@ -320,6 +370,417 @@ def run_megaround_shards(
         return torch.cat([t.to(lead) for t in parts], dim=1)
 
     return join(claims), join(counts), status[1:], it_t
+
+
+#: a single-device megaround on CUDA is a graph replay; a check that
+#: copies every launch's inputs (chip_smoke.py) sets it False for the
+#: duration, and the same trip then launches one kernel at a time, as it
+#: always does on the CPU
+REPLAY = True
+
+
+def megaround_trip(
+    node: Sequence[Tensor],
+    bucket_G: Sequence[int],
+    pods: Sequence[PodTensors],
+    tabs: SpecTables,
+    status: Tensor,
+    offsets: Tensor,
+    ctl: Tensor,
+    claims: Tensor,
+    counts: Tensor,
+    U: int,
+    K: int,
+    respect_busy: bool,
+    sharing: bool,
+) -> None:
+    """The claim loop as a fixed trip of ``claims.shape[0]`` iterations,
+    its control on the device: each iteration is ``spec_gate``, the three
+    solve kernels of every bucket, ``spec_elect``, ``spec_fill`` and
+    ``spec_apply``, in that order, against the node tensors *node*
+    (``_ARG_ORDER``; the mutable ones updated in place). ``spec_gate``
+    writes *ctl* [B + 2] from *status* (the progress flag, then the
+    need), so a bucket with no need skips its solves and an iteration
+    after the loop's exit (no progress, no need) does nothing: the claims,
+    counts, need and node state are those of the host loop, and ctl[1]
+    counts the iterations the host loop would run. ctl must start at
+    (1, 0, ...) and status[0] at 1. Nothing here reads the device from
+    the host, so a CUDA graph can capture it whole."""
+    claims.fill_(-1)
+    counts.zero_()
+    alive = ctl[0:1]
+    n = dict(zip(_ARG_ORDER, node))
+    for it in range(claims.shape[0]):
+        kernels.spec_gate(status, offsets, ctl)
+        free = free_planes(node)  # the iteration's headroom, for every bucket
+        for b, (G, pt) in enumerate(zip(bucket_G, pods)):
+            solve_planes(G, U, K, node, pt, out=tabs.views[b],
+                         gate=ctl[2 + b: 3 + b], free=free)
+        plan = kernels.spec_elect(
+            tabs.planes, tabs.plane_off, tabs.trow, n["smt"], n["cpu_free"],
+            n["gpu_free"], n["hp_free"], n["nic_free"], tabs.cpu_g, tabs.cpu_m,
+            tabs.gpu_g, tabs.nic_occ, status, alive, sharing=sharing,
+            respect_busy=respect_busy,
+        )
+        kernels.spec_fill(plan, status, alive)
+        kernels.spec_apply(
+            plan, tabs.trow, n["smt"], n["nic_sw"], tabs.cpu_g, tabs.cpu_m,
+            tabs.gpu_g, tabs.nic_occ, tabs.gpu_uk, tabs.nic_rx, tabs.nic_tx,
+            n["busy"], n["hp_free"], n["cpu_free"], n["gpu_free"],
+            n["nic_free"], n["gpu_free_sw"], claims, counts, alive, it=it,
+            sharing=sharing, respect_busy=respect_busy,
+        )
+
+
+def control_arrays(needs: Sequence[np.ndarray], shapes: Sequence[Tuple[int, int]]
+                   ) -> Dict[str, np.ndarray]:
+    """The part of a dispatch's table buffer that changes with the need:
+    the status vector (progress 1, then the padded need), the bucket
+    offsets and the control tensor's start (1, 0, ...)."""
+    need0 = np.concatenate([
+        _pad_rows_to(n.astype(np.int32), tp) for n, (_, tp) in zip(needs, shapes)
+    ])
+    ctl = np.zeros(len(shapes) + 2, np.int32)
+    ctl[0] = 1
+    return {
+        "status": np.concatenate([[1], need0]).astype(np.int32),
+        "offsets": np.cumsum([0] + [tp for _, tp in shapes]).astype(np.int32),
+        "ctl": ctl,
+    }
+
+
+def trip_arrays(bucket_pods: Sequence, needs: Sequence[np.ndarray],
+                shapes: Sequence[Tuple[int, int]], U: int, K: int, Np: int
+                ) -> Dict[str, np.ndarray]:
+    """Everything one dispatch writes into its graph's table buffer:
+    ``control_arrays``, then ``table_arrays``."""
+    return {**control_arrays(needs, shapes),
+            **table_arrays(bucket_pods, shapes, U, K, Np)[1]}
+
+
+def pods_digest(bucket_pods: Sequence) -> bytes:
+    """A digest of the buckets' type rows: with the key's shapes, U, K
+    and Np, ``table_arrays`` is a function of them alone."""
+    h = hashlib.blake2b(digest_size=16)
+    for pods in bucket_pods:
+        h.update(f"G{pods.G}".encode())
+        for name in _POD_ARG_ORDER:
+            a = np.ascontiguousarray(getattr(pods, name))
+            h.update(f"{name}{a.dtype.str}{a.shape}".encode())
+            h.update(a.data)
+    return h.digest()
+
+
+class TableBuffer:
+    """A megaround's per-dispatch inputs at fixed device addresses: one
+    device byte buffer holding a typed view per input (``views[name]``,
+    each at a 512-byte aligned offset), refilled from the host through
+    one pinned staging buffer and one copy. On the CPU the views are
+    filled in place."""
+
+    ALIGN = 512
+
+    def __init__(self, layout: Sequence[Tuple[str, str, Tuple[int, ...]]],
+                 device: torch.device):
+        places, at = [], 0
+        for name, dtype, shape in layout:
+            n = int(np.prod(shape, dtype=np.int64)) * np.dtype(dtype).itemsize
+            places.append((name, np.dtype(dtype), shape, at, n))
+            at += -(-n // self.ALIGN) * self.ALIGN
+        self.device = device
+        self.nbytes = max(at, self.ALIGN)
+        self.dev = torch.zeros(self.nbytes, dtype=torch.uint8, device=device)
+        self.host = (torch.zeros(self.dev.shape, dtype=torch.uint8, pin_memory=True)
+                     if device.type == "cuda" else self.dev)
+        raw = self.host.numpy()
+        self.views: Dict[str, Tensor] = {}
+        self._host: Dict[str, np.ndarray] = {}
+        self._span = {name: (at, n) for name, _d, _s, at, n in places}
+        for name, dtype, shape, at, n in places:
+            tdt = torch.from_numpy(np.empty(0, dtype)).dtype
+            self.views[name] = self.dev[at: at + n].view(tdt).view(shape)
+            self._host[name] = raw[at: at + n].view(dtype).reshape(shape)
+        self._copied = None  # the event after the last staging copy
+
+    def fill(self, arrays: Dict[str, np.ndarray]) -> None:
+        """Write *arrays* (names of the layout) into their views, in
+        stream order after everything queued before: one copy of the
+        span of the buffer they cover (the whole buffer when they are
+        every name); the other views keep what they hold."""
+        if self._copied is not None:
+            # the previous copy has read the staging buffer: long done
+            # wherever its dispatch's results were pulled
+            self._copied.synchronize()  # nhdlint: ignore[NHD107]
+        lo, hi = self.nbytes, 0
+        for name, a in arrays.items():
+            self._host[name][...] = a
+            at, n = self._span[name]
+            lo, hi = min(lo, at), max(hi, at + n)
+        if self.host is not self.dev and hi > lo:
+            self.dev[lo:hi].copy_(self.host[lo:hi], non_blocking=True)
+            self._copied = torch.cuda.Event()
+            self._copied.record(torch.cuda.current_stream(self.device))
+
+
+#: the host's parts of a graph dispatch, timed in ``MegaroundGraph.host_s``:
+#: the key and digest, the table build (when the type rows changed), the
+#: staging copy, the node tensors in, the replay's enqueue (the trip's
+#: launches on the CPU) and the mutable tensors back with the results
+DISPATCH_PARTS = ("key", "tables", "fill", "copy_in", "replay", "copy_out")
+
+#: one capture at a time in the process: a capture must not meet another
+#: thread's capture on the card
+_CAPTURE_LOCK = threading.Lock()
+
+
+def _graph_error(what: str, exc: BaseException) -> BaseException:
+    """*exc*, from a capture or a replay, as a KernelLaunchError with the
+    CUDA error code it carries (901, a stream capture invalidated, where
+    it names none), so the solver guard classifies it as any launch."""
+    from nhd_tpu_torch.kernels.build import KernelLaunchError
+
+    if isinstance(exc, KernelLaunchError):
+        return exc
+    code = getattr(exc, "error_code", None)
+    return KernelLaunchError(kernels.GRAPH, code if isinstance(code, int) else 901,
+                             f"{what}: {exc}")
+
+
+class MegaroundGraph:
+    """One single-device megaround at fixed shapes: its own copy of the
+    node tensors, the table buffer (pod arrays, hoisted tables, status,
+    offsets, control), the plane buffer and the claim planes, all held
+    here so their addresses never move, and on CUDA the captured graph
+    of ``megaround_trip`` over them. A dispatch copies the caller's
+    resident node tensors in, refills the table buffer, replays (or, on
+    the CPU and with ``REPLAY`` off, issues the trip launch by
+    launch), copies the six mutable node tensors back and returns copies
+    of the results. The graph bakes in no address of the caller's, so
+    one capture serves every resident state of the key: each batch's
+    own, each tile's, a rebuilt one's."""
+
+    def __init__(self, node: Dict[str, Tensor], bucket_G: Sequence[int],
+                 shapes: Sequence[Tuple[int, int]], U: int, K: int,
+                 iters: int, respect_busy: bool, sharing: bool,
+                 layout: Sequence[Tuple[str, str, Tuple[int, ...]]]):
+        self.device = node["hp_free"].device
+        Np = int(node["hp_free"].shape[0])
+        self.node = {name: torch.zeros_like(node[name]) for name in _ARG_ORDER}
+        self.bucket_G = list(bucket_G)
+        self.U, self.K = U, K
+        self.respect_busy, self.sharing = respect_busy, sharing
+        self.buf = TableBuffer(layout, self.device)
+        v = self.buf.views
+        planes, views = plane_buffer(shapes, Np, self.device)
+        self.tabs = SpecTables(
+            None, v["trow"], v["plane_off"], planes, views, v["cpu_g"],
+            v["cpu_m"], v["gpu_g"], v["nic_occ"], v["gpu_uk"], v["nic_rx"],
+            v["nic_tx"],
+        )
+        self.pods = [
+            PodTensors([v[f"{b}.{name}"] for name in _POD_ARG_ORDER],
+                       v[f"{b}.dem_rx"], v[f"{b}.dem_tx"],
+                       bucket_tables(G, U, K, self.device))
+            for b, G in enumerate(self.bucket_G)
+        ]
+        i32 = torch.int32
+        self.claims = torch.full((iters, Np), -1, dtype=i32, device=self.device)
+        self.counts = torch.zeros((iters, Np), dtype=i32, device=self.device)
+        self.lock = threading.Lock()
+        self.graph = None
+        self.tally: Dict[str, int] = {}
+        #: host seconds of the warm-up and the capture (None until captured)
+        self.capture_s: Optional[float] = None
+        self.replays = 0
+        #: host seconds of the dispatches by part (``DISPATCH_PARTS``)
+        self.host_s = dict.fromkeys(DISPATCH_PARTS, 0.0)
+        self.dispatches = 0
+        self._done = None  # the event after the last dispatch's copies
+        self._digest: Optional[bytes] = None  # the type rows the tables hold
+
+    def trip(self) -> None:
+        v = self.buf.views
+        megaround_trip([self.node[name] for name in _ARG_ORDER], self.bucket_G,
+                       self.pods, self.tabs, v["status"], v["offsets"],
+                       v["ctl"], self.claims, self.counts, self.U, self.K,
+                       self.respect_busy, self.sharing)
+
+    def capture(self) -> None:
+        """Warm every launch once with the loop dead (each kernel loads
+        and returns; nothing is written but the claim planes' reset), then
+        capture the trip on a side stream of its own, one capture at a
+        time in the process."""
+        t0 = time.perf_counter()
+        self.buf.views["ctl"].zero_()
+        self.trip()
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        graph = torch.cuda.CUDAGraph()  # nhdlint: ignore[NHD104] once per cache entry
+        try:
+            with _CAPTURE_LOCK, torch.cuda.stream(side), capturing() as tally:
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    self.trip()
+                finally:
+                    graph.capture_end()
+        except Exception as exc:
+            raise _graph_error("megaround capture", exc) from exc
+        cur.wait_stream(side)
+        self.graph, self.tally = graph, dict(tally)
+        self.capture_s = time.perf_counter() - t0
+
+    def run(self, node: Dict[str, Tensor], control: Dict[str, np.ndarray],
+            digest: bytes, tables: Callable[[], Dict[str, np.ndarray]]
+            ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+        """One dispatch against the resident tensors *node* (updated in
+        place), with the need in *control* (``control_arrays``) and the
+        buckets' type rows of *digest* (``pods_digest``), whose tables
+        *tables* builds: built and copied only when the digest differs
+        from the last dispatch's (no kernel writes them). Returns
+        (claims [iters, Np], counts [iters, Np], need left [TT],
+        iterations used as a scalar), device copies that the next
+        dispatch does not touch. Call under ``lock``."""
+        cuda = self.device.type == "cuda"
+        graph = cuda and REPLAY
+        if graph and self.graph is None:
+            self.capture()
+        clock = [time.perf_counter()]
+
+        def lap(part: str) -> None:
+            clock.append(time.perf_counter())
+            self.host_s[part] += clock[-1] - clock[-2]
+
+        if cuda and self._done is not None:
+            # the last dispatch's work is queued before this one's even
+            # where its thread launched on another stream
+            torch.cuda.current_stream(self.device).wait_event(self._done)
+        if digest != self._digest:
+            self._digest = None  # until the fill below is queued
+            arrays = {**control, **tables()}
+            lap("tables")
+            self.buf.fill(arrays)
+            self._digest = digest
+        else:
+            self.buf.fill(control)
+        lap("fill")
+        for name in _ARG_ORDER:
+            self.node[name].copy_(node[name])
+        lap("copy_in")
+        if graph:
+            try:
+                self.graph.replay()
+            except Exception as exc:
+                raise _graph_error("megaround replay", exc) from exc
+            count_replay(self.tally)
+            self.replays += 1
+        else:
+            self.trip()
+        lap("replay")
+        for name in _MUTABLE:
+            node[name].copy_(self.node[name])
+        v = self.buf.views
+        out = (self.claims.clone(), self.counts.clone(),
+               v["status"][1:].clone(), v["ctl"][1].clone())
+        if cuda:
+            self._done = torch.cuda.Event()
+            self._done.record(torch.cuda.current_stream(self.device))
+        lap("copy_out")
+        self.dispatches += 1
+        return out
+
+
+class MegaroundCache:
+    """The process's megaround graphs, keyed by the bucket shapes, U, K,
+    the node tensors' shapes and types (Np among them), the depth,
+    respect_busy, NIC sharing, the device and the layout of the table
+    buffer; the least recently used goes past ``MAX_ENTRIES``. The
+    threads that share a key (the streaming tiler's workers, each with
+    its own tile's resident tensors) take its lock from filling its
+    buffers to enqueuing its output copies."""
+
+    MAX_ENTRIES = 8
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._entries: "collections.OrderedDict[tuple, MegaroundGraph]" = (
+            collections.OrderedDict())
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def entries(self) -> List[MegaroundGraph]:
+        with self._lock:
+            return list(self._entries.values())
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+
+    def run(self, node: Dict[str, Tensor], bucket_pods: Sequence,
+            needs: Sequence[np.ndarray], U: int, K: int, iters: int,
+            respect_busy: bool) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+        """The megaround against *node* (one device's resident tensors by
+        ``_ARG_ORDER`` name, the mutable ones updated in place):
+        ``run_megaround``'s results, from one replay of the key's graph."""
+        from nhd_tpu_torch.core.node import ENABLE_NIC_SHARING as sharing
+
+        t0 = time.perf_counter()
+        Np = int(node["hp_free"].shape[0])
+        shapes = _shapes(bucket_pods)
+        control = control_arrays(needs, shapes)
+        built: Dict[str, np.ndarray] = {}
+
+        def tables() -> Dict[str, np.ndarray]:
+            if not built:
+                built.update(table_arrays(bucket_pods, shapes, U, K, Np)[1])
+            return built
+
+        # the key decides the layout of the table buffer: the shapes, and
+        # the types and trailing widths of the pods' arrays
+        pod_types = tuple(
+            tuple((np.asarray(getattr(pods, name)).dtype.str,
+                   np.shape(getattr(pods, name))[1:]) for name in _POD_ARG_ORDER)
+            for pods in bucket_pods)
+        key = (tuple(shapes), U, K, iters, bool(respect_busy), bool(sharing),
+               node["hp_free"].device, pod_types,
+               tuple((name, node[name].dtype, tuple(node[name].shape))
+                     for name in _ARG_ORDER))
+        with self._lock:
+            entry = self._entries.get(key)
+            if entry is None:
+                if len(self._entries) >= self.MAX_ENTRIES:
+                    self._entries.popitem(last=False)
+                layout = tuple((name, a.dtype.str, a.shape)
+                               for name, a in {**control, **tables()}.items())
+                entry = self._entries[key] = MegaroundGraph(
+                    node, [G for G, _ in shapes], shapes, U, K, iters,
+                    respect_busy, bool(sharing), layout)
+            self._entries.move_to_end(key)
+        digest = pods_digest(bucket_pods)
+        with entry.lock:
+            entry.host_s["key"] += time.perf_counter() - t0
+            return entry.run(node, control, digest, tables)
+
+
+def graph_stats() -> Dict[str, float]:
+    """The process's megaround graphs in sum (``GRAPHS``, the entries it
+    holds): entries, captures and their seconds, dispatches, replays and
+    the host seconds of each dispatch part (``DISPATCH_PARTS``)."""
+    entries = GRAPHS.entries()
+    out = {"entries": len(entries),
+           "captures": sum(e.capture_s is not None for e in entries),
+           "capture_s": sum(e.capture_s or 0.0 for e in entries),
+           "dispatches": sum(e.dispatches for e in entries),
+           "replays": sum(e.replays for e in entries)}
+    for part in DISPATCH_PARTS:
+        out[f"{part}_s"] = sum(e.host_s[part] for e in entries)
+    return out
+
+
+#: the process's megaround graphs (``DeviceClusterState.megaround`` on
+#: one device, the prewarm)
+GRAPHS = MegaroundCache()
 
 
 def decode_claims_grouped(

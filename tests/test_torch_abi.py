@@ -108,7 +108,9 @@ def _claim_stage(shape=sweep.SPEC_SWEEP[1], case=None):
     reference.spec_fill(filled, status)
     return {
         "spec_elect": (elect, kw),
-        "spec_fill": ((plan, status), {}),
+        "spec_fill": ((plan, status, t["gate"]), {}),
+        "spec_gate": (tuple(torch.from_numpy(a) for a in sweep.gate_case(
+            0, *sweep.GATE_SWEEP[3])), {}),
         "spec_apply": ((filled, *(t[k] for k in sweep.SPEC_APPLY_ARGS)),
                        dict(kw, it=case["it"])),
     }
@@ -199,17 +201,17 @@ def test_bound_counts_real_rows_only(name):
     T, N = real["T"], real["N"]
     assert args[0].shape[0] > N  # the node rows are padded here
     if name == "nic_node_masks":
-        cut = [args[0][:N], args[1][:N], args[2][:N], *args[3:6],
+        cut = [args[0][:N], args[1][:N], args[2][:N], *args[3:7],
                outs[0][:N], outs[1][:N]]
     elif name == "nic_any_first":
         assert args[2].shape[0] > T  # so are the type rows
         cut = [args[0][:N], args[1][:N], args[2][:T], args[3][:T], args[4],
-               args[5][:N], args[6][:N], args[7][:T],
+               args[5][:N], args[6][:N], args[7][:T], args[8],
                *(o[:T, :N] for o in outs)]
     else:
         cut = [a[:N] for a in args[:11]] + [a[:T] for a in args[11:18]]
-        cut += list(args[18:21]) + [a[:T, :N] for a in args[21:]]
-        cut += [outs[0][:, :T, :N]]
+        cut += list(args[18:21]) + [a[:T, :N] for a in args[21:24]]
+        cut += [args[24], outs[0][:, :T, :N]]
     want = sum(t.numel() * t.element_size() for t in cut)
     smoke = _chip_smoke()
     assert smoke.needed_bytes(name, [*args, *outs], real) == want
@@ -269,7 +271,8 @@ def _hand_case():
         nic_sw=np.array([[[0, 1, 1]], [[1, 0, -1]]], i32),
         busy=np.zeros(2, bool), gpu_free_sw=np.full((2, 2), 4, i32),
         status=np.array([1, 5, 0], i32), claims=np.full((1, 2), -1, i32),
-        counts=np.zeros((1, 2), i32), it=0, sharing=False, respect_busy=False,
+        counts=np.zeros((1, 2), i32), gate=np.ones(1, i32), it=0,
+        sharing=False, respect_busy=False,
     )
 
 

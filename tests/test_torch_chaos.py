@@ -19,6 +19,7 @@ the end-state device audit. Tolerance: exact equality.
 import collections
 import dataclasses
 import functools
+import os
 
 import pytest
 
@@ -332,18 +333,22 @@ def test_storm_matrix_matches_the_reference_tool(mode, tmp_path, monkeypatch):
     common = ["--seeds", "1", "--steps", "20", *mode]
     ref_mod = _reference_storm()
     got = {}
-    for side, main, extra in (("jax", ref_mod.main, []),
-                              ("port", storm.main, ["--device", "cpu"])):
-        out = tmp_path / f"{side}.json"
-        for g in (jx_guard, pt_guard):
-            g.GUARD.reset()
-        assert main(common + extra + ["--json-out", str(out)]) == 0
-        got[side] = json.loads(out.read_text())
-    # --device-plane sets these for the rest of the process, as the
-    # reference's flag does
-    for knob in ("NHD_TPU_DEVICE_STATE", "NHD_GUARD_AUDIT_INTERVAL",
-                 "NHD_GUARD_AUDIT_ROWS"):
-        monkeypatch.delenv(knob, raising=False)
+    try:
+        for side, main, extra in (("jax", ref_mod.main, []),
+                                  ("port", storm.main, ["--device", "cpu"])):
+            out = tmp_path / f"{side}.json"
+            for g in (jx_guard, pt_guard):
+                g.GUARD.reset()
+            assert main(common + extra + ["--json-out", str(out)]) == 0
+            got[side] = json.loads(out.read_text())
+    finally:
+        # --device-plane sets these for the rest of the process, as the
+        # reference's flag does. Popped past monkeypatch: a delenv here
+        # would record the storm's values and restore them at teardown,
+        # leaking them into every later test of the worker
+        for knob in ("NHD_TPU_DEVICE_STATE", "NHD_GUARD_AUDIT_INTERVAL",
+                     "NHD_GUARD_AUDIT_ROWS"):
+            os.environ.pop(knob, None)
     port_only = ("faults_by_site", "guard_giveups", "restarts", "bound_set")
     for cell in got["port"]["cells"]:
         if "faults_by_site" in cell:

@@ -264,6 +264,66 @@ def test_spec_fill_sweep_matches_plain(shape, offset):
     assert torch.equal(status_k, status_p)
 
 
+@pytest.mark.parametrize("shape", sweep.GATE_SWEEP, ids=str)
+def test_spec_gate_sweep_matches_plain(shape):
+    """spec_gate against its plain version on every gate sweep case: the
+    control tensor equal after the call, the inputs untouched."""
+    _need_cuda()
+    status, offsets, ctl = (torch.from_numpy(a).cuda() for a in sweep.gate_case(
+        sweep.GATE_SWEEP.index(shape), *shape))
+    want = ctl.clone()
+    before = kernels.LAUNCHES["spec_gate"]
+    kernels.spec_gate(status, offsets, ctl)
+    reference.spec_gate(status, offsets, want)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["spec_gate"] == before + 1
+    assert torch.equal(ctl, want)
+
+
+@pytest.mark.parametrize("graph", ["1", "0"])
+@pytest.mark.parametrize("sharing", [False, True])
+def test_megaround_graph_equals_host_loop(sharing, graph, monkeypatch):
+    """The megaround as the graph replays it (and, with the replay off,
+    as its fixed trip launches one by one) against the host loop, both on
+    the card, from the same encoded state: claims, counts, need left,
+    iterations and node state; one replay counts one megaround_graph
+    launch and NHD_TPU_SPEC_ITERS of spec_gate."""
+    _need_cuda()
+    import nhd_tpu_torch.core.node as node_mod
+    from nhd_tpu_torch.sim.workloads import cap_cluster, workload_mix
+    from nhd_tpu_torch.solver.device_state import DeviceClusterState
+    from nhd_tpu_torch.solver.encode import encode_cluster, encode_pods
+    from nhd_tpu_torch.solver.kernel import _MUTABLE, _pad_pow2
+    from nhd_tpu_torch.solver import speculate
+    from nhd_tpu_torch.solver.speculate import run_megaround
+
+    monkeypatch.setattr(node_mod, "ENABLE_NIC_SHARING", sharing)
+    monkeypatch.setenv("NHD_TPU_SPEC_ITERS", "8")
+    monkeypatch.setattr(speculate, "REPLAY", graph == "1")
+    groups = ["default", "edge", "batch"]
+    cluster = encode_cluster(cap_cluster(40, groups), now=0.0)
+    buckets = list(encode_pods(workload_mix(400, groups), cluster.interner).values())
+    needs = [np.bincount(p.pod_type, minlength=_pad_pow2(p.n_types)).astype(np.int32)
+             for p in buckets]
+    state = DeviceClusterState(cluster, "cuda")
+    loop_state = DeviceClusterState(cluster, "cuda")
+    loop = run_megaround(loop_state._dev, buckets,
+                         [loop_state.pod_tensors(p) for p in buckets], needs,
+                         cluster.U, cluster.K, 8, False)
+    state.megaround(buckets, needs, False)   # the key's capture, warm-up included
+    state.rebuild_resident()                  # back to the host mirror
+    torch.cuda.synchronize()
+    before = dict(kernels.LAUNCHES)
+    got = state.megaround(buckets, needs, False)
+    torch.cuda.synchronize()
+    moved = {n: kernels.LAUNCHES[n] - before[n] for n in kernels.COUNTED}
+    for g, w in zip([*got, *(state._dev[n] for n in _MUTABLE)],
+                    [*loop, *(loop_state._dev[n] for n in _MUTABLE)]):
+        assert torch.equal(g.cpu(), w.cpu())
+    assert moved["spec_gate"] == 8
+    assert moved[kernels.GRAPH] == (1 if graph == "1" else 0)
+
+
 @pytest.mark.parametrize("sharing", [False, True])
 @pytest.mark.parametrize("respect_busy", [False, True])
 def test_megaround_cuda_equals_cpu(sharing, respect_busy, monkeypatch):
@@ -326,7 +386,7 @@ def test_streaming_cuda_equals_cpu(placement, monkeypatch):
         if dev == "cuda":
             total = dict(kernels.LAUNCHES)
             summed = {n: sum(c[n] for _t, c, _w in got["calls"])
-                      for n in kernels.KERNELS}
+                      for n in kernels.COUNTED}
             assert total == summed
             assert all(v > 0 for v in total.values()), total
             assert stats.scheduled == 1200
@@ -337,7 +397,8 @@ def test_cli_fake_demo_on_cuda():
     """``python -m nhd_tpu_torch.cli --fake --device cuda``: the demo
     TriadSet binds 4/6 across the 4 nodes inside 15 s on the card, as the
     JAX CLI binds it with the default 30 s busy back-off, and the clean
-    exit prints a launch count above 0 for each of the six kernels."""
+    exit prints a launch count above 0 for each of the seven kernels and
+    the megaround's graph replays."""
     _need_cuda()
     import os
     import subprocess
@@ -360,7 +421,7 @@ def test_cli_fake_demo_on_cuda():
                if line.startswith("kernel launches: ")]
     assert len(printed) == 1, r.stdout
     got = json.loads(printed[0].split(": ", 1)[1])
-    assert sorted(got) == sorted(kernels.KERNELS), got
+    assert sorted(got) == sorted(kernels.COUNTED), got
     assert all(n > 0 for n in got.values()), got
 
 

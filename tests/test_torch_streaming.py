@@ -492,7 +492,9 @@ def s_encoded_offer(pkg, mp):
     """One chunk of 40 pods encoded once against a persistent context's
     interner, then offered in three disjoint, shrinking subsets (24, 12
     and 4 pods) through that context: slots outside each offer stay
-    None, and on the port every offer reuses the chunk's device upload."""
+    None, and on the port every offer reuses the chunk's device upload,
+    made for the classic rounds only (a speculative round 0 takes the
+    pods' host arrays into its graph and uploads nothing)."""
     uploads = []
     if pkg.port:
         import nhd_tpu_torch.solver.device_state as ds
@@ -526,7 +528,10 @@ def s_encoded_offer(pkg, mp):
         # one upload per bucket of the encode, whatever the offer: every
         # membership view shares the encode's requests list
         lists = {id(b.requests) for b in encoded.values()}
-        assert uploads and {id(x) for x in uploads} <= lists
+        classic = (os.environ["NHD_TPU_SPECULATE"] == "0"
+                   or any(rounds > 1 for _p, _s, rounds in out))
+        assert bool(uploads) == classic
+        assert {id(x) for x in uploads} <= lists
         assert len(uploads) == len({id(x) for x in uploads})
         assert all(id(v[0]) == k for k, v in ctx.dev._pods.items())
     return out, _free_state(nodes)
@@ -679,7 +684,7 @@ def test_launch_counts_add_up_across_threads():
         kernels.LAUNCHES.update(saved)
     want = {n: reps * sum(1 for k in range(n_threads) if k % len(kernels.KERNELS) >= i)
             for i, n in enumerate(kernels.KERNELS)}
-    assert total == want
+    assert total == {**want, kernels.GRAPH: 0}
     assert {n: sum(c[n] for c in per_thread.values()) for n in kernels.KERNELS} == want
 
 
