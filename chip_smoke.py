@@ -13,9 +13,15 @@ Phases (one line each; the last line is the contract line):
    clusters (cfg4: G=1 and G=2, U=2, K=7; cfg3: K=2; N=1000 in Np=1024
    rows, the main path's own inputs, first solve of each bucket) and a
    wide bucket (G=3, U=2, K=8, so C=8, A=512, N=4096, random from a seed);
-   CUDA-event median times over 30 launches; then every kernel on every
-   edge shape of nhd_tpu_torch/kernels/sweep.py (random from a seed); plus
-   the CUDA matcher against the serial oracle on a small random cluster;
+   CUDA-event median times over 30 launches; rank_top on each bucket's
+   planes at the batch's rank width (R = 512), timed beside its empty-body
+   launch, its hand-counted bound, torch.topk alone on the same sel plane
+   and the eager chain it replaced (``eager_rank_chain``, kept here as a
+   yardstick only), and rank_merge on the candidates of cfg4's G=2 bucket
+   cut into 4 shards, equal to the unsharded rank at every slot; then every
+   kernel on every edge shape of nhd_tpu_torch/kernels/sweep.py (random
+   from a seed); plus the CUDA matcher against the serial oracle on a
+   small random cluster;
 4. cfg4:10kx1k-cap, speculative: 10,000 workload_mix pods on 1,000
    cap_cluster nodes through ``BatchScheduler(device="cuda")`` with the
    card's default (round 0 is the speculative megaround; one warm
@@ -30,15 +36,17 @@ Phases (one line each; the last line is the contract line):
    ``spec_gate`` and the claim kernels, and each kernel against its plain
    version on each copy (dead iterations' calls, which return at once,
    counted, not compared; the claim kernels and ``spec_gate`` timed at
-   the first iteration); then the whole megaround replayed from its
+   the first iteration) and rank_top on the planes of every classic
+   solve; then the whole megaround replayed from its
    starting state on the card's host loop and through the plain versions
    on the CPU: claims, counts, need left and iterations equal;
 5. cfg3:10kx1k-sat, speculative: the same on bench_cluster nodes
    (NIC-saturated);
 6. cfg4:10kx1k-cap, classic: phase 4 with ``NHD_TPU_SPECULATE=0`` on both
    sides (the classic rounds stay checked on the card); its profile read
-   op by op (``rank_attribution``: the solve kernels, then ``torch.topk``,
-   the gathers, the sums and the stack of ``rank_planes``);
+   op by op (``rank_attribution``: the solve kernels, then the rank:
+   rank_top, or the eager chain's torch.topk, gathers, sums and stack
+   where an older tree ran it);
 7. the daemon: cfg4's pending set (nhd_tpu_torch/sim/pending.py: 10,000
    Triad-config pods of workload_mix's three shapes on 1,000 cfg4 nodes of
    a FakeClusterBackend) through the port's ``Scheduler(device="cuda")``
@@ -121,7 +129,7 @@ Phases (one line each; the last line is the contract line):
 12. the kernel cache (nhd_tpu_torch/solver/aot.py) on the card, each
    probe a fresh ``python -m nhd_tpu_torch.solver.aot --first-bind-probe
    --device cuda`` in a temporary ``NHDC_AOT_DIR``: (a) cold, empty,
-   ``--save`` (nvcc builds all seven libraries inside the bind); (b) a
+   ``--save`` (nvcc builds all nine libraries inside the bind); (b) a
    restart without prewarm; (c) a restart with ``--prewarm`` (no build,
    no library load inside the bind); (d) a copy with one library
    truncated and one meta's fingerprint edited, ``--prewarm``: both
@@ -139,11 +147,13 @@ Phases (one line each; the last line is the contract line):
    8-way mesh of cfg4's resident state (128 rows each) against their
    plain versions, solve_planes with its shard's ``node_base`` also
    against the unsharded planes' columns and, at ``node_base`` 0, its
-   old output; shard 3 timed beside its bound and the empty launch;
+   old output, and rank_top on each shard's planes with its node_base;
+   shard 3 timed beside its bound and the empty launch; rank_merge on the
+   8 shards' candidates, equal to the unsharded rank at every slot;
    (b) ``solve_bucket_ranked_sharded`` at cfg4 over 2, 4 and 8 shards
-   equal to the single-device rank on every val > 0 slot of every
-   bucket; (c) cfg4:10kx1k-cap through ``BatchScheduler(mesh=4
-   shards)``, speculative and classic (warm, then counted): every pod
+   equal to the single-device rank at every slot of every bucket; (c)
+   cfg4:10kx1k-cap through ``BatchScheduler(mesh=4 shards)``,
+   speculative and classic (warm, then counted): every pod
    placed as the single-device card run and the CPU run of phases 4 and
    6, the same rounds and megaround iterations, wall and launches
    beside one card's; then every claim-kernel call of the mesh
@@ -192,10 +202,15 @@ Phases (one line each; the last line is the contract line):
    phase 10's and the subprocesses of 12 and 13 are those processes'
    own, from start to exit; 13's (a) and (b) are comparisons, not
    counted; 14's are its child's (a) and (b) runs), its time, its plain
-   version's time and its bound — the solve kernels at the cfg4 G=2
-   bucket, the claim kernels and ``spec_gate`` at cfg4's first megaround
-   iteration. A bound counts the bytes and operations of the real type
-   and node rows only (padded rows are sliced off and need no work); a
+   version's time and its bound — the solve kernels and rank_top at the
+   cfg4 G=2 bucket, rank_merge over its 4 shards, the claim kernels and
+   ``spec_gate`` at cfg4's first megaround iteration; ``library_ms`` is
+   torch.topk alone on the rank kernels' keys (no single PyTorch call
+   computes any other kernel). A path launches the rank kernels where it
+   dispatched a classic rank (``RANKED``, from the jit stats): each
+   phase requires them there. A bound counts the bytes and operations of
+   the real type and node rows only (padded rows are sliced off and need
+   no work); a
    claim kernel's counts what its iteration's data needs (the live type
    rows, the elected nodes, the nodes that took copies).
 
@@ -296,6 +311,10 @@ GRAPH_TIMED = 20
 #: opens no iteration with spec_gate
 MESH_PATH = ("nic_node_masks", "nic_any_first", "solve_planes",
              "spec_elect", "spec_fill", "spec_apply")
+#: the kernels of a speculative batch on one device: the solve kernels,
+#: the claim kernels and spec_gate (the rank kernels run only in the
+#: classic rounds after the megaround, where there are any)
+ONE_DEVICE_PATH = MESH_PATH + ("spec_gate",)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_JOURNAL = os.path.join(ROOT, "tests", "fixtures", "journal",
                               "golden_churn.journal.jsonl")
@@ -313,6 +332,38 @@ def log(msg):
 def fail(msg):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+#: the key beside a counted run's launches that holds its classic rank
+#: dispatches (kernel.dispatch_ranked's jit-stats uses; a key the kernel
+#: cache prewarms counts one, and launches rank_top once)
+RANKED = "ranked_dispatches"
+
+
+def ranked_uses(shapes=None):
+    """The classic rank dispatches in a jit-stats ``shapes`` map (this
+    process's when None): each ``solve_ranked`` use launches rank_top,
+    once a shard, and rank_merge once on a mesh."""
+    if shapes is None:
+        from nhd_tpu_torch.obs.jitstats import JIT_STATS
+
+        shapes = JIT_STATS.snapshot()["shapes"]
+    return sum(n for k, n in shapes.items() if k.startswith("solve_ranked:"))
+
+
+def require_launched(label, launches, path, *, mesh=False):
+    """Fail unless every kernel of *path* launched in the counted run of
+    *launches* and, where that run dispatched a classic rank
+    (``launches[RANKED]`` > 0), rank_top did, and rank_merge on a *mesh*.
+    A run whose rounds all ran in the megaround dispatches no rank and
+    needs neither."""
+    need = list(path)
+    if launches.get(RANKED):
+        need += ["rank_top"] + (["rank_merge"] if mesh else [])
+    missing = [k for k in need if not launches.get(k)]
+    if missing:
+        fail(f"{label}: kernels {missing} were never launched (classic rank "
+             f"dispatches: {launches.get(RANKED, 0)})")
 
 
 def add_launches(total, launches):
@@ -406,14 +457,19 @@ def needed_ops(name, args, outs, real):
     return T * N * (10 + C * (U * G + U * (U * G + U + 1) + 4))
 
 
-def bounds(name, args, outs, real):
-    """(bound_ms, bound_by, bytes, ops) for one launch on this data."""
-    tensors = [a for a in args if hasattr(a, "element_size")] + list(outs)
-    moved = needed_bytes(name, tensors, real)
-    ops = needed_ops(name, args, outs, real)
+def bound_of(moved, ops):
+    """(bound_ms, bound_by, bytes, ops): the larger of *moved* bytes at the
+    card's memory rate and *ops* at its vector rate."""
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / VECTOR_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), moved, ops
+
+
+def bounds(name, args, outs, real):
+    """(bound_ms, bound_by, bytes, ops) for one launch on this data."""
+    tensors = [a for a in args if hasattr(a, "element_size")] + list(outs)
+    return bound_of(needed_bytes(name, tensors, real),
+                    needed_ops(name, args, outs, real))
 
 
 def _distinct(*cols):
@@ -519,10 +575,113 @@ def gate_needs(t):
 def claim_bound(name, t, real, kw):
     """(bound_ms, bound_by, bytes, ops) of one claim-kernel (or
     ``spec_gate``) call."""
-    moved, ops = gate_needs(t) if name == "spec_gate" else claim_needs(name, t, real, kw)
-    t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / VECTOR_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), moved, ops
+    return bound_of(*(gate_needs(t) if name == "spec_gate"
+                      else claim_needs(name, t, real, kw)))
+
+
+def rank_needs(name, t, out, real):
+    """(bytes, ops) one rank-kernel call needs over the real type rows,
+    counted by hand (the interface counts every plane and node row whole).
+    rank_top: the sel plane over the real T x N, per winner its four
+    decision-plane words, the 2U + 1 free words of each distinct winning
+    node, and the nine output rows; one compare a key and 2U adds a
+    winner. rank_merge: row 0 of the candidates over the real T, the
+    other eight words of each winner and the nine output rows; one
+    compare a key. *t* holds the call's tensors by interface name, *out*
+    its [9, T, R] result."""
+    T = real["T"]
+    R = out.shape[2]
+    if name == "rank_top":
+        N, U = real["N"], t["gpu_free"].shape[1]
+        nodes = int(out[1, :T].unique().numel())
+        return (4 * T * N + 16 * T * R + 4 * (2 * U + 1) * nodes + 36 * T * R,
+                T * N + 2 * U * T * R)
+    M = t["cand"].shape[2]
+    return 4 * T * M + 32 * T * R + 36 * T * R, T * M
+
+
+def rank_bound(name, t, out, real):
+    """(bound_ms, bound_by, bytes, ops) of one rank-kernel call."""
+    return bound_of(*rank_needs(name, t, out, real))
+
+
+def eager_rank_chain(torch, planes, gpu_free, cpu_free, hp_free, R):
+    """The rank as eager torch ops, as the port computed it before
+    rank_top: torch.topk, four gathers, two row sums over the node axis,
+    three index gathers and a stack. A yardstick for rank_top's time
+    only: its val-0 slots may order otherwise, and nothing on the main
+    path calls it."""
+    val, idx = torch.topk(planes[0], R, dim=1)
+
+    def gat(p):
+        return torch.gather(planes[p], 1, idx)
+
+    i32 = torch.int32
+    return torch.stack([
+        val, idx.to(i32), gat(3), gat(4), gat(5), gat(7),
+        gpu_free.sum(1, dtype=i32)[idx], cpu_free.sum(1, dtype=i32)[idx],
+        hp_free.to(i32)[idx],
+    ])
+
+
+def check_rank(torch, label, name, args, kw, real, *, timed=False, floors=None):
+    """Rank kernel *name* against its plain version on *args* (its inputs
+    in interface order) and *kw*, exactly; with *timed*, its time, its
+    plain version's, its hand-counted bound, torch.topk alone on the same
+    keys and R (the library yardstick), for rank_top the eager chain it
+    replaced, and with *floors* its empty-body launch. Returns the
+    numbers and the kernel's output."""
+    from nhd_tpu_torch import kernels
+    from nhd_tpu_torch.kernels import reference
+    from nhd_tpu_torch.kernels.abi import ABI
+
+    kfn, pfn = getattr(kernels, name), getattr(reference, name)
+    got, want = kfn(*args, **kw), pfn(*args, **kw)
+    torch.cuda.synchronize()
+    err = max_abs_err(torch, got, want)
+    if err != 0.0:
+        fail(f"{name} disagrees with its plain version at {label}: max abs err {err}")
+    res = {"max_abs_err": err}
+    if not timed:
+        return res, got
+    t = dict(zip((a.name for a in ABI[name].inputs), args))
+    keys = args[0][0]
+    R = got.shape[2]
+    res["ms"] = cuda_time_ms(torch, lambda: kfn(*args, **kw))
+    res["plain_ms"] = cuda_time_ms(torch, lambda: pfn(*args, **kw))
+    res["topk_ms"] = res["library_ms"] = cuda_time_ms(
+        torch, lambda: torch.topk(keys, R, dim=1))
+    if name == "rank_top":
+        res["chain_ms"] = cuda_time_ms(
+            torch, lambda: eager_rank_chain(torch, *args[:4], R))
+    bound_ms, bound_by, moved, ops = rank_bound(name, t, got, real)
+    res.update(bound_ms=bound_ms, bound_by=bound_by, bytes=moved, ops=ops)
+    floor = ""
+    if floors is not None:
+        res["floor_ms"] = floor_ms(torch, floors, name, args, kw)
+        floor = f", empty launch {res['floor_ms']:.4f} ms"
+    chain = f", the eager chain {res['chain_ms']:.4f} ms" if "chain_ms" in res else ""
+    log(f"kernel {name} @ {label} R={R}: exact; {res['ms']:.4f} ms (plain "
+        f"{res['plain_ms']:.4f} ms, torch.topk alone {res['topk_ms']:.4f} ms{chain}, "
+        f"bound {bound_ms:.6f} ms by {bound_by}, {moved} B, {ops} ops{floor})")
+    return res, got
+
+
+def check_merge(torch, label, cand, whole, real, *, timed=False):
+    """rank_merge on a mesh's candidates *cand* (each shard's rank_top,
+    joined in shard order) against its plain version, and the merged rank
+    against the unsharded rank *whole* at every slot: a shard's zero
+    candidates are its lowest-index zero nodes, in order."""
+    from nhd_tpu_torch import kernels
+
+    R = whole.shape[2]
+    res, merged = check_rank(torch, label, "rank_merge",
+                             (cand, kernels.live_gate(cand.device)), {"R": R},
+                             real, timed=timed,
+                             floors=build_floors() if timed else None)
+    if not torch.equal(merged, whole):
+        fail(f"rank_merge at {label} is not the unsharded rank at every slot")
+    return res
 
 
 def stage(kernel_mod, reference, node, pod):
@@ -566,11 +725,12 @@ def build_floors():
 
 
 def check_kernels(torch, label, node, pod, report, real, *, timed=True,
-                  floors=None):
+                  floors=None, R=None):
     """One solve's kernels against their plain versions on the card, on
     the same inputs; with *timed*, also their times and bounds (and, with
     *floors*, the empty-body launch on the same grid). *real*: the real
-    type and node counts {"T": ..., "N": ...} of the padded tensors."""
+    type and node counts {"T": ..., "N": ...} of the padded tensors. With
+    *R* (a classic round's rank width), rank_top too, on the planes."""
     from nhd_tpu_torch import kernels
     from nhd_tpu_torch.kernels import reference
     from nhd_tpu_torch.solver import kernel as kernel_mod
@@ -589,6 +749,7 @@ def check_kernels(torch, label, node, pod, report, real, *, timed=True,
             fail(f"{name} disagrees with its plain version at {label}: "
                  f"max abs err {err}")
         out[name] = {"max_abs_err": err}
+        planes = want  # solve_planes comes last: the rank's input
         if not timed:
             continue
         ms = cuda_time_ms(torch, lambda: kfn(*args, **kw))
@@ -606,6 +767,13 @@ def check_kernels(torch, label, node, pod, report, real, *, timed=True,
         log(f"kernel {name} @ {label}: exact; {ms:.4f} ms (plain "
             f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms by {bound_by}, "
             f"{moved} B, {ops} ops{floor})")
+    if R is not None:
+        a = dict(zip(kernel_mod._ARG_ORDER, node))
+        args = (planes, a["gpu_free"], a["cpu_free"], a["hp_free"],
+                kernels.live_gate(planes.device))
+        out["rank_top"], _ = check_rank(
+            torch, label, "rank_top", args, {"R": R}, real, timed=timed,
+            floors=build_floors() if timed else None)
     report["kernels"][label] = out
     return out
 
@@ -614,7 +782,8 @@ class Capture:
     """What one schedule sends to the kernels, copied as it happens: every
     solve (classic rounds through ``solve_ranked``, megaround iterations
     through ``speculate.solve_planes``) as (G, real, node tensors, pod
-    tensors), a megaround solve whose bucket gate was 0 only counted
+    tensors, the rank width R of a classic round or None), a megaround
+    solve whose bucket gate was 0 only counted
     (``dead_solves``: its kernels launch and return at once); every call
     of a claim kernel or ``spec_gate`` as (name, its tensors by interface
     name as the call found them, keywords); every megaround's starting
@@ -676,6 +845,7 @@ def capture_schedule(torch, sched, nodes, items):
         cap.solves.append((
             pods.G, {"T": pods.n_types, "N": self.N},
             [t.clone() for t in self.tensors()], self.pod_tensors(pods),
+            min(R, self.Np),
         ))
         return solve_ranked(self, pods, R)
 
@@ -696,7 +866,7 @@ def capture_schedule(torch, sched, nodes, items):
         else:
             cap.solves.append((
                 G, {"T": real_types[G], "N": real_types["N"]},
-                [t.clone() for t in node], pod,
+                [t.clone() for t in node], pod, None,
             ))
         return solve_planes(G, U, K, node, pod, out=out, gate=gate, **place)
 
@@ -726,6 +896,10 @@ def capture_schedule(torch, sched, nodes, items):
         if kernels.LAUNCHES[name] != seen:
             fail(f"{name} launched {kernels.LAUNCHES[name]} times, but the spies "
                  f"saw {seen} calls")
+    ranked = sum(1 for s in cap.solves if s[4] is not None)
+    if kernels.LAUNCHES["rank_top"] != ranked:
+        fail(f"rank_top launched {kernels.LAUNCHES['rank_top']} times, but the "
+             f"spies saw {ranked} classic solves")
     return results, stats, cap
 
 
@@ -972,6 +1146,14 @@ def sweep_check(torch, dev, report):
                      [("spec_gate", {"status": status, "offsets": offsets,
                                      "ctl": ctl}, {})],
                      report, {}, timed=False)
+    for i, shape in enumerate(sweep.RANK_SWEEP):
+        case = sweep.rank_case(i, *shape)
+        args = [up(case[k]) for k in ("planes", "gpu_free", "cpu_free", "hp_free")]
+        gate = kernels.live_gate(dev)
+        hold("rank_top", f"(T, N, U, R, S, node_base, fill)={shape}", [*args, gate],
+             {"R": case["R"], "node_base": case["node_base"]})
+        hold("rank_merge", f"(T, N, U, R, S, node_base, fill)={shape}",
+             [up(case["cand"]), gate], {"R": case["merge_R"]})
     report["sweep"] = {
         "nic_node_masks": [list(s) for s in sweep.NODE_SWEEP],
         "nic_any_first": [list(s) for s in sweep.NIC_SWEEP],
@@ -979,6 +1161,7 @@ def sweep_check(torch, dev, report):
         "claim_kernels": [repr(s) for s in sweep.SPEC_SWEEP],
         "spec_fill": [list(s) for s in sweep.FILL_SWEEP],
         "spec_gate": [list(s) for s in sweep.GATE_SWEEP],
+        "rank": [list(s) for s in sweep.RANK_SWEEP],
     }
     log(f"sweep: nic_node_masks exact on {len(sweep.NODE_SWEEP)} shapes (G in "
         f"{sorted({s[4] for s in sweep.NODE_SWEEP})}, C*A in "
@@ -1002,7 +1185,12 @@ def sweep_check(torch, dev, report):
         f"{len(sweep.GATE_SWEEP)} shapes (TT in "
         f"{sorted({s[0] for s in sweep.GATE_SWEEP})}, B in "
         f"{sorted({s[1] for s in sweep.GATE_SWEEP})}, fills "
-        f"{sorted({s[2] for s in sweep.GATE_SWEEP})})")
+        f"{sorted({s[2] for s in sweep.GATE_SWEEP})}); rank_top and rank_merge "
+        f"exact on {len(sweep.RANK_SWEEP)} shapes (N in "
+        f"{sorted({s[1] for s in sweep.RANK_SWEEP})}, R in "
+        f"{sorted({s[3] for s in sweep.RANK_SWEEP})}, shards "
+        f"{sorted({s[4] for s in sweep.RANK_SWEEP})}, fills "
+        f"{sorted({s[6] for s in sweep.RANK_SWEEP})})")
 
 
 def oracle_check(dev):
@@ -1131,12 +1319,15 @@ def device_profile(torch, fn):
 
 
 #: profiler name fragments of a classic round's device work, in order: the
-#: three solve kernels, then the chain of rank_planes (solver/kernel.py:
-#: torch.topk, the gathers and indexing, the free-total sums, the stack)
+#: three solve kernels, the rank kernels, then the eager chain the rank was
+#: before them (torch.topk, the gathers and indexing, the free-total sums,
+#: the stack), so a share stays comparable across the two
 RANK_GROUPS = (
     ("nic_node_masks", ("nic_node_masks",)),
     ("nic_any_first", ("nic_any_first",)),
     ("solve_planes", ("solve_planes",)),
+    ("rank_top", ("rank_top",)),
+    ("rank_merge", ("rank_merge",)),
     ("topk", ("topk", "sort", "radix", "bitonic")),
     ("row update", ("index_copy",)),
     ("gather", ("scatter_gather", "gather")),
@@ -1145,12 +1336,12 @@ RANK_GROUPS = (
     ("stack", ("cat",)),
     ("copy", ("memcpy", "memset", "copy", "elementwise")),
 )
-RANK_CHAIN = ("topk", "gather", "index", "sum", "stack")
+RANK_CHAIN = ("rank_top", "rank_merge", "topk", "gather", "index", "sum", "stack")
 
 
 def rank_attribution(name, profile):
     """The device time of one classic schedule by op group (``RANK_GROUPS``)
-    and the share the rank chain holds of the busy time."""
+    and the share the rank (``RANK_CHAIN``) holds of the busy time."""
     groups = {}
     for op, us, n in profile["device_ops"]:
         low = op.lower()
@@ -1162,7 +1353,7 @@ def rank_attribution(name, profile):
     share = sum(groups.get(g, (0.0, 0))[0] for g in RANK_CHAIN) / busy if busy else None
     log(f"{name} device time by op (us, launches): " + "; ".join(
         f"{g} {us:.1f} ({n})" for g, (us, n) in groups.items())
-        + f"; the rank chain {share if share is None else round(share, 4)} of "
+        + f"; the rank {share if share is None else round(share, 4)} of "
         f"{busy:.1f} us busy; every op: {profile['device_ops']}")
     return {"groups_us": groups, "rank_share": share, "busy_us": busy}
 
@@ -1186,15 +1377,24 @@ def run_cell(torch, name, cluster_fn, report, launches_total, *, speculative):
             n.reset_resources()
         torch.cuda.synchronize()
         kernels.reset_launches()
+        ranked0 = ranked_uses()
         t0 = time.perf_counter()
         results, stats = sched.schedule(nodes, items, now=0.0)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
-    path = kernels.KERNELS if speculative else kernels.SOLVE_KERNELS
-    for k in path:
-        if launches[k] == 0:
-            fail(f"{name}: kernel {k} was never launched on the main path")
+        launches[RANKED] = ranked_uses() - ranked0
+    # the speculative path: the megaround's kernels, and rank_top only if
+    # a classic round followed it (cfg4 and cfg3 place or certify every
+    # pod in the megaround); the classic path: the solve kernels and
+    # rank_top in every round
+    require_launched(name, launches, ONE_DEVICE_PATH if speculative else
+                     kernels.SOLVE_KERNELS + ("rank_top",))
+    # one rank_top a classic dispatch, and no merge on one device
+    if (launches["rank_top"], launches["rank_merge"]) != (launches[RANKED], 0):
+        fail(f"{name}: rank_top launched {launches['rank_top']} times and "
+             f"rank_merge {launches['rank_merge']} for {launches[RANKED]} "
+             "classic rank dispatches")
     add_launches(launches_total, launches)
     spec_it = stats.counters.get("spec_iterations", 0)
     if speculative and not spec_it:
@@ -1251,13 +1451,15 @@ def run_cell(torch, name, cluster_fn, report, launches_total, *, speculative):
         again, _, cap = capture_schedule(torch, sched, nodes, items)
     if [(r.node, r.nic_list) for r in again] != [(r.node, r.nic_list) for r in results]:
         fail(f"{name}: a second cuda schedule of the batch placed differently")
-    for i, (G, real, node, pod) in enumerate(cap.solves):
+    for i, (G, real, node, pod, R) in enumerate(cap.solves):
         check_kernels(torch, f"{name} solve {i} G={G} T={real['T']}",
-                      node, pod, report, real, timed=False)
+                      node, pod, report, real, timed=False, R=R)
+    ranked = sum(1 for s in cap.solves if s[4] is not None)
     log(f"{name} kernels vs plain: all {len(cap.solves)} solves of the batch "
         f"(buckets {sorted({s[0] for s in cap.solves})}, every round and live "
         f"megaround bucket; with the {cap.dead_solves} gated ones as many as the "
-        "solve kernels' launches), exact")
+        f"solve kernels' launches) and the rank_top of its {ranked} classic "
+        "solves, exact")
     cell = {}
     if speculative:
         if not cap.megarounds or not cap.claims:
@@ -1341,7 +1543,6 @@ def daemon_phase(torch, report, launches_total, smi):
     the card's default has it: every pod's node and solved config the
     same, the same bound count, and the guard at full fidelity with no
     fault, retry or degrade."""
-    from nhd_tpu_torch import kernels
     from nhd_tpu_torch.k8s.retry import API_COUNTERS
     from nhd_tpu_torch.obs import histo
     from nhd_tpu_torch.solver.guard import GUARD, RUNG_MESH, RUNG_NAMES
@@ -1350,18 +1551,16 @@ def daemon_phase(torch, report, launches_total, smi):
     # the daemon's own bind latency (batch admission to bound, per pod)
     bind_h = histo.HISTOGRAMS["bind_latency_seconds"]
     bind_h.reset()
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    got, outcome = _daemon_run(card(torch), DAEMON_PODS)
-    torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
+    got, _wall, launches = counted(
+        torch, lambda: _daemon_run(card(torch), DAEMON_PODS))
+    got, outcome = got
     cum, _sum, _count = bind_h.snapshot()
     edges = list(zip((*bind_h.buckets, float("inf")), cum))
     bind_ms = {f"p{int(q * 100)}": histo.quantile_from_buckets(edges, q) * 1e3
                for q in (0.5, 0.99)}
-    for k in kernels.KERNELS:
-        if launches[k] == 0:
-            fail(f"daemon: kernel {k} was never launched through the daemon")
+    # speculative batches; rank_top where a batch's megaround left pods
+    # to a classic round
+    require_launched("daemon", launches, ONE_DEVICE_PATH)
     add_launches(launches_total, launches)
     now = API_COUNTERS.snapshot()
     moved = {k: now[k] - base[k] for k in (
@@ -1503,15 +1702,22 @@ def same_placements(label, got, want, what):
 
 def counted(torch, fn):
     """(fn's result, wall seconds, launches) with the counts set to 0 just
-    before and read just after."""
+    before and read just after; the launches carry the run's classic rank
+    dispatches under ``RANKED`` (those since the jit stats' last reset if
+    *fn* reset them)."""
     from nhd_tpu_torch import kernels
 
     torch.cuda.synchronize()
     kernels.reset_launches()
+    ranked0 = ranked_uses()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
-    return out, time.perf_counter() - t0, dict(kernels.LAUNCHES)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    ranked = ranked_uses()
+    launches[RANKED] = ranked - ranked0 if ranked >= ranked0 else ranked
+    return out, wall, launches
 
 
 def stream_phase(torch, report, launches_total, smi):
@@ -1525,9 +1731,8 @@ def stream_phase(torch, report, launches_total, smi):
     items = fed_items(FED_PODS)
 
     def launched_all(label, launches):
-        missing = [k for k in kernels.KERNELS if launches[k] == 0]
-        if missing:
-            fail(f"{label}: kernels {missing} were never launched")
+        # speculative tiles; rank_top where a tile took a classic round
+        require_launched(label, launches, ONE_DEVICE_PATH)
         add_launches(launches_total, launches)
 
     def summary(label, res, stats, wall, launches):
@@ -1594,7 +1799,7 @@ def stream_phase(torch, report, launches_total, smi):
     launched_all("cfg5 (b)", launches_b)
     calls = got_b["calls"]
     summed = {k: sum(c[k] for _t, c, _w in calls) for k in kernels.COUNTED}
-    if summed != launches_b:
+    if summed != {k: launches_b[k] for k in kernels.COUNTED}:
         fail(f"cfg5 (b): launch counts {launches_b} differ from the sum over "
              f"the tile sub-calls {summed}")
     threads = len({t for t, c, _w in calls if any(c.values())})
@@ -1626,12 +1831,29 @@ def stream_phase(torch, report, launches_total, smi):
     same_placements("cfg5 (c)", again, res, "the counted cuda run")
     del again
     timed_g = set()
-    for i, (G, real, node, pod) in enumerate(cap.solves):
+    for i, (G, real, node, pod, R) in enumerate(cap.solves):
         first = G not in timed_g
         timed_g.add(G)
         check_kernels(torch, f"cfg5 solve {i} G={G} T={real['T']} N={real['N']} "
                       f"(Np={node[0].shape[0]})", node, pod, report, real,
-                      timed=first, floors=floors if first else None)
+                      timed=first, floors=floors if first else None, R=R)
+    if all(s[4] is None for s in cap.solves):
+        # every pod placed in the megaround: rank_top timed on the tile's
+        # first solve at the accelerator's rank width all the same
+        from nhd_tpu_torch.kernels import reference
+        from nhd_tpu_torch.solver import kernel as kernel_mod
+
+        G, real, node, pod, _ = cap.solves[0]
+        a = dict(zip(kernel_mod._ARG_ORDER, node))
+        planes = reference.solve_planes(
+            *stage(kernel_mod, reference, node, pod)["solve_planes"][0])
+        report["kernels"]["cfg5 rank_top"], _ = check_rank(
+            torch, f"cfg5 tile G={G} T={real['T']} N={real['N']} "
+            f"(Np={node[0].shape[0]}; no classic round)", "rank_top",
+            (planes, a["gpu_free"], a["cpu_free"], a["hp_free"],
+             kernels.live_gate(planes.device)),
+            {"R": min(kernel_mod.rank_cap(True), planes.shape[2])}, real,
+            timed=True, floors=floors)
     real = {"N": cap.megarounds[0][4]}
     check_claims(torch, "cfg5 megaround", cap.claims, report, real, timed=True,
                  floors=floors)
@@ -1642,11 +1864,8 @@ def stream_phase(torch, report, launches_total, smi):
     del cap
 
     # (d) the daemon past NHD_STREAM_NODES
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    got, outcome = _daemon_run(dev, STREAM_DAEMON_PODS, STREAM_DAEMON_NODES)
-    torch.cuda.synchronize()
-    launches_d = dict(kernels.LAUNCHES)
+    (got, outcome), _wall, launches_d = counted(
+        torch, lambda: _daemon_run(dev, STREAM_DAEMON_PODS, STREAM_DAEMON_NODES))
     if not got["streamed"]:
         fail("cfg5 (d): the daemon did not build its streaming tiler")
     launched_all("cfg5 (d)", launches_d)
@@ -1775,9 +1994,10 @@ def guard_phase(torch, report, smi):
         if floor != want_floor:
             fail(f"guard: floor {RUNG_NAMES[floor]} after one fault at "
                  f"NHD_GUARD_RETRIES={retries}, expected {RUNG_NAMES[want_floor]}")
-        if any(v == 0 for k, v in launches.items() if k in kernels.SOLVE_KERNELS):
-            fail(f"guard: a solve kernel did not launch on the card at rung "
-                 f"{RUNG_NAMES[floor]}: {launches}")
+        # classic rounds: the solve kernels and rank_top at every rung
+        if any(launches[k] == 0 for k in (*kernels.SOLVE_KERNELS, "rank_top")):
+            fail(f"guard: a solve or rank kernel did not launch on the card at "
+                 f"rung {RUNG_NAMES[floor]}: {launches}")
         log(f"guard fault (NHD_GUARD_RETRIES={retries}): one injected dispatch "
             f"fault, {moved}, floor {RUNG_NAMES[floor]}, rounds "
             f"{stats.rounds} (fault-free {clean_stats.rounds}), every pod placed "
@@ -1956,6 +2176,17 @@ def request_kinds(requests):
 def families(text, *prefixes):
     return [line for line in text.splitlines()
             if line.startswith(prefixes)]
+
+
+def jit_shapes(lines):
+    """{shape key: uses} from the ``nhd_jit_shape_uses_total`` lines of a
+    /metrics scrape."""
+    out = {}
+    for line in lines:
+        if line.startswith('nhd_jit_shape_uses_total{shape="'):
+            key, _, n = line[len('nhd_jit_shape_uses_total{shape="'):].rpartition('"} ')
+            out[key] = int(float(n))
+    return out
 
 
 def scrape_until_answered(port, done, out):
@@ -2210,12 +2441,16 @@ def replay(torch, label, path, device, counted=False):
             if counted:
                 torch.cuda.synchronize()
                 kernels.reset_launches()
+                ranked0 = ranked_uses()
             t0 = time.perf_counter()
             result = replay_journal([path], device=device)
             if counted:
                 torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = dict(kernels.LAUNCHES) if counted else None
+            launches = None
+            if counted:
+                launches = dict(kernels.LAUNCHES)
+                launches[RANKED] = ranked_uses() - ranked0
     finally:
         node_mod.MIN_BUSY_SECS = saved
     if result.diverged:
@@ -2311,9 +2546,12 @@ def cli_phase(torch, report, launches_total, smi):
             fail(f"cli cuda: bound {got['bound']}/{CLI_PODS}")
         if sorted(got["launches"]) != sorted(kernels.COUNTED):
             fail(f"cli cuda: launch counts for {sorted(got['launches'])}")
-        for k in kernels.COUNTED:
-            if got["launches"][k] == 0:
-                fail(f"cli cuda: {k} was never launched")
+        # the CLI process's classic rank dispatches, from its last /metrics
+        got["launches"][RANKED] = ranked_uses(jit_shapes(got["jit"]))
+        # speculative batches (one graph replay each, no mesh); rank_top
+        # where a batch's megaround left pods to a classic round
+        require_launched("cli cuda", got["launches"],
+                         ONE_DEVICE_PATH + (kernels.GRAPH,))
         add_launches(launches_total, got["launches"])
         cpu, cpu_outcome = run_cli("cpu", CLI_NODES, CLI_PODS, work, "cpu")
         log(f"cli cpu: up {cpu['ready_s']:.2f}s, bound {cpu['bound']}/"
@@ -2329,9 +2567,7 @@ def cli_phase(torch, report, launches_total, smi):
         # same batches; the golden journal on both
         sig, wall, launches = replay(torch, "cli journal", got["journal"],
                                      card(torch), counted=True)
-        for k in kernels.KERNELS:
-            if launches[k] == 0:
-                fail(f"cli replay: kernel {k} was never launched")
+        require_launched("cli replay", launches, ONE_DEVICE_PATH)
         cpu_sig, cpu_wall, _ = replay(torch, "cli journal", got["journal"], "cpu")
         if sig != cpu_sig:
             fail("cli replay: decisions differ between cuda and cpu")
@@ -2366,6 +2602,7 @@ def storm_matrix(device, seeds, nodes, steps, path):
         if device == "cuda":
             torch.cuda.synchronize()
             kernels.reset_launches()
+        ranked0 = ranked_uses()
         t0 = time.perf_counter()
         rc = storm.main([
             "--profiles", "device-faults", "--seeds", str(seeds),
@@ -2375,7 +2612,10 @@ def storm_matrix(device, seeds, nodes, steps, path):
         if device == "cuda":
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES) if device == "cuda" else None
+        launches = None
+        if device == "cuda":
+            launches = dict(kernels.LAUNCHES)
+            launches[RANKED] = ranked_uses() - ranked0
     with open(path) as fh:
         summary = json.load(fh)
     if rc != 0 or not summary["ok"]:
@@ -2397,7 +2637,7 @@ def chaos_phase(torch, report, launches_total, smi):
     from nhd_tpu_torch.solver import guard
 
     out = {"smi": smi}
-    phase = dict.fromkeys(kernels.COUNTED, 0)
+    phase = dict.fromkeys(kernels.COUNTED + (RANKED,), 0)
     sites_total = {}
     flips_total = 0
     with tempfile.TemporaryDirectory(prefix="nhd-chaos-") as work:
@@ -2406,7 +2646,7 @@ def chaos_phase(torch, report, launches_total, smi):
                 "cuda", seeds, nodes, steps, os.path.join(work, label + ".json"))
             cpu, _ = storm_matrix(
                 "cpu", seeds, nodes, steps, os.path.join(work, label + "-cpu.json"))
-            for k in kernels.COUNTED:
+            for k in phase:
                 phase[k] += launches.get(k, 0)
             for c, cc in zip(got["cells"], cpu["cells"], strict=True):
                 seed = c["seed"]
@@ -2449,22 +2689,23 @@ def chaos_phase(torch, report, launches_total, smi):
         with env(**CHAOS_ENV, NHD_GUARD="0"):
             guard.GUARD.reset()
             repairs = API_COUNTERS.get("guard_repairs_total")
-            torch.cuda.synchronize()
-            kernels.reset_launches()
-            sim = ChaosSim(seed=0, api_faults=FaultProfile(
-                name="flips-only", device_bit_flip=0.5), device="cuda")
-            fired = 0
-            for _ in range(CHAOS_CONTROL_STEPS):
-                before = sim.stats.bit_flips
-                sim.step()
-                if sim.stats.bit_flips > before and sim.device_audit_errors():
-                    fired += 1
-            sim.quiesce()
-            torch.cuda.synchronize()
-            control = dict(kernels.LAUNCHES)
+
+            def control_run():
+                sim = ChaosSim(seed=0, api_faults=FaultProfile(
+                    name="flips-only", device_bit_flip=0.5), device="cuda")
+                fired = 0
+                for _ in range(CHAOS_CONTROL_STEPS):
+                    before = sim.stats.bit_flips
+                    sim.step()
+                    if sim.stats.bit_flips > before and sim.device_audit_errors():
+                        fired += 1
+                sim.quiesce()
+                return sim, fired
+
+            (sim, fired), _wall, control = counted(torch, control_run)
             repaired = API_COUNTERS.get("guard_repairs_total") - repairs
             guard.GUARD.reset()
-        for k in kernels.COUNTED:
+        for k in phase:
             phase[k] += control.get(k, 0)
         log(f"chaos negative control (NHD_GUARD=0, flips only, seed 0, "
             f"{CHAOS_CONTROL_STEPS} steps on cuda): {sim.stats.bit_flips} "
@@ -2476,9 +2717,9 @@ def chaos_phase(torch, report, launches_total, smi):
         if repaired:
             fail(f"chaos negative control: {repaired} repair(s) with the "
                  "guard off")
-    for k in kernels.KERNELS:
-        if phase[k] == 0:
-            fail(f"chaos: kernel {k} was never launched in the phase")
+    # speculative steps (the storm runs with NHD_MESH=off); rank_top where
+    # a step's megaround left pods, or a faulted batch retried, classic
+    require_launched("chaos", phase, ONE_DEVICE_PATH)
     add_launches(launches_total, phase)
     log(f"chaos: faults by site over the matrix {sites_total}, bit flips "
         f"{flips_total}; launches in the phase {phase}; {smi}")
@@ -2546,6 +2787,7 @@ def zero_recompile_child():
         "loads": build.COUNTS["loads"] - built["loads"],
         "storm_s": time.perf_counter() - t0,
         "launches": dict(kernels.LAUNCHES),
+        "ranked": ranked_uses(steady["shapes"]),
     }), flush=True)
     return 0
 
@@ -2562,13 +2804,14 @@ def prewarm_phase(torch, report, launches_total, smi):
     from nhd_tpu_torch.solver import aot, guard
 
     out = {"smi": smi}
-    phase = dict.fromkeys(kernels.COUNTED, 0)
+    phase = dict.fromkeys(kernels.COUNTED + (RANKED,), 0)
     # the name prefixes of the cache's manifest entries
     manifest = tuple(f"{kind}_" for kind in aot.JIT_KIND)
 
-    def add(launches):
+    def add(launches, ranked):
         for k in kernels.COUNTED:
             phase[k] += launches.get(k, 0)
+        phase[RANKED] += ranked
 
     with tempfile.TemporaryDirectory(prefix="nhd-aot-") as work:
         cache = os.path.join(work, "aot")
@@ -2612,7 +2855,7 @@ def prewarm_phase(torch, report, launches_total, smi):
                  f"{fixed['built']}, quarantine/ holds {moved}")
         log(f"probe (d): quarantine/ holds {moved}; both rebuilt and loaded")
         for got in (cold, restart, warm, fixed):
-            add(got["launches"])
+            add(got["launches"], got["ranked"])
         # (e) the storm of tests/test_aot.py:151 recorded here, then
         # replayed in a fresh process after prewarm
         storm_dir = os.path.join(work, "storm")
@@ -2644,7 +2887,7 @@ def prewarm_phase(torch, report, launches_total, smi):
                  f"{proc.stderr[-3000:]}")
         z = json.loads(proc.stdout.strip().splitlines()[-1])
         z["process_s"] = time.perf_counter() - t0
-        add(z["launches"])
+        add(z["launches"], z["ranked"])
         log(f"zero-recompile (seed 11, 60 steps, light, fresh process): "
             f"prewarm {z['prewarm']}; compiles {z['warm']['compiles_total']} "
             f"-> {z['steady']['compiles_total']}, hits "
@@ -2671,7 +2914,7 @@ def prewarm_phase(torch, report, launches_total, smi):
             if got["bound"] != PREWARM_CLI_PODS or not got["prewarm_line"]:
                 fail(f"cli --prewarm start {i}: bound {got['bound']}, "
                      f"prewarm line {got['prewarm_line']!r}")
-            add(got["launches"])
+            add(got["launches"], ranked_uses(jit_shapes(got["jit"])))
             starts.append(got)
             log(f"cli --prewarm start {i} ({CLI_NODES} nodes, "
                 f"{PREWARM_CLI_PODS} pods): {got['prewarm_line']}; up "
@@ -2680,9 +2923,9 @@ def prewarm_phase(torch, report, launches_total, smi):
                 f"start-up marks {got['startup_s']} (phase 10: "
                 f"{report['cli']['cuda']['startup_s']}); first bind "
                 f"{got['first_bind_s']:.3f}s after the first pod; {smi}")
-    for k in kernels.KERNELS:
-        if phase[k] == 0:
-            fail(f"prewarm: kernel {k} was never launched in the phase")
+    # speculative binds and prewarms on one card; rank_top where a bind
+    # took a classic round or a prewarm warmed a ranked key
+    require_launched("prewarm", phase, ONE_DEVICE_PATH)
     add_launches(launches_total, phase)
     out.update(cold=cold, restart=restart, prewarmed=warm, damaged=fixed,
                zero_recompile=z, cli=starts, launches=phase)
@@ -2705,7 +2948,7 @@ def shard_kernels(torch, report, cluster, buckets):
     S = CFG6[2]
     state = DeviceClusterState(cluster, dev, make_mesh(n_shards=S, device=dev.type))
     one = DeviceClusterState(cluster, dev)
-    Ns, floors, out = state.shard_rows, build_floors(), {}
+    Ns, floors, out, parts = state.shard_rows, build_floors(), {}, []
     for G, pods in sorted(buckets.items()):
         args, _ = stage(kernel_mod, reference, one.tensors(),
                         one.pod_tensors(pods))["solve_planes"]
@@ -2748,8 +2991,28 @@ def shard_kernels(torch, report, cluster, buckets):
                 log(f"mesh kernel {name} @ {label}: exact; {ms:.4f} ms (plain "
                     f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms by {bound_by}, "
                     f"empty launch {fl:.4f} ms)")
-    log(f"mesh (a): the solve kernels exact on all {S} shards of every cfg4 "
-        "bucket; solve_planes' shards are the unsharded planes' columns")
+            # the shard's candidates: rank_top over its rows, indices global
+            a = dict(zip(kernel_mod._ARG_ORDER, node))
+            args = (got, a["gpu_free"], a["cpu_free"], a["hp_free"],
+                    kernels.live_gate(dev))
+            res, part = check_rank(torch, label, "rank_top", args,
+                                   {"R": min(MESH_R, Ns), "node_base": s * Ns},
+                                   real, timed=s == 3, floors=floors)
+            parts.append(part)
+            if s == 3:
+                out[f"G={G}"]["rank_top"] = res
+        # the merge of the shards' candidates: the unsharded rank, every slot
+        cand = torch.cat(parts, dim=2)
+        parts.clear()
+        a = dict(zip(kernel_mod._ARG_ORDER, one.tensors()))
+        whole = reference.rank_top(full, a["gpu_free"], a["cpu_free"],
+                                   a["hp_free"], R=min(MESH_R, cand.shape[2]))
+        out[f"G={G}"]["rank_merge"] = check_merge(
+            torch, f"cfg4 G={G} over {S} shards", cand, whole,
+            {"T": pods.n_types}, timed=True)
+    log(f"mesh (a): the solve kernels and rank_top exact on all {S} shards of "
+        "every cfg4 bucket; solve_planes' shards are the unsharded planes' "
+        "columns; rank_merge exact, and equal to the unsharded rank at every slot")
     report["mesh"]["a"] = out
 
 
@@ -2783,12 +3046,9 @@ def mesh_child(rank, world, store):
         got = solve_bucket_ranked_sharded(cluster, pods, MESH_R, mesh)
         same = solve_bucket_ranked_sharded(cluster, pods, MESH_R, alone)
         one = solve_bucket_ranked(cluster, pods, MESH_R, device=dev).cpu().numpy()
-        live = one[0] > 0
-        if not (np.array_equal(got[0], same[0])
-                and np.array_equal(got[:, live], same[:, live])):
+        if not np.array_equal(got, same):
             raise SystemExit(f"rank {rank}: G={G} differs from the one-process mesh")
-        if not (np.array_equal(got[0] > 0, live)
-                and np.array_equal(got[:, live], one[:, live])):
+        if not np.array_equal(got, one):
             raise SystemExit(f"rank {rank}: G={G} differs from one device")
     solve_s = time.perf_counter() - t0
     # the region pattern (the reference's scenario): this rank's region of
@@ -2816,8 +3076,9 @@ def mesh_child(rank, world, store):
 
 def mesh_rank_check(torch, label, cluster, buckets, mesh):
     """``solve_bucket_ranked_sharded`` over *mesh* against the single-device
-    rank on the lead shard's device: equal on every val > 0 slot of every
-    bucket, at ``MESH_R``."""
+    rank on the lead shard's device: equal at every slot of every bucket
+    (a shard's zero candidates are its lowest-index zero nodes, in order),
+    at ``MESH_R``."""
     import numpy as np
 
     from nhd_tpu_torch.parallel.sharding import solve_bucket_ranked_sharded
@@ -2827,19 +3088,19 @@ def mesh_rank_check(torch, label, cluster, buckets, mesh):
         one = solve_bucket_ranked(cluster, pods, MESH_R,
                                   device=mesh.devices[0]).cpu().numpy()
         got = solve_bucket_ranked_sharded(cluster, pods, MESH_R, mesh)
-        live = one[0] > 0
-        if not (got.shape == one.shape and np.array_equal(got[0] > 0, live)
-                and np.array_equal(got[:, live], one[:, live])):
+        if not (got.shape == one.shape and np.array_equal(got, one)):
             fail(f"{label}: the rank over {mesh.size} shards differs from one "
-                 f"device on the val > 0 slots (G={G})")
+                 f"device (G={G})")
 
 
 def mesh_batch(torch, label, mesh, items, speculative):
     """cfg4's batch through ``BatchScheduler(mesh=)`` on the card, the
     card's default (speculative) or classic: a warm schedule, then one
     counted. Fails unless a dispatch ran on the mesh and every kernel of
-    the path launched. Returns (scheduler, nodes, results, stats, wall,
-    launches)."""
+    the path launched: classic, the solve kernels on each shard, rank_top
+    on each and rank_merge; speculative, the mesh's megaround (its host
+    loop: no spec_gate) and the rank kernels if a classic round followed.
+    Returns (scheduler, nodes, results, stats, wall, launches)."""
     from nhd_tpu_torch import kernels
     from nhd_tpu_torch.obs.jitstats import JIT_STATS
     from nhd_tpu_torch.sim.workloads import cap_cluster
@@ -2859,9 +3120,8 @@ def mesh_batch(torch, label, mesh, items, speculative):
     shapes = JIT_STATS.snapshot()["shapes"]
     if not any(k.endswith(f"_M{mesh_desc(mesh)}") for k in shapes):
         fail(f"{label}: no dispatch ran on the mesh: {sorted(shapes)}")
-    path = MESH_PATH if speculative else kernels.SOLVE_KERNELS
-    if any(launches[k] == 0 for k in path):
-        fail(f"{label}: a kernel of the path did not launch: {launches}")
+    path = MESH_PATH if speculative else kernels.SOLVE_KERNELS + kernels.RANK_KERNELS
+    require_launched(label, launches, path, mesh=True)
     return sched, nodes, results, stats, wall, launches
 
 
@@ -2926,7 +3186,7 @@ def mesh_phase(torch, report, launches_total, smi):
         mesh_rank_check(torch, "mesh (b)", cluster, buckets,
                         make_mesh(n_shards=S, device=dev.type))
     log(f"mesh (b): solve_bucket_ranked_sharded at cfg4 over {MESH_SHARDS} shards "
-        f"of cuda:0 equals the single-device rank on every val > 0 slot "
+        f"of cuda:0 equals the single-device rank at every slot "
         f"(R={MESH_R}, buckets {sorted(buckets)})")
 
     # (c) cfg4 through BatchScheduler over a 4-shard mesh
@@ -3027,8 +3287,7 @@ def mesh_phase(torch, report, launches_total, smi):
                    if k.startswith("solve_ranked:") and "_M" not in k]
     if not single_keys:
         fail("mesh (e): the round did not re-dispatch on one device")
-    if any(launches[k] == 0 for k in kernels.SOLVE_KERNELS):
-        fail(f"mesh (e): a solve kernel did not launch after the fault: {launches}")
+    require_launched("mesh (e) after the fault", launches, kernels.SOLVE_KERNELS)
     count(launches)
     same_placements("mesh (e)", res, RESULTS["cfg4:10kx1k-cap classic"][0],
                     "the fault-free classic run (a faulted batch never speculates "
@@ -3060,8 +3319,9 @@ def mesh_phase(torch, report, launches_total, smi):
         f"region placed as on the CPU, an exact cover")
 
     t["end"] = time.perf_counter()
-    # the mesh's megaround is the host loop: no spec_gate on its path
-    for k in MESH_PATH:
+    # the mesh's megaround is the host loop: no spec_gate on its path; (c)'s
+    # classic batch ranks on every shard and merges
+    for k in MESH_PATH + kernels.RANK_KERNELS:
         if phase[k] == 0:
             fail(f"mesh: kernel {k} was never launched in the phase")
     add_launches(launches_total, phase)
@@ -3185,13 +3445,13 @@ def race_phase(torch, report, launches_total, smi):
                  f"{text[-2000:]}")
         with open(os.path.join(work, "race.json")) as fh:
             got = json.load(fh)
-    phase = dict.fromkeys(kernels.COUNTED, 0)
+    phase = dict.fromkeys(kernels.COUNTED + (RANKED,), 0)
 
     def launched_all(label, launches):
-        missing = [k for k in kernels.KERNELS if not launches[k]]
-        if missing:
-            fail(f"{label}: kernels {missing} were never launched")
-        for k in kernels.COUNTED:
+        # phase 11's storms and phase 9's tiles: speculative on one card;
+        # rank_top where a classic round ran
+        require_launched(label, launches, ONE_DEVICE_PATH)
+        for k in phase:
             phase[k] += launches.get(k, 0)
 
     # (a) phase 11's cells: bound as the uninstrumented card run, 0 races
@@ -3472,6 +3732,11 @@ def main():
     from nhd_tpu_torch.solver.device_state import DeviceClusterState
     from nhd_tpu_torch.solver.encode import encode_cluster, encode_pods
 
+    import numpy as np
+
+    from nhd_tpu_torch.kernels import reference
+    from nhd_tpu_torch.solver import kernel as kernel_mod
+
     dev = card(torch)
     headline = None
     for cell, cluster_fn in (("cfg4", cap_cluster), ("cfg3", bench_cluster)):
@@ -3479,18 +3744,39 @@ def main():
         cluster.busy[:] = False
         state = DeviceClusterState(cluster, dev)
         buckets = encode_pods(workload_mix(CELL_PODS, GROUPS), cluster.interner)
+        # the rank width a classic round of the batch takes (batch.py)
+        R = kernel_mod.rank_budget(
+            max(int(np.bincount(b.pod_type).max()) for b in buckets.values()),
+            cluster.n_nodes, accelerator=True)
         for G, pods in sorted(buckets.items()):
             Tp = state.pod_tensors(pods).dem_rx.shape[0]
             label = (f"{cell} G={G} U={cluster.U} K={cluster.K} T={pods.n_types} "
                      f"(Tp={Tp}) N={cluster.n_nodes} (Np={state.Np})")
+            real = {"T": pods.n_types, "N": cluster.n_nodes}
             res = check_kernels(torch, label, state.tensors(), state.pod_tensors(pods),
-                                report, {"T": pods.n_types, "N": cluster.n_nodes})
+                                report, real, R=R)
             if cell == "cfg4" and G == 2:
-                headline = res
+                # the mesh's merge at cfg4 over MESH_BATCH_SHARDS shards: a
+                # shard's planes are the unsharded planes' columns (13 (a))
+                a = dict(zip(kernel_mod._ARG_ORDER, state.tensors()))
+                free = (a["gpu_free"], a["cpu_free"], a["hp_free"])
+                planes = reference.solve_planes(*stage(
+                    kernel_mod, reference, state.tensors(),
+                    state.pod_tensors(pods))["solve_planes"][0])
+                S = MESH_BATCH_SHARDS
+                Ns = state.Np // S
+                cand = torch.cat([reference.rank_top(
+                    planes[:, :, s * Ns:(s + 1) * Ns].contiguous(),
+                    *(f[s * Ns:(s + 1) * Ns] for f in free),
+                    R=min(R, Ns), node_base=s * Ns) for s in range(S)], dim=2)
+                res["rank_merge"] = check_merge(
+                    torch, f"{label} over {S} shards", cand,
+                    reference.rank_top(planes, *free, R=R), real, timed=True)
+                report["kernels"][label] = headline = res
         del state
     node, pod = wide_bucket(torch, dev)
     check_kernels(torch, f"wide G=3 U=2 K=8 T=8 N={WIDE_N}", node, pod, report,
-                  {"T": 8, "N": WIDE_N})
+                  {"T": 8, "N": WIDE_N}, R=min(kernel_mod.rank_cap(True), WIDE_N))
     del node, pod
     sweep_check(torch, dev, report)
     oracle_check(dev)
@@ -3554,7 +3840,14 @@ def main():
                        "nhd_tpu/solver/speculate.py:448"),
         "spec_gate": ("nhd_tpu_torch/kernels/spec_gate.cu",
                       "nhd_tpu/solver/speculate.py:533"),
+        "rank_top": ("nhd_tpu_torch/kernels/rank_top.cu",
+                     "nhd_tpu/solver/kernel.py:297"),
+        "rank_merge": ("nhd_tpu_torch/kernels/rank_merge.cu",
+                       "nhd_tpu/solver/kernel.py:477"),
     }
+    # the solve and rank kernels at the cfg4 G=2 bucket (rank_merge over
+    # its 4 shards), the claim kernels and spec_gate at cfg4's first
+    # megaround iteration; library_ms: torch.topk alone on the rank's keys
     at = {**headline, **claim_headline}
     line = {"kernels": [
         {
@@ -3563,7 +3856,8 @@ def main():
             "max_abs_err": at[name]["max_abs_err"],
             "ms": at[name]["ms"], "plain_ms": at[name]["plain_ms"],
             "bound_ms": at[name]["bound_ms"],
-            "bound_by": at[name]["bound_by"], "library_ms": None,
+            "bound_by": at[name]["bound_by"],
+            "library_ms": at[name].get("library_ms"),
         }
         for name in kernels.KERNELS
     ]}

@@ -39,7 +39,8 @@ EMPTY = {
     **{k: (GATE_LOAD, f"    if ({dim} > 0) return;\n" + GATE_LOAD)
        for k, dim in (("nic_node_masks", "N"), ("nic_any_first", "T"),
                       ("solve_planes", "T"), ("spec_elect", "N"),
-                      ("spec_fill", "N"), ("spec_apply", "N"))},
+                      ("spec_fill", "N"), ("spec_apply", "N"),
+                      ("rank_top", "T"), ("rank_merge", "T"))},
     "spec_gate": ("    extern __shared__ unsigned long long s_need[];",
                   "    if (TT > 0) return;\n    extern __shared__ unsigned long long s_need[];"),
 }
@@ -112,6 +113,10 @@ VARIANTS = {
     ("spec_apply", "idx64"): (IDX32, IDX64),
     ("spec_gate", "committed"): None,
     ("spec_gate", "empty"): EMPTY["spec_gate"],
+    ("rank_top", "committed"): None,
+    ("rank_top", "empty"): EMPTY["rank_top"],
+    ("rank_merge", "committed"): None,
+    ("rank_merge", "empty"): EMPTY["rank_merge"],
     **{(k, v): (GATE_LOAD, text) for k in GATED for v, text in GATE_VARIANTS.items()},
 }
 SOLVE = ("nic_node_masks", "nic_any_first", "solve_planes")

@@ -1,6 +1,6 @@
 """The port's hand-written Hopper kernels and their wrappers.
 
-Seven CUDA C++ kernels (sources beside this file, built by ``build.py``
+Nine CUDA C++ kernels (sources beside this file, built by ``build.py``
 at first use). Three carry the solve:
 
 * ``nic_node_masks`` — pick validity and the PCI-switch check per
@@ -24,6 +24,19 @@ One carries the megaround's loop condition (reference: the
 
 * ``spec_gate`` — at the start of each iteration, the alive flag, the
   iterations used and one live flag per bucket, in the control tensor.
+
+Two carry the rank of a classic round (reference: ``_rank_body``,
+nhd_tpu/solver/kernel.py:297-317, packed in RankOut order inside
+``get_ranked_solver``, :390-418):
+
+* ``rank_top`` — per type row the top R of the sel plane, the decision
+  planes and the node free totals at the winners, as the packed
+  [9, T, R] rank tensor;
+* ``rank_merge`` — on a mesh, the top R of the shards' candidates by
+  value, each winner's nine rows carried with it.
+
+Both order equal values by ascending node index (lax.top_k's order), so
+the whole rank tensor, val 0 slots included, is a function of the planes.
 
 Every other kernel takes a ``gate`` (its last input, ``abi.py``): a word
 of that control tensor in the megaround, where 0 makes it return at
@@ -79,7 +92,10 @@ SOLVE_KERNELS = ("nic_node_masks", "nic_any_first", "solve_planes")
 CLAIM_KERNELS = ("spec_elect", "spec_fill", "spec_apply")
 #: the megaround's loop condition, launched first in every iteration
 GATE_KERNEL = "spec_gate"
-assert set(KERNELS) == set(SOLVE_KERNELS + CLAIM_KERNELS + (GATE_KERNEL,))
+#: the rank of a classic round: rank_top per solve, rank_merge per mesh solve
+RANK_KERNELS = ("rank_top", "rank_merge")
+assert set(KERNELS) == set(
+    SOLVE_KERNELS + CLAIM_KERNELS + (GATE_KERNEL,) + RANK_KERNELS)
 #: the count of megaround graph replays
 GRAPH = "megaround_graph"
 #: every name ``LAUNCHES`` counts: the kernels, then the graph replays
@@ -249,6 +265,14 @@ def sizes_for(name: str, args: Sequence[Tensor], **kw) -> Dict[str, int]:
     if name == "spec_fill":
         TT1 = t["status"].shape[0]
         return dict(TT=TT1 - 1, TT1=TT1, N=t["plan"].shape[1])
+    if name == "rank_top":
+        _, T, N = t["planes"].shape
+        return dict(P=len(PLANES), T=T, N=N, U=t["gpu_free"].shape[-1],
+                    R=_rank_width(kw["R"], N),
+                    node_base=int(kw.get("node_base", 0)))
+    if name == "rank_merge":
+        _, T, M = t["cand"].shape
+        return dict(T=T, M=M, R=_rank_width(kw["R"], M))
     TT = t["trow"].shape[0]
     N, U = t["cpu_free"].shape
     K = t["nic_free"].shape[2]
@@ -262,6 +286,15 @@ def sizes_for(name: str, args: Sequence[Tensor], **kw) -> Dict[str, int]:
         sizes.update(S=t["gpu_free_sw"].shape[1], IT=t["claims"].shape[0],
                      it=int(kw["it"]))
     return sizes
+
+
+def _rank_width(R: int, n: int) -> int:
+    """*R* when 1 <= R <= n: a rank takes at most as many slots as it has
+    nodes (or candidates)."""
+    R = int(R)
+    if not 1 <= R <= n:
+        raise ValueError(f"rank width {R} outside 1..{n}")
+    return R
 
 
 def nic_node_masks(
@@ -392,3 +425,33 @@ def spec_apply(
                       respect_busy=respect_busy)
     _launch("spec_apply", args, sizes)
     return None
+
+
+def rank_top(
+    planes: Tensor, gpu_free: Tensor, cpu_free: Tensor, hp_free: Tensor,
+    gate: Optional[Tensor] = None, *, R: int, node_base: int = 0,
+) -> Tensor:
+    """The packed [9, T, R] int32 rank tensor (RankOut rows) of one
+    solve's [8, T, N] *planes*: per type row the top R of sel (ties in
+    ascending node index), the decision planes and the free totals of
+    the [N, U] *gpu_free*, *cpu_free* and [N] *hp_free* at the winners,
+    and their indices plus *node_base* (a mesh shard's first global row)."""
+    args = (planes, gpu_free, cpu_free, hp_free, _gate(gate, planes))
+    sizes = sizes_for("rank_top", args, R=R, node_base=node_base)
+    if _on_cpu(planes):
+        return reference.rank_top(*args, R=R, node_base=node_base)
+    (out,) = _launch("rank_top", args, sizes)
+    return out
+
+
+def rank_merge(cand: Tensor, gate: Optional[Tensor] = None, *, R: int) -> Tensor:
+    """The packed [9, T, R] int32 rank tensor from a mesh's candidates
+    *cand* [9, T, M] (each shard's rank_top, joined in shard order): per
+    type row the top R by row 0 (ties in ascending position), each
+    winner's nine rows carried with it."""
+    args = (cand, _gate(gate, cand))
+    sizes = sizes_for("rank_merge", args, R=R)
+    if _on_cpu(cand):
+        return reference.rank_merge(*args, R=R)
+    (out,) = _launch("rank_merge", args, sizes)
+    return out

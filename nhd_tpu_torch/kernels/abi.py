@@ -22,6 +22,12 @@ vector), with ``CM`` and ``CAM`` the largest C and C*A of its buckets,
 ``PL`` the length of the flat solve-plane buffer and ``IT`` the
 iteration depth; ``it``, ``SHARING`` and ``BUSY`` are plain ints.
 
+The rank kernels take the solve's planes (``P`` = 8 rows) and write the
+packed rank tensor, ``RANK`` = 9 rows of ``R`` slots a type row:
+``rank_top`` from one solve's [P, T, N] planes and node free tensors,
+its index row placed on the global node axis by ``node_base``;
+``rank_merge`` from the [RANK, T, M] candidates of a mesh's shards.
+
 Every kernel but ``spec_gate`` takes a ``gate`` (its last input): one
 int32 word, and where it is 0 the kernel returns at once. In the
 megaround it is a word of the control tensor ``ctl`` [B + 2] (``B``
@@ -29,7 +35,8 @@ buckets; ``B1`` = B + 1 bucket offsets, ``B2`` = B + 2) that
 ``spec_gate`` writes at the start of each iteration: ``ctl[0]`` the
 loop's alive flag (the claim kernels' gate), ``ctl[1]`` the iterations
 used, ``ctl[2 + b]`` bucket b's live flag (its solve kernels' gate).
-Elsewhere it is a word that is always 1 (``kernels.live_gate``).
+Elsewhere it is a word that is always 1 (``kernels.live_gate``); the
+rank kernels run only there.
 """
 
 from __future__ import annotations
@@ -199,10 +206,32 @@ ABI: Dict[str, KernelABI] = {
         ),
         ("TT", "B"),
     ),
+    "rank_top": KernelABI(
+        "nhd_rank_top",
+        (
+            _a("planes", "int32", "P T N"),
+            _a("gpu_free", "int32", "N U"),
+            _a("cpu_free", "int32", "N U"),
+            _a("hp_free", "int32", "N"),
+            _a("gate", "int32", "ONE"),
+            _a("out", "int32", "RANK T R", out=True),
+        ),
+        ("T", "N", "U", "R", "node_base"),
+    ),
+    "rank_merge": KernelABI(
+        "nhd_rank_merge",
+        (
+            _a("cand", "int32", "RANK T M"),
+            _a("gate", "int32", "ONE"),
+            _a("out", "int32", "RANK T R", out=True),
+        ),
+        ("T", "M", "R"),
+    ),
 }
 
-#: fixed size symbols: the small constant axes of the claim kernels' tables
-FIXED = {"TWO": 2, "FOUR": 4, "PLAN": 7, "ONE": 1}
+#: fixed size symbols: the small constant axes of the claim kernels'
+#: tables, and the rows of the packed rank tensor (RankOut)
+FIXED = {"TWO": 2, "FOUR": 4, "PLAN": 7, "ONE": 1, "RANK": 9}
 
 def shape(arg: Arg, sizes: Dict[str, int]) -> Tuple[int, ...]:
     """The shape of *arg* at *sizes*."""

@@ -383,3 +383,55 @@ def spec_gate(status: Tensor, offsets: Tensor, ctl: Tensor) -> None:
     ctl[1] += alive.to(ctl.dtype)
     ctl[2:] = ((per > 0) & alive).to(ctl.dtype)
     ctl[0] = alive.to(ctl.dtype)
+
+
+def _top(key: Tensor, R: int) -> Tuple[Tensor, Tensor]:
+    """The top *R* of each row of *key* [T, M] as (values, positions):
+    values descending, equal values in ascending position (lax.top_k's
+    order), by a stable descending sort."""
+    val, pos = torch.sort(key, dim=1, descending=True, stable=True)
+    return val[:, :R], pos[:, :R]
+
+
+def rank_top(
+    planes: Tensor,    # [8, T, N] int32, PLANES order
+    gpu_free: Tensor,  # [N, U] int32
+    cpu_free: Tensor,  # [N, U] int32
+    hp_free: Tensor,   # [N] int32
+    gate: Optional[Tensor] = None,
+    *, R: int, node_base: int = 0,
+) -> Tensor:
+    """The packed [9, T, R] int32 rank tensor (rank_top.cu; the
+    reference's _rank_body, nhd_tpu/solver/kernel.py:297-317, in RankOut
+    order): per type row the top R of the sel plane (ties in ascending
+    node index), the decision planes at the winners, the winners' free
+    GPU, CPU and hugepage totals, and the winners' indices plus
+    *node_base* (a mesh shard's first global row)."""
+    T = planes.shape[1]
+    if _dead(gate):
+        return torch.zeros((9, T, R), dtype=torch.int32, device=planes.device)
+    val, idx = _top(planes[PLANES.index("sel")], R)
+    i32 = torch.int32
+
+    def gat(name):
+        return torch.gather(planes[PLANES.index(name)], 1, idx)
+
+    return torch.stack([
+        val, (idx + node_base).to(i32), gat("best_c"), gat("best_m"),
+        gat("best_a"), gat("n_picks"),
+        gpu_free[idx].sum(-1, dtype=i32), cpu_free[idx].sum(-1, dtype=i32),
+        hp_free[idx].to(i32),
+    ])
+
+
+def rank_merge(cand: Tensor, gate: Optional[Tensor] = None, *, R: int) -> Tensor:
+    """The packed [9, T, R] int32 rank tensor from a mesh's candidates
+    [9, T, M] (rank_merge.cu; the top-R across shards that the
+    reference's node-sharded program leaves to GSPMD): per type row the
+    top R of row 0 (ties in ascending position), all nine rows of each
+    winner carried with it."""
+    T = cand.shape[1]
+    if _dead(gate):
+        return torch.zeros((9, T, R), dtype=torch.int32, device=cand.device)
+    _, pos = _top(cand[0], R)
+    return torch.gather(cand, 2, pos.unsqueeze(0).expand(cand.shape[0], -1, -1))

@@ -53,6 +53,20 @@ zeroes cap (capw 1); "nowin" gives every odd row need and no winner;
 leaves nine nodes in ten with elect -1; "rand" draws need freely, a
 quarter of the rows 0.
 
+``RANK_SWEEP`` rows are (T, N, U, R, S, node_base, fill) of ``rank_top``
+on [8, T, N] planes, and of ``rank_merge`` on the candidates of S shards
+of N / S rows each (``rank_case``): R = 1, R = N, R above the count of
+positive sel values (the val-0 slots take the lowest-index zero nodes),
+R = 1,024 (one winner a thread of the sort) and past it (the list in
+device memory, ordered by counting), N = 8, N no multiple of 32 (a
+ragged last chunk), the tiler's 16,384-row tile, 40,000 (still staged in
+shared memory) and 65,536 (read from device memory), 3 shards (M no
+power of two), node_base > 0. ``fill`` "sparse" makes a tenth of
+the nodes candidates, "dense" every node, "zero" none (all-zero rows),
+"pad" zeroes the upper half of the type rows (the main path's padded
+types), "ties" draws arbitrary int32 keys from a small range, negatives
+included (ties at every value, which sel never has).
+
 ``PLANE_SWEEP`` rows are (T, N, U, G, C, NCLS, fill): C of 1, 2, 4, 8, not
 a power of two, and past 32 (lanes loop over combos); "tie" gives every
 combo the same skew (the first maximum must win), "none" leaves no combo
@@ -451,3 +465,79 @@ def gate_case(seed: int, TT: int, B: int, fill: str = "rand"
         progress = 1
     status = np.concatenate([[progress], need]).astype(np.int32)
     return status, offsets, ctl.astype(np.int32)
+
+
+#: (T, N, U, R, S, node_base, fill) of ``rank_top`` and ``rank_merge``
+RANK_SWEEP = (
+    (1, 8, 1, 1, 1, 0, "sparse"),
+    (4, 8, 2, 8, 2, 0, "dense"),
+    (8, 1024, 2, 512, 4, 0, "sparse"),
+    (8, 1024, 2, 512, 4, 0, "dense"),
+    (4, 1024, 2, 512, 1, 0, "zero"),
+    (8, 1024, 2, 64, 2, 4096, "pad"),
+    (3, 999, 2, 37, 3, 5, "ties"),
+    (5, 3000, 3, 300, 3, 0, "ties"),
+    (8, 16384, 2, 512, 4, 0, "sparse"),
+    (2, 40000, 2, 512, 5, 0, "dense"),
+    (2, 65536, 2, 512, 8, 0, "sparse"),
+    (2, 2048, 2, 1024, 2, 0, "dense"),
+    (2, 1500, 1, 1025, 3, 0, "sparse"),
+    (2, 6000, 1, 5000, 2, 0, "dense"),
+)
+
+
+def rank_case(seed: int, T: int, N: int, U: int, R: int, S: int,
+              node_base: int = 0, fill: str = "sparse") -> dict:
+    """``rank_top``'s inputs (planes [8, T, N], gpu_free and cpu_free
+    [N, U], hp_free [N], int32), its R and node_base, and ``rank_merge``'s
+    candidates: each of S shards of N / S rows ranked on its own (its top
+    min(R, N / S), indices global), joined in shard order, as ``cand``
+    [9, T, S * k], with the merge's R. sel is the solve's: at a candidate
+    (score * 3 + pref) * (N + 1) + (N - n), else 0 (the ``RANK_SWEEP``
+    notes)."""
+    rng = np.random.default_rng(seed)
+    i32 = np.int32
+    n = np.arange(N)
+    if fill == "dense":
+        cand = np.ones((T, N), bool)
+    elif fill == "zero":
+        cand = np.zeros((T, N), bool)
+    else:
+        cand = rng.random((T, N)) < 0.1
+    if fill == "pad":
+        cand[(T + 1) // 2:] = False
+    pref = rng.integers(1, 3, (T, N)) + 3 * rng.integers(0, 4, (T, N))
+    sel = np.where(cand, pref * (N + 1) + (N - n)[None, :], 0)
+    if fill == "ties":
+        sel = rng.integers(-3, 4, (T, N))
+    planes = np.stack([
+        sel, cand, pref * cand, rng.integers(0, 8, (T, N)),
+        rng.integers(0, 4, (T, N)), rng.integers(0, 64, (T, N)),
+        rng.integers(0, 9, (T, N)), rng.integers(0, 64, (T, N)),
+    ]).astype(i32)
+    free = dict(
+        gpu_free=rng.integers(0, 5, (N, U)).astype(i32),
+        cpu_free=rng.integers(0, 65, (N, U)).astype(i32),
+        hp_free=rng.integers(0, 257, N).astype(i32),
+    )
+    Ns = N // S
+    k = min(R, Ns)
+    parts = [np_rank(planes[:, :, s * Ns:(s + 1) * Ns],
+                      *(f[s * Ns:(s + 1) * Ns] for f in free.values()),
+                      k, s * Ns) for s in range(S)]
+    return dict(planes=planes, **free, R=R, node_base=node_base,
+                cand=np.concatenate(parts, axis=2), merge_R=min(R, S * k))
+
+
+def np_rank(planes, gpu_free, cpu_free, hp_free, R, node_base):
+    """The packed [9, T, R] rank tensor of one solve's planes and free
+    arrays in numpy: a stable argsort on the negated sel keys."""
+    idx = np.argsort(-planes[0].astype(np.int64), axis=1, kind="stable")[:, :R]
+
+    def gat(p):
+        return np.take_along_axis(planes[p], idx, axis=1)
+
+    return np.stack([
+        gat(0), idx + node_base, gat(3), gat(4), gat(5), gat(7),
+        gpu_free.sum(1)[idx], cpu_free.sum(1)[idx], hp_free[idx],
+    ]).astype(np.int32)

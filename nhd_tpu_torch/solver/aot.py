@@ -2,7 +2,7 @@
 
 The counterpart of the reference's nhd_tpu/solver/aot.py, which keeps
 one StableHLO program per compiled solve shape. The port compiles no
-per-shape program: each of its seven CUDA kernels is one library, built
+per-shape program: each of its nine CUDA kernels is one library, built
 by ``nvcc`` from its source (kernels/build.py) and shape-generic. So
 its cache keeps the reference's contract on two kinds of artifact:
 
@@ -29,8 +29,9 @@ its cache keeps the reference's contract on two kinds of artifact:
   ``aot_export_failures_total`` and logs once.
 
 ``prewarm(progress=, device=, mesh=)`` (daemon flag ``--prewarm``)
-builds any missing library and loads all seven, creates the CUDA context,
-and for every manifest key runs the solve kernels (and, for a
+builds any missing library and loads all nine, creates the CUDA context,
+and for every manifest key runs the solve kernels (for a ranked key,
+then ``rank_top``, and on a mesh ``rank_merge``; for a
 single-device megaround key, captures the key's graph into the
 process's cache and replays it; on a mesh, the host loop's claim
 kernels) once on zeros at that shape, a mesh key over the
@@ -661,8 +662,12 @@ def _first_bind_probe(prewarm_first: bool, save: bool, device) -> dict:
     if save:
         AOT.drain()  # the seed run's whole job is leaving entries behind
     from nhd_tpu_torch import kernels
+    from nhd_tpu_torch.obs.jitstats import JIT_STATS
 
     out["launches"] = dict(kernels.LAUNCHES)   # the whole process's
+    # its classic rank dispatches (a prewarmed ranked key counts one)
+    out["ranked"] = sum(n for k, n in JIT_STATS.snapshot()["shapes"].items()
+                        if k.startswith("solve_ranked:"))
     return out
 
 

@@ -2,27 +2,34 @@
 
 The counterpart of the reference's nhd_tpu/solver/kernel.py. Every
 predicate of the reference's ``_solve`` is evaluated per (type t, node n)
-by three hand-written kernels (nhd_tpu_torch/kernels):
+by three hand-written kernels (nhd_tpu_torch/kernels), and a fourth
+ranks the nodes:
 
 1. ``nic_node_masks``: the node-only NIC masks (pick validity, PCI);
 2. ``nic_any_first``: the NIC stage over the dense [C*A, U*K] slot form;
 3. ``solve_planes``: node filter, GPU/CPU fit, combo choice, policy
-   preference and the selection value, as [T, N] int32 planes.
+   preference and the selection value, as [T, N] int32 planes;
+4. ``rank_top``: per type row the top R of the sel plane and the packed
+   [9, T, R] rank tensor (RankOut rows) gathered at the winners — the
+   reference's ``_rank_body``, which it runs as ``lax.top_k`` and
+   gathers.
 
-Top-R and the gathers into the packed [9, T, R] rank tensor stay
-``torch.topk`` / ``torch.gather`` / ``torch.stack`` — the reference
-computes them with ``lax.top_k`` outside any Pallas kernel. On CPU
+Equal sel values rank in ascending node index, lax.top_k's order, so the
+whole rank tensor, val 0 slots included, is the reference's. On CPU
 tensors every kernel wrapper takes its plain PyTorch version; the
 decisions are the same integers either way.
 
 On a node-sharded mesh (parallel/sharding.py) the reference runs the same
 fused program under GSPMD, which computes sel over the global padded node
 axis and inserts the top-k collective. Here each shard runs the three
-kernels on its own rows with its global ``node_base`` (so its sel values
-are the unsharded solve's), ranks its top min(R, shard rows) locally, and
-the shards' candidates (node indices made global) are merged by one more
-top-R on the lead shard's device (``rank_shards``). The merge is exact on
-every val > 0 slot because sel is unique there: it ends in n_global - n.
+solve kernels on its own rows with its global ``node_base`` (so its sel
+values are the unsharded solve's) and ``rank_top`` ranks its top
+min(R, shard rows) with indices made global; the shards' candidates,
+joined in shard order, are merged by ``rank_merge`` on the lead shard's
+device (``rank_shards``). The merge is exact on every val > 0 slot
+because sel is unique there (it ends in n_global - n), and on the val 0
+slots because each shard's zero candidates are its lowest-index zero
+nodes, in order.
 
 Argument order, padding rules, rank widths and shape keys are the
 reference's, so one set of knobs (``NHD_TPU_RANK_CAP``,
@@ -361,25 +368,17 @@ def solve_planes(G: int, U: int, K: int, node: Sequence[Tensor],
 _P = {name: i for i, name in enumerate(kernels.PLANES)}
 
 
-def rank_planes(R: int, planes: Tensor, node: Sequence[Tensor]) -> Tensor:
+def rank_planes(R: int, planes: Tensor, node: Sequence[Tensor], *,
+                node_base: int = 0) -> Tensor:
     """The packed [9, Tp, R] int32 rank tensor (RankOut order): top-R of
-    the sel plane per type, and the decision planes and node free totals
-    gathered at the ranked nodes. Only val > 0 slots are defined: ties at
-    val 0 may order differently from the reference's lax.top_k."""
+    the sel plane per type, equal values in ascending node index (the
+    reference's lax.top_k order), and the decision planes and node free
+    totals gathered at the ranked nodes — one ``rank_top`` launch on CUDA
+    tensors. The index row is offset by *node_base* (a mesh shard's first
+    global row)."""
     a = dict(zip(_ARG_ORDER, node))
-    val, idx = torch.topk(planes[_P["sel"]], R, dim=1)
-
-    def gat(name):
-        return torch.gather(planes[_P[name]], 1, idx)
-
-    i32 = torch.int32
-    return torch.stack([
-        val, idx.to(i32), gat("best_c"), gat("best_m"), gat("best_a"),
-        gat("n_picks"),
-        a["gpu_free"].sum(1, dtype=i32)[idx],
-        a["cpu_free"].sum(1, dtype=i32)[idx],
-        a["hp_free"].to(i32)[idx],
-    ])
+    return kernels.rank_top(planes, a["gpu_free"], a["cpu_free"],
+                            a["hp_free"], R=R, node_base=node_base)
 
 
 def rank_shard(R: int, G: int, U: int, K: int, node: Sequence[Tensor],
@@ -388,17 +387,8 @@ def rank_shard(R: int, G: int, U: int, K: int, node: Sequence[Tensor],
     rows (k = min(R, shard rows)) with the index row made global."""
     planes = solve_planes(G, U, K, node, pod, node_base=node_base,
                           n_global=n_global)
-    out = rank_planes(min(R, planes.shape[2]), planes, node)
-    out[1] += node_base
-    return out
-
-
-def merge_ranked(R: int, cand: Tensor) -> Tensor:
-    """The packed [9, Tp, R] rank tensor from the shards' candidates
-    [9, Tp, S*k] (S*k >= R): top-R by val, each winner's nine rows
-    carried with it."""
-    _, j = torch.topk(cand[0], R, dim=1)
-    return torch.gather(cand, 2, j.unsqueeze(0).expand(cand.shape[0], -1, -1))
+    return rank_planes(min(R, planes.shape[2]), planes, node,
+                       node_base=node_base)
 
 
 def rank_shards(G: int, U: int, K: int, R: int, Np: int,
@@ -410,8 +400,9 @@ def rank_shards(G: int, U: int, K: int, R: int, Np: int,
     its own device); it is solved and ranked on that device and its
     candidates are copied to the lead shard's device. With a
     ``torch.distributed`` *group*, every rank's candidates are gathered
-    (in rank order, so every rank merges the same tensor); then the
-    merge runs on the lead device. Returns the packed [9, Tp, R] tensor
+    (in rank order, so every rank merges the same tensor); then
+    ``rank_merge`` takes the top R of the candidates, joined in shard
+    order, on the lead device. Returns the packed [9, Tp, R] tensor
     there."""
     Ns = shards[0][0].shape[0]
     lead = shards[0][0].device
@@ -422,7 +413,7 @@ def rank_shards(G: int, U: int, K: int, R: int, Np: int,
     cand = torch.cat(parts, dim=2)
     if group is not None:
         cand = _all_gather_nodes(cand, group)
-    return merge_ranked(R, cand)
+    return kernels.rank_merge(cand, R=R)
 
 
 def _all_gather_nodes(t: Tensor, group) -> Tensor:

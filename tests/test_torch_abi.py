@@ -91,7 +91,29 @@ def _stage(seed=3, n_nodes=24):
         "solve_planes": (kernel_mod.plane_args(node, pod, *nic), {}),
     }
     staged.update(_claim_stage())
+    staged.update(_rank_stage(
+        reference.solve_planes(*staged["solve_planes"][0]), node))
     return staged, {"T": pods.n_types, "N": cluster.n_nodes}
+
+
+def _rank_stage(planes, node, R=8):
+    """The rank kernels' (args, keywords) on one solve's planes: rank_top
+    on the whole node axis (node_base 3), rank_merge on the candidates of
+    its two halves as shards."""
+    from nhd_tpu_torch.solver.kernel import _ARG_ORDER
+
+    a = dict(zip(_ARG_ORDER, node))
+    free = (a["gpu_free"], a["cpu_free"], a["hp_free"])
+    gate = kernels.live_gate("cpu")
+    h = planes.shape[2] // 2
+    parts = [reference.rank_top(planes[:, :, s:s + h].contiguous(),
+                                *(f[s:s + h] for f in free), gate,
+                                R=min(R, h), node_base=s)
+             for s in (0, h)]
+    return {
+        "rank_top": ((planes, *free, gate), dict(R=R, node_base=3)),
+        "rank_merge": ((torch.cat(parts, 2), gate), dict(R=R)),
+    }
 
 
 def _claim_stage(shape=sweep.SPEC_SWEEP[1], case=None):
@@ -334,3 +356,51 @@ def test_solve_planes_sends_its_place_on_the_node_axis(monkeypatch):
     monkeypatch.undo()
     assert torch.equal(reference.solve_planes(*args),
                        reference.solve_planes(*args, node_base=0, n_global=N))
+
+
+def _rank_hand_case():
+    """Two real type rows of six real nodes, padded to [8, 4, 8]; U = 2.
+    Type 0 has candidates at nodes 1 and 4 (sel 2 * 9 + 7 and 1 * 9 + 4),
+    type 1 none: its top 4 are nodes 0-3 at val 0, type 0's are nodes 1,
+    4, 0, 2. The winners are five distinct nodes (0, 1, 2, 3, 4)."""
+    i32 = torch.int32
+    planes = torch.zeros((8, 4, 8), dtype=i32)
+    planes[0, 0, 1], planes[0, 0, 4] = 2 * 9 + 7, 1 * 9 + 4
+    planes[3:] = torch.arange(8, dtype=i32)
+    free = (torch.ones((8, 2), dtype=i32), torch.full((8, 2), 3, dtype=i32),
+            torch.full((8,), 5, dtype=i32))
+    gate = kernels.live_gate("cpu")
+    return (planes, *free, gate), {"T": 2, "N": 6}
+
+
+# by hand, term by term as chip_smoke.rank_needs names them
+_RANK_HAND = {
+    # sel 2 x 6 x 4; four plane words a winner 2 x 4 x 16; the five free
+    # words of each of five distinct winners 5 x 20; nine rows out
+    # 2 x 4 x 36. A compare a key 12, two adds of U = 2 a winner 32
+    "rank_top": (48 + 128 + 100 + 288, 12 + 32),
+    # row 0 of the candidates 2 x 8 x 4; eight more words a winner
+    # 2 x 4 x 32; nine rows out 2 x 4 x 36. A compare a key 16
+    "rank_merge": (64 + 256 + 288, 16),
+}
+
+
+@pytest.mark.parametrize("name", kernels.RANK_KERNELS)
+def test_rank_bound_hand_count(name):
+    """A rank kernel is charged the sel plane (or candidate keys) over the
+    real type rows and nodes, the words each winner gathers, once per
+    distinct node for the free totals, and the output's real rows: the
+    counts of a two-type case equal a count by hand."""
+    args, real = _rank_hand_case()
+    top = reference.rank_top(*args, R=4)
+    assert top[1, 0].tolist() == [1, 4, 0, 2] and top[1, 1].tolist() == [0, 1, 2, 3]
+    if name == "rank_top":
+        t = dict(zip((a.name for a in abi.ABI[name].inputs), args))
+        out = top
+    else:
+        t = {"cand": torch.cat([top, top], dim=2), "gate": args[-1]}
+        out = reference.rank_merge(t["cand"], t["gate"], R=4)
+    smoke = _chip_smoke()
+    assert smoke.rank_needs(name, t, out, real) == _RANK_HAND[name]
+    bound_ms, bound_by, moved, ops = smoke.rank_bound(name, t, out, real)
+    assert (moved, ops) == _RANK_HAND[name] and bound_by == "bytes" and bound_ms > 0

@@ -1,7 +1,7 @@
 """The port's kernel cache (nhd_tpu_torch/solver/aot.py, kernels/build.py),
 case by case from tests/test_aot.py where the meaning carries over.
 
-The port compiles no per-shape program: its artifacts are the seven kernel
+The port compiles no per-shape program: its artifacts are the nine kernel
 libraries (each with a sidecar meta naming its source fingerprint, nvcc,
 the target, torch, CUDA and the card) and a manifest of the shape keys
 the solver dispatched. On the CPU the manifest cases run for real

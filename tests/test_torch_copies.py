@@ -163,7 +163,7 @@ DIFFERS = {
                      "uid",
     "solver/__init__.py": "exports the port's batched matcher, not the JAX "
                           "one",
-    "solver/aot.py": "the cache contract on the port's artifacts: seven "
+    "solver/aot.py": "the cache contract on the port's artifacts: nine "
                      "kernel libraries with toolchain metas and a manifest "
                      "of shape keys, warmed by launching the kernels on "
                      "zeros; NHDC_AOT_DIR; the probe defaults to cuda",

@@ -362,9 +362,11 @@ def test_streaming_cuda_equals_cpu(placement, monkeypatch):
     1,200 workload_mix pods, 5 groups) through the tiler with three
     workers launching on the card, against the CPU run of the same tiling:
     every pod's node, mapping and NICs equal; the launch counts equal the
-    sum of what each tile sub-call launched, and every kernel launched."""
+    sum of what each tile sub-call launched, and every kernel of the path
+    launched: the megaround's, and rank_top once a classic rank dispatch
+    (none where every pod placed in the megarounds), never rank_merge."""
     _need_cuda()
-    from chip_smoke import spans
+    from chip_smoke import ranked_uses, spans
     from nhd_tpu_torch.sim.workloads import cap_cluster, workload_mix
     from nhd_tpu_torch.solver import BatchItem, StreamingScheduler
 
@@ -379,16 +381,20 @@ def test_streaming_cuda_equals_cpu(placement, monkeypatch):
                                    placement=placement, respect_busy=False,
                                    register_pods=False)
         kernels.reset_launches()
+        ranked0 = ranked_uses()
         with spans(sched) as got:
             res, stats = sched.schedule(cap_cluster(120, groups), items, now=0.0)
         torch.cuda.synchronize()
+        ranked = ranked_uses() - ranked0
         out[dev] = [(r.node, r.mapping, r.nic_list) for r in res]
         if dev == "cuda":
             total = dict(kernels.LAUNCHES)
             summed = {n: sum(c[n] for _t, c, _w in got["calls"])
                       for n in kernels.COUNTED}
             assert total == summed
-            assert all(v > 0 for v in total.values()), total
+            rank = set(kernels.RANK_KERNELS)
+            assert all(v > 0 for n, v in total.items() if n not in rank), total
+            assert (total["rank_top"], total["rank_merge"]) == (ranked, 0), total
             assert stats.scheduled == 1200
     assert out["cuda"] == out["cpu"]
 
@@ -397,8 +403,10 @@ def test_cli_fake_demo_on_cuda():
     """``python -m nhd_tpu_torch.cli --fake --device cuda``: the demo
     TriadSet binds 4/6 across the 4 nodes inside 15 s on the card, as the
     JAX CLI binds it with the default 30 s busy back-off, and the clean
-    exit prints a launch count above 0 for each of the seven kernels and
-    the megaround's graph replays."""
+    exit prints a launch count for each kernel and the megaround's graph
+    replays: above 0 for the solve and claim kernels, spec_gate and the
+    replays, 0 for rank_merge (no mesh); rank_top runs only where a batch
+    took a classic round."""
     _need_cuda()
     import os
     import subprocess
@@ -422,7 +430,9 @@ def test_cli_fake_demo_on_cuda():
     assert len(printed) == 1, r.stdout
     got = json.loads(printed[0].split(": ", 1)[1])
     assert sorted(got) == sorted(kernels.COUNTED), got
-    assert all(n > 0 for n in got.values()), got
+    rank = set(kernels.RANK_KERNELS)
+    assert all(n > 0 for k, n in got.items() if k not in rank), got
+    assert got["rank_merge"] == 0, got
 
 
 def test_truncated_library_quarantined_and_rebuilt(tmp_path, monkeypatch):
@@ -530,3 +540,22 @@ def test_mesh_megaround_and_rank_equal_one_device_on_card(respect_busy, monkeypa
     for g, w in zip(got + got_state, want + want_state):
         assert torch.equal(g, w)
     assert int(want[3]) > 1 and (want[1] > 0).any()
+
+
+@pytest.mark.parametrize("i", range(len(sweep.RANK_SWEEP)))
+def test_rank_kernels_equal_plain_on_the_sweep(i):
+    """rank_top and rank_merge on the card against their plain versions,
+    bit for bit, on every RANK_SWEEP case, and each launch counted."""
+    _need_cuda()
+    c = sweep.rank_case(i, *sweep.RANK_SWEEP[i])
+    args = [torch.from_numpy(c[k]).cuda()
+            for k in ("planes", "gpu_free", "cpu_free", "hp_free")]
+    cand = torch.from_numpy(c["cand"]).cuda()
+    before = {n: kernels.LAUNCHES[n] for n in kernels.RANK_KERNELS}
+    got = kernels.rank_top(*args, R=c["R"], node_base=c["node_base"])
+    merged = kernels.rank_merge(cand, R=c["merge_R"])
+    torch.cuda.synchronize()
+    assert torch.equal(got, reference.rank_top(*args, R=c["R"],
+                                               node_base=c["node_base"]))
+    assert torch.equal(merged, reference.rank_merge(cand, R=c["merge_R"]))
+    assert all(kernels.LAUNCHES[n] == before[n] + 1 for n in kernels.RANK_KERNELS)
