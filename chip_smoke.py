@@ -28,8 +28,9 @@ Phases (one line each; the last line is the contract line):
    schedule, reset, one timed schedule), then the same batch on
    ``device="cpu"`` with ``NHD_TPU_SPECULATE=1``: every pod must land on
    the same node with the same mapping and NICs; round 0 must be one
-   graph replay (one ``megaround_graph`` launch, ``spec_iters()`` of
-   ``spec_gate`` and of each claim kernel); then one more cuda schedule,
+   graph replay (one ``megaround_graph`` launch; ``spec_gate`` once
+   before the WHILE node and once a pass, each claim kernel once a pass,
+   as many passes as iterations); then one more cuda schedule,
    its megaround's fixed trip issued launch by launch
    (``speculate.REPLAY`` off), that copies the inputs of every solve
    (classic rounds and live megaround buckets) and of every call of
@@ -129,7 +130,8 @@ Phases (one line each; the last line is the contract line):
 12. the kernel cache (nhd_tpu_torch/solver/aot.py) on the card, each
    probe a fresh ``python -m nhd_tpu_torch.solver.aot --first-bind-probe
    --device cuda`` in a temporary ``NHDC_AOT_DIR``: (a) cold, empty,
-   ``--save`` (nvcc builds all nine libraries inside the bind); (b) a
+   ``--save`` (nvcc builds all ten libraries inside the bind: the nine
+   kernels and the WHILE node's helper); (b) a
    restart without prewarm; (c) a restart with ``--prewarm`` (no build,
    no library load inside the bind); (d) a copy with one library
    truncated and one meta's fingerprint edited, ``--prewarm``: both
@@ -185,17 +187,23 @@ Phases (one line each; the last line is the contract line):
    ``NHD_RACE_INJECT=1`` must report the injected race; over the child's
    life 0 wait-for-graph cycles. Each leg's wall beside its
    uninstrumented one; every kernel launches in (a) and in (b);
-15. the megaround as one CUDA graph replay: from the starting state of
-   the megarounds of phases 4, 5 and 9 (cfg4, cfg3 and cfg5's
-   16,384-row tile), the graph (a cache of its own, so its first
-   dispatch captures) against the host loop on the card, the plain
+15. the megaround as one CUDA graph replay, its loop a WHILE node: from
+   the starting state of the megarounds of phases 4, 5 and 9 (cfg4, cfg3
+   and cfg5's 16,384-row tile), the graph (a cache of its own, so its
+   first dispatch captures) against the fixed trip launch by launch
+   (``speculate.REPLAY`` off), the host loop on the card, the plain
    versions on the card and, for cfg4 and cfg3, the plain replay on the
    CPU of phases 4-5: claims, counts, need left, iterations and node
-   state bit for bit; then the host loop, the graph and the graph with
-   every iteration dead (no need), in turns from the starting state,
-   ``GRAPH_TIMED`` times each: host wall per dispatch, wall to its end
-   and CUDA-event device time; the capture's time, the dead iterations
-   and a dead iteration's cost;
+   state bit for bit; a graph whose body also counts its passes on the
+   card (``passes_of``): as many as the iterations, and none with no
+   need; then the host loop, the graph and the graph with no need, in
+   turns from the starting state, ``GRAPH_TIMED`` times each: host wall
+   per dispatch, wall to its end and CUDA-event device time; the replay
+   alone, live and with no need; the capture's time; and one cfg4
+   replay's kernels under torch.profiler beside the count the launches
+   say (``replay_kernels``), in this process and in a fresh one
+   (``replay_profile_child``, full cfg4 width), where no more
+   ``spec_gate`` launches than 1 + the iterations may show;
 16. the kernels JSON line: per kernel its launches in phases 4-7 and
    9-14 (counts set to 0 just before each counted run and read just
    after; a megaround graph replay adds what its capture recorded;
@@ -219,6 +227,7 @@ repository, or when any phase fails. A fuller report goes to
 chiprun_out/chip_smoke_report.json.
 """
 
+import collections
 import contextlib
 import functools
 import json
@@ -809,8 +818,10 @@ def spy_claims(calls):
         names = [a.name for a in ABI[name].inputs]
 
         def call(*args, **kw):
+            # the held output buffer (spec_elect's plan) stays the call's:
+            # each check allocates its own
             calls.append((name, {n: a.clone() for n, a in zip(names, args)},
-                          dict(kw)))
+                          {k: v for k, v in kw.items() if k != "out"}))
             return orig[name](*args, **kw)
         return call
 
@@ -1131,7 +1142,7 @@ def sweep_check(torch, dev, report):
         plan = plan.clone()
         reference.spec_fill(plan, status.clone())
         calls.append(("spec_apply", {"plan": plan, **{k: t[k] for k in sweep.SPEC_APPLY_ARGS}},
-                      dict(kw, it=case["it"])))
+                      kw))
         check_claims(torch, f"sweep (N, U, K, S, buckets, sharing, busy, fill)={shape}",
                      calls, report, {"N": shape[0]}, timed=False)
     for i, shape in enumerate(sweep.FILL_SWEEP):
@@ -1141,11 +1152,14 @@ def sweep_check(torch, dev, report):
                                      "gate": kernels.live_gate(dev)}, {})],
                      report, {"N": shape[1]}, timed=False)
     for i, shape in enumerate(sweep.GATE_SWEEP):
-        status, offsets, ctl = (up(a) for a in sweep.gate_case(i, *shape))
-        check_claims(torch, f"gate sweep (TT, B, fill)={shape}",
-                     [("spec_gate", {"status": status, "offsets": offsets,
-                                     "ctl": ctl}, {})],
-                     report, {}, timed=False)
+        case = sweep.gate_case(i, *shape)
+        status, offsets, ctl = (up(a) for a in case)
+        for cap in sweep.GATE_CAPS:
+            check_claims(torch, f"gate sweep (TT, B, fill)={shape}, cap {cap}",
+                         [("spec_gate", {"status": status, "offsets": offsets,
+                                         "ctl": ctl},
+                           {"iters": sweep.gate_iters(case[2], cap)})],
+                         report, {}, timed=False)
     for i, shape in enumerate(sweep.RANK_SWEEP):
         case = sweep.rank_case(i, *shape)
         args = [up(case[k]) for k in ("planes", "gpu_free", "cpu_free", "hp_free")]
@@ -1182,7 +1196,7 @@ def sweep_check(torch, dev, report):
         f"{sorted({s[0] for s in sweep.FILL_SWEEP})}, N in "
         f"{sorted({s[1] for s in sweep.FILL_SWEEP})}, fills "
         f"{sorted({s[2] for s in sweep.FILL_SWEEP})}); spec_gate exact on "
-        f"{len(sweep.GATE_SWEEP)} shapes (TT in "
+        f"{len(sweep.GATE_SWEEP)} shapes at caps {list(sweep.GATE_CAPS)} (TT in "
         f"{sorted({s[0] for s in sweep.GATE_SWEEP})}, B in "
         f"{sorted({s[1] for s in sweep.GATE_SWEEP})}, fills "
         f"{sorted({s[2] for s in sweep.GATE_SWEEP})}); rank_top and rank_merge "
@@ -1400,15 +1414,14 @@ def run_cell(torch, name, cluster_fn, report, launches_total, *, speculative):
     if speculative and not spec_it:
         fail(f"{name}: the card's default did not run the speculative round 0")
     if speculative:
-        # round 0 is one replay: spec_gate and each claim kernel launch
-        # spec_iters() times in it, dead iterations included
-        from nhd_tpu_torch.solver.speculate import spec_iters
-
-        want = {kernels.GRAPH: 1, **{k: spec_iters() for k in (
-            kernels.GATE_KERNEL, *kernels.CLAIM_KERNELS)}}
+        # round 0 is one replay: spec_gate before the WHILE node, then the
+        # body's gate and claim kernels once a pass, one pass an iteration
+        want = {kernels.GRAPH: 1, kernels.GATE_KERNEL: 1 + spec_it,
+                **{k: spec_it for k in kernels.CLAIM_KERNELS}}
         got = {k: launches[k] for k in want}
         if got != want:
-            fail(f"{name}: the megaround was not one graph replay: {got}")
+            fail(f"{name}: the megaround was not one graph replay of "
+                 f"{spec_it} passes: {got}")
     elif launches[kernels.GRAPH]:
         fail(f"{name}: NHD_TPU_SPECULATE=0 replayed a megaround graph")
     if not speculative and spec_it:
@@ -1466,10 +1479,10 @@ def run_cell(torch, name, cluster_fn, report, launches_total, *, speculative):
             fail(f"{name}: the captured schedule ran no megaround")
         real = {"N": cap.megarounds[0][4]}
         check_claims(torch, f"{name} megaround", cap.claims, report, real, timed=True)
-        its = sum(1 for c in cap.claims if c[0] == kernels.GATE_KERNEL)
+        its = sum(1 for c in cap.claims if c[0] == kernels.GATE_KERNEL) - 1
         log(f"{name} claim kernels and spec_gate vs plain: all {len(cap.claims)} "
-            f"calls ({its} iterations of the fixed trip, {cap.dead_solves} solves "
-            "of dead buckets or iterations), exact")
+            f"calls ({its} iterations of the fixed trip, each closed by its gate, "
+            f"{cap.dead_solves} solves of dead buckets or iterations), exact")
         SNAPS[name] = cap.megarounds[0]
         replays = [replay_megaround(torch, f"{name} megaround {i}", snap, report)
                    for i, snap in enumerate(cap.megarounds)]
@@ -2799,6 +2812,7 @@ def prewarm_phase(torch, report, launches_total, smi):
     import tempfile
 
     from nhd_tpu_torch import kernels
+    from nhd_tpu_torch.kernels.abi import SOURCES
     from nhd_tpu_torch.sim.chaos import ChaosSim
     from nhd_tpu_torch.sim.faults import PROFILES
     from nhd_tpu_torch.solver import aot, guard
@@ -2817,9 +2831,9 @@ def prewarm_phase(torch, report, launches_total, smi):
         cache = os.path.join(work, "aot")
         os.makedirs(cache)
         cold = probe("(a) cold, empty cache, --save", cache, "--save")
-        if cold["bind_builds"] != len(kernels.KERNELS):
+        if cold["bind_builds"] != len(SOURCES):
             fail(f"probe (a): {cold['bind_builds']} libraries built in the "
-                 f"bind, expected {len(kernels.KERNELS)}")
+                 f"bind, expected {len(SOURCES)}")
         if not any(glob.glob(os.path.join(cache, p + "*.json"))
                    for p in manifest):
             fail("probe (a): no manifest entry recorded")
@@ -3535,15 +3549,100 @@ def plain_on_card():
         kernels._on_cpu = on_cpu
 
 
+@contextlib.contextmanager
+def passes_of(torch, dev):
+    """While inside, a megaround graph captured (a fresh cache's) has one
+    more op in its WHILE body, the first: one added to the yielded
+    counter on the card, so a replay counts the passes the node ran."""
+    from nhd_tpu_torch.solver import speculate
+
+    passes = torch.zeros(1, dtype=torch.int32, device=dev)
+    iteration = speculate.megaround_iteration
+
+    def counted(*args, **kw):
+        passes.add_(1)
+        return iteration(*args, **kw)
+
+    speculate.megaround_iteration = counted
+    try:
+        yield passes
+    finally:
+        speculate.megaround_iteration = iteration
+
+
+def replay_kernels(torch, replay, prep):
+    """One replay under torch.profiler (its buffers restored by *prep*
+    first): the device kernels it records by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    prep()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        replay()
+        torch.cuda.synchronize()
+    names = collections.Counter(
+        e.name for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return {k[:80]: n for k, n in sorted(names.items())}
+
+
+def replay_profile_child():
+    """Phase 15's profiler reading, in a fresh process (``python -c``): a
+    cfg4 megaround (``CELL_NODES`` cap_cluster nodes, ``CELL_PODS``
+    pods' need) dispatched once through a new graph, then one replay from
+    the same start under torch.profiler. Prints one JSON line: the
+    iterations, the kernels the launches say the replay ran (two resets
+    and the tally before the node, a pass's two headroom copies and
+    tally once an iteration) and those the profiler recorded, by name."""
+    import numpy as np
+    import torch
+
+    from nhd_tpu_torch.sim.workloads import cap_cluster, workload_mix
+    from nhd_tpu_torch.solver import speculate
+    from nhd_tpu_torch.solver.device_state import DeviceClusterState
+    from nhd_tpu_torch.solver.encode import encode_cluster, encode_pods
+    from nhd_tpu_torch.solver.kernel import _ARG_ORDER, _pad_pow2
+
+    cluster = encode_cluster(cap_cluster(CELL_NODES, GROUPS), now=0.0)
+    cluster.busy[:] = False
+    buckets = list(encode_pods(workload_mix(CELL_PODS, GROUPS),
+                               cluster.interner).values())
+    needs = [np.bincount(p.pod_type, minlength=_pad_pow2(p.n_types)).astype(np.int32)
+             for p in buckets]
+    state = DeviceClusterState(cluster, card(torch))
+    start = {k: v.clone() for k, v in state._dev.items()}
+    its = int(state.megaround(buckets, needs, False)[3])
+    (entry,) = speculate.GRAPHS.entries()
+    control = speculate.control_arrays(needs, speculate._shapes(buckets))
+
+    def prep():
+        entry.buf.fill(control)
+        for k in _ARG_ORDER:
+            entry.node[k].copy_(start[k])
+
+    seen = replay_kernels(torch, entry.graph.replay, prep)
+    gates = sum(n for k, n in seen.items() if "spec_gate" in k)
+    print(json.dumps({
+        "iterations": its, "gates": gates,
+        "counted": 2 + sum(entry.tally.values())
+        + its * (sum(entry.body_tally.values()) + 2),
+        "profiled": sum(seen.values()), "by_name": seen}), flush=True)
+    return 0
+
+
 def graph_phase(torch, report, smi):
-    """Phase 15: the megaround as one graph replay (module docstring)."""
+    """Phase 15: the megaround as one graph replay, its loop a WHILE node
+    (module docstring)."""
     import numpy as np
 
-    from nhd_tpu_torch.solver.kernel import _MUTABLE, _pad_pow2, upload_pods
+    from nhd_tpu_torch.solver import speculate
+    from nhd_tpu_torch.solver.kernel import _ARG_ORDER, _MUTABLE, _pad_pow2, upload_pods
     from nhd_tpu_torch.solver.speculate import (
         MegaroundCache,
+        _shapes,
         run_megaround,
         spec_iters,
+        trip_arrays,
     )
 
     dev = card(torch)
@@ -3557,19 +3656,30 @@ def graph_phase(torch, report, smi):
         start = {k: v.to(dev, copy=True) for k, v in state.items()}
         pods = [upload_pods(p, _pad_pow2(p.n_types), U, K, dev) for p in bucket_pods]
         cache = MegaroundCache()  # its own, so its first dispatch captures
+        fixed_cache = MegaroundCache()
+        zero = [np.zeros_like(n) for n in needs]
 
         def loop(node, need=needs):
             return run_megaround(node, bucket_pods, pods, need, U, K, iters,
                                  respect_busy)
 
-        def graph(node, need=needs):
+        def graph(node, need=needs, cache=cache):
             return cache.run(node, bucket_pods, need, U, K, iters, respect_busy)
+
+        def fixed(node, need=needs):
+            speculate.REPLAY = False
+            try:
+                return fixed_cache.run(node, bucket_pods, need, U, K, iters,
+                                       respect_busy)
+            finally:
+                speculate.REPLAY = True
 
         def result(res, node):
             return [t.cpu() for t in res] + [node[k].cpu() for k in _MUTABLE]
 
         runs = {}
-        for kind, fn in (("host loop", loop), ("graph", graph), ("plain", loop)):
+        for kind, fn in (("host loop", loop), ("graph", graph),
+                         ("fixed trip", fixed), ("plain", loop)):
             node = {k: v.clone() for k, v in start.items()}
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -3583,23 +3693,42 @@ def graph_phase(torch, report, smi):
         entry = cache.entries()[0]
         if dev.type == "cuda" and entry.graph is None:
             fail(f"graph {label}: the dispatch captured no graph")
-        replay = entry.trip if entry.graph is None else entry.graph.replay
+        if fixed_cache.entries()[0].graph is not None:
+            fail(f"graph {label}: REPLAY off captured a graph")
+        replay = entry.loop if entry.graph is None else entry.graph.replay
         want = runs["host loop"][0]
         cpu = PLAIN_REPLAYS.get(f"{label} megaround 0")
-        for kind, got in (("graph", runs["graph"][0]), ("plain", runs["plain"][0]),
-                          ("CPU plain replay", cpu)):
+        for kind, got in (("graph", runs["graph"][0]),
+                          ("fixed trip", runs["fixed trip"][0]),
+                          ("plain", runs["plain"][0]), ("CPU plain replay", cpu)):
             if got is not None and not all(torch.equal(g, w) for g, w in zip(got, want)):
                 fail(f"graph {label}: the host loop and the {kind} differ")
         its = int(want[3])
+
+        # the passes the WHILE node runs, counted on the card by a body
+        # with one more op: one a live iteration, none without need
+        passes = {}
+        with passes_of(torch, dev) as counter:
+            counting = MegaroundCache()
+            for kind, need in (("warm", zero), ("live", needs), ("no need", zero)):
+                node = {k: v.clone() for k, v in start.items()}
+                torch.cuda.synchronize()
+                counter.zero_()
+                res = graph(node, need, counting)
+                torch.cuda.synchronize()
+                passes[kind] = (int(counter), int(res[3]))
+        if passes["live"] != (its, its) or passes["no need"] != (0, 0):
+            fail(f"graph {label}: the WHILE node ran passes (counted, iteration "
+                 f"word) {passes}, expected ({its}, {its}) live and (0, 0) "
+                 "with no need")
 
         # the host loop against the graph, in turns from the start state:
         # host wall per dispatch (the loop's includes its per-iteration
         # pulls; the graph's is the enqueue) and device time by events
         times = {k: {"host_ms": [], "wall_ms": [], "device_ms": []}
-                 for k in ("host loop", "graph", "graph, every iteration dead")}
-        zero = [np.zeros_like(n) for n in needs]
+                 for k in ("host loop", "graph", "graph, no need")}
         plan = (("host loop", loop, needs), ("graph", graph, needs),
-                ("graph, every iteration dead", graph, zero))
+                ("graph, no need", graph, zero))
         for r in range(GRAPH_TIMED):
             for kind, fn, need in (plan if r % 2 == 0 else plan[::-1]):
                 node = runs["graph" if fn is graph else "host loop"][2]
@@ -3619,13 +3748,9 @@ def graph_phase(torch, report, smi):
                 times[kind]["wall_ms"].append(wall * 1e3)
                 times[kind]["device_ms"].append(s.elapsed_time(e))
         med = {k: {m: statistics.median(v) for m, v in t.items()} for k, t in times.items()}
-        dead = iters - its
         # the replay alone, on the card: its buffers restored on the card
-        # before each launch (cuda_time_ms), live and with every iteration
-        # dead; and the host's parts of a dispatch
-        from nhd_tpu_torch.solver.kernel import _ARG_ORDER
-        from nhd_tpu_torch.solver.speculate import _shapes, trip_arrays
-
+        # before each launch (cuda_time_ms), live and with no need; and
+        # the host's parts of a dispatch
         shapes = _shapes(bucket_pods)
         Np = int(start["hp_free"].shape[0])
         host_ms = {"table build": [], "replay enqueue": []}
@@ -3658,31 +3783,67 @@ def graph_phase(torch, report, smi):
         host_ms["dispatch parts"] = {k: round(v / entry.dispatches * 1e3, 4)
                                      for k, v in entry.host_s.items()}
         del live_arrays
-        per_dead = replay_ms["dead"] / iters
+        per_pass = (replay_ms["live"] - replay_ms["dead"]) / max(its, 1)
+        # the kernels of one replay: before the node (two resets, one
+        # gate), then a pass's (two headroom copies, the tally's kernels)
+        # once an iteration; the profiler's own reading beside it
+        body = sum(entry.body_tally.values()) + 2
+        counted_kernels = 2 + sum(entry.tally.values()) + its * body
+        profiled = None
+        if label.startswith("cfg4"):
+            profiled = replay_kernels(torch, replay, functools.partial(restore, "live"))
         cell = {
-            "iterations": its, "dead_iterations": dead,
+            "iterations": its, "passes": passes,
             "capture_s": entry.capture_s, "first_dispatch_s": runs["graph"][1],
+            "fixed_trip_first_s": runs["fixed trip"][1],
             "host_loop_first_s": runs["host loop"][1], "medians": med,
-            "dead_ms_per_iteration": per_dead, "tally": entry.tally,
+            "ms_per_pass": per_pass, "tally": entry.tally,
+            "body_tally": entry.body_tally, "replay_kernels": counted_kernels,
+            "profiled_kernels": profiled,
             "replay_device_ms": replay_ms, "host_parts_ms": host_ms,
             "node_rows": int(start["hp_free"].shape[0]),
         }
         out[label] = cell
-        log(f"graph {label} (Np={cell['node_rows']}): graph == host loop == plain "
-            f"on the card{' == plain replay on the CPU' if cpu is not None else ''} "
-            f"(claims, counts, need left, {its} iterations, node state); "
-            f"{iters} iterations a replay, {dead} dead; capture "
+        prof = ""
+        if profiled is not None:
+            prof = (f"; torch.profiler over one replay records "
+                    f"{sum(profiled.values())} kernels ({profiled})")
+        log(f"graph {label} (Np={cell['node_rows']}): WHILE graph == fixed trip == "
+            f"host loop == plain on the card"
+            f"{' == plain replay on the CPU' if cpu is not None else ''} "
+            f"(claims, counts, need left, {its} iterations, node state); the node ran "
+            f"{passes['live'][0]} passes counted on the card ({passes['no need'][0]} "
+            f"with no need); capture "
             f"{'none' if entry.capture_s is None else f'{entry.capture_s * 1e3:.2f} ms'} "
-            f"(first dispatch {runs['graph'][1] * 1e3:.2f} ms, the host loop's first "
+            f"(first dispatch {runs['graph'][1] * 1e3:.2f} ms, the fixed trip's first "
+            f"{runs['fixed trip'][1] * 1e3:.2f} ms, the host loop's first "
             f"{runs['host loop'][1] * 1e3:.2f} ms); medians of {GRAPH_TIMED}: "
             + "; ".join(f"{k} host {m['host_ms']:.3f} ms, wall {m['wall_ms']:.3f} ms, "
                         f"device {m['device_ms']:.4f} ms" for k, m in med.items())
-            + f"; the replay alone on the card {replay_ms['live']:.4f} ms, with every "
-            f"iteration dead {replay_ms['dead']:.4f} ms, so a dead iteration "
-            f"{per_dead:.4f} ms; host: the table build {host_ms['table build']:.3f} ms, "
-            f"the replay's enqueue {host_ms['replay enqueue']:.3f} ms, a dispatch's "
-            f"parts (mean ms) {host_ms['dispatch parts']}; "
-            f"launches a replay {entry.tally}; {smi}")
+            + f"; the replay alone on the card {replay_ms['live']:.4f} ms, with no "
+            f"need {replay_ms['dead']:.4f} ms, so a pass {per_pass:.4f} ms; host: "
+            f"the table build {host_ms['table build']:.3f} ms, the replay's enqueue "
+            f"{host_ms['replay enqueue']:.3f} ms, a dispatch's parts (mean ms) "
+            f"{host_ms['dispatch parts']}; launches a replay: {entry.tally} before "
+            f"the node, {entry.body_tally} a pass, {counted_kernels} kernels with the "
+            f"resets and headroom copies{prof}; {smi}")
+    # the profiler over one cfg4 replay in a fresh process: no pass after
+    # the exit may show (more spec_gate launches than 1 + iterations)
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, chip_smoke; sys.exit(chip_smoke.replay_profile_child())"],
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
+    if proc.returncode != 0:
+        fail(f"graph: the profiled replay's process exited {proc.returncode}: "
+             f"{proc.stderr[-3000:]}")
+    fresh = out["profiled_replay"] = json.loads(proc.stdout.strip().splitlines()[-1])
+    if fresh["gates"] > fresh["iterations"] + 1:
+        fail(f"graph: the profiler saw {fresh['gates']} spec_gate launches in a "
+             f"replay of {fresh['iterations']} iterations")
+    log(f"graph: cfg4 replay under torch.profiler in a fresh process: "
+        f"{fresh['iterations']} iterations, {fresh['counted']} kernels by the "
+        f"launches, {fresh['profiled']} recorded ({fresh['gates']} of spec_gate); "
+        f"{fresh['by_name']}; {smi}")
     out["seconds"] = time.perf_counter() - t_phase
     log(f"graph: phase 15 in {out['seconds']:.1f}s of command time")
 

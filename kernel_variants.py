@@ -206,13 +206,14 @@ def build_all(sources, out_dir):
 
 
 def entry(lib, kernel):
-    from nhd_tpu_torch.kernels.abi import ABI
+    from nhd_tpu_torch.kernels.abi import ABI, WIDE
 
     spec = ABI[kernel]
     fn = getattr(lib, spec.entry)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * len(spec.args)
-                   + [ctypes.c_int] * len(spec.sizes) + [ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_uint64 if s in WIDE else ctypes.c_int for s in spec.sizes]
+                   + [ctypes.c_int, ctypes.c_void_p])
     return fn
 
 
@@ -263,8 +264,7 @@ def claim_inputs(torch, dev):
         staged = {
             "spec_elect": (elect, kw),
             "spec_fill": (fill, {}),
-            "spec_apply": ((plan, *(t[k] for k in sweep.SPEC_APPLY_ARGS)),
-                           dict(kw, it=case["it"])),
+            "spec_apply": ((plan, *(t[k] for k in sweep.SPEC_APPLY_ARGS)), kw),
         }
         out.append((label, {
             k: (args, kw, [i for i, a in enumerate(ABI[k].inputs) if a.inplace])

@@ -174,6 +174,20 @@ class AbiRow:
 
 
 @dataclass(frozen=True)
+class HelperRow:
+    """One C entry point of a source that holds no kernel
+    (``HELPERS = {source: (HelperEntry(entry, ((name, kind), ...)), ...)}``
+    in the ABI module): its parameters with their C kinds."""
+
+    source: str
+    entry: str
+    path: str
+    line: int
+    col: int
+    params: Tuple[Tuple[str, str], ...]
+
+
+@dataclass(frozen=True)
 class PlainSig:
     """A plain version's signature (a module-level def of the plain
     module named as a kernel): its positional params."""
@@ -212,6 +226,9 @@ class ContractModel:
     key_refs: List[KeyRef] = field(default_factory=list)
     block_spans: List[BlockSpan] = field(default_factory=list)
     abi_rows: Dict[str, AbiRow] = field(default_factory=dict)
+    helper_rows: List[HelperRow] = field(default_factory=list)
+    #: the ABI sizes passed as 64-bit ints (``WIDE`` in the ABI module)
+    wide: Tuple[str, ...] = ()
     plain_sigs: Dict[str, PlainSig] = field(default_factory=dict)
     kernel_calls: List[KernelCall] = field(default_factory=list)
     #: builder function name -> its returned tuple's descriptors
@@ -385,6 +402,10 @@ class _ModuleExtractor(ast.NodeVisitor):
                 ))
         elif name == "ABI" and isinstance(value, ast.Dict):
             self._abi_table(value)
+        elif name == "HELPERS" and isinstance(value, ast.Dict):
+            self._helper_table(value)
+        elif name == "WIDE":
+            self.model.wide = _literal_str_tuple(value) or ()
         elif name == "KNOBS" and isinstance(value, (ast.Tuple, ast.List)):
             knobs = []
             for elt in value.elts:
@@ -413,6 +434,23 @@ class _ModuleExtractor(ast.NodeVisitor):
                 key.value, str(row.args[0].value), self.path, row.lineno,
                 row.col_offset, tuple(args), sizes,
             )
+
+    def _helper_table(self, value: ast.Dict) -> None:
+        for key, entries in zip(value.keys, value.values):
+            if not (isinstance(key, ast.Constant) and isinstance(key.value, str)
+                    and isinstance(entries, (ast.Tuple, ast.List))):
+                continue
+            for row in entries.elts:
+                if not (isinstance(row, ast.Call) and len(row.args) >= 2
+                        and isinstance(row.args[0], ast.Constant)
+                        and isinstance(row.args[1], (ast.Tuple, ast.List))):
+                    continue
+                params = [_literal_str_tuple(p) for p in row.args[1].elts]
+                if any(p is None or len(p) != 2 for p in params):
+                    continue
+                self.model.helper_rows.append(HelperRow(
+                    key.value, str(row.args[0].value), self.path, row.lineno,
+                    row.col_offset, tuple(params)))
 
     @staticmethod
     def _knob_name(node: ast.AST) -> Optional[str]:

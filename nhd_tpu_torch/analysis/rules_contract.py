@@ -8,7 +8,11 @@ NHD701  missing-consumer: a field present in one layer of the solve
         the ``padded_args`` block spans; or a
         kernel's pointer or size list differs between its ``abi.py``
         row, its ``.cu`` entry point, its plain version
-        (``kernels/reference.py``) and the argument builders that call it.
+        (``kernels/reference.py``) and the argument builders that call it;
+        or a size ``abi.py`` passes as 64-bit (``WIDE``) that the ``.cu``
+        declares narrower, or the reverse; or a helper entry point
+        (``HELPERS``: a source with no kernel) whose parameters or their
+        C kinds differ from its ``.cu``.
 NHD702  order-contract violation: same field *set* but a different order
         (positional consumers would read the wrong tensor) — in the
         signature tuples, or between an ABI row and its ``.cu`` entry,
@@ -233,6 +237,34 @@ def _check_signature(model: ContractModel) -> List[Finding]:
 _CU_ENTRY = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)', re.S)
 
 
+def _cu_params(abi_path: str) -> Dict[str, Tuple[str, int, List[Tuple[str, str]]]]:
+    """entry -> (file, line, [(C type, name), ...]) of every ``extern "C"``
+    entry point in the ``.cu`` files beside the ABI table, every
+    parameter kept."""
+    out: Dict[str, Tuple[str, int, List[Tuple[str, str]]]] = {}
+    here = Path(abi_path).parent
+    if not here.is_dir():
+        return out
+    for cu in sorted(here.glob("*.cu")):
+        text = cu.read_text()
+        for m in _CU_ENTRY.finditer(text):
+            params = []
+            for p in (p.strip() for p in m.group(2).split(",")):
+                if p:
+                    name = re.split(r"[\s*]+", p)[-1]
+                    params.append((p[: len(p) - len(name)].strip(), name))
+            out[m.group(1)] = (cu.name, text.count("\n", 0, m.start()) + 1, params)
+    return out
+
+
+def _c_kind(ctype: str) -> str:
+    """The ``abi.HELPERS`` kind of a C parameter type."""
+    wide = "long long" in ctype or "uint64_t" in ctype or "Handle" in ctype
+    if "*" in ctype:
+        return "u64ptr" if wide else "ptr"
+    return "u64" if wide else "int"
+
+
 def _cu_entries(abi_path: str) -> Dict[str, Tuple[str, int, List[str], List[str]]]:
     """entry -> (file, line, pointer params, int params) of every ``.cu``
     beside the ABI table. The trailing ``int device, void* stream`` are
@@ -318,6 +350,7 @@ def _check_abi(model: ContractModel) -> List[Finding]:
             out.extend(_compare(sig, f"{kernel} inputs", row.inputs,
                                 sig.positional, f"the plain version "
                                 f"{sig.path}:{sig.line}"))
+    out.extend(_check_widths(model, entries))
     # call sites: what the caller passes, position by position
     for call in model.kernel_calls:
         row = model.abi_rows.get(call.kernel)
@@ -352,6 +385,54 @@ def _check_abi(model: ContractModel) -> List[Finding]:
                     f"kernel would read the wrong tensor",
                 ))
                 break  # one finding per call site
+    return out
+
+
+def _check_widths(model: ContractModel, entries) -> List[Finding]:
+    """The 64-bit sizes (``WIDE``) against the ``.cu`` types, and the
+    helper entry points against their ``.cu``: ctypes passes an int
+    where a 64-bit handle is declared, and cuts a handle bound as int."""
+    out: List[Finding] = []
+    if not entries:
+        return out
+    typed = _cu_params(next(iter(model.abi_rows.values())).path)
+    for kernel, row in sorted(model.abi_rows.items()):
+        if row.entry not in typed:
+            continue
+        cu, line, params = typed[row.entry]
+        for ctype, name in params:
+            if name not in row.sizes:
+                continue
+            wide = _c_kind(ctype) == "u64"
+            if wide != (name in model.wide):
+                out.append(_finding(
+                    "NHD701", row,
+                    f"{kernel} size '{name}': {cu}:{line} declares it "
+                    f"'{ctype}', but abi.py binds it as "
+                    f"{'a 64-bit int (WIDE)' if name in model.wide else 'an int'}",
+                ))
+    for h in model.helper_rows:
+        what = f"helper {h.source} {h.entry}"
+        if h.entry not in typed:
+            out.append(_finding(
+                "NHD701", h,
+                f"{what}: no extern \"C\" entry {h.entry} in any .cu beside "
+                f"{h.path}",
+            ))
+            continue
+        cu, line, params = typed[h.entry]
+        found = _compare(h, f"{what} parameters", [n for n, _ in h.params],
+                         [n for _, n in params], f"{cu}:{line}")
+        out.extend(found)
+        if found:
+            continue
+        for (name, kind), (ctype, _) in zip(h.params, params):
+            if _c_kind(ctype) != kind:
+                out.append(_finding(
+                    "NHD701", h,
+                    f"{what}: '{name}' is '{ctype}' in {cu}:{line}, but "
+                    f"abi.py binds it as {kind}",
+                ))
     return out
 
 

@@ -22,8 +22,14 @@ One carries the megaround's loop condition (reference: the
 ``lax.while_loop`` cond at nhd_tpu/solver/speculate.py:533-535 and the
 ``lax.cond`` that skips a bucket with no need, :286-289):
 
-* ``spec_gate`` — at the start of each iteration, the alive flag, the
-  iterations used and one live flag per bucket, in the control tensor.
+* ``spec_gate`` — before each iteration, the alive flag, the
+  iterations used and one live flag per bucket, in the control tensor,
+  and the condition of the megaround graph's WHILE node.
+
+One source holds no kernel: ``graph_while.cu``, the CUDA runtime calls
+that capture that WHILE node (``abi.HELPERS``, ``while_handle``,
+``while_open``, ``while_close``), which PyTorch does not expose. It has
+no plain version and no count.
 
 Two carry the rank of a classic round (reference: ``_rank_body``,
 nhd_tpu/solver/kernel.py:297-317, packed in RankOut order inside
@@ -55,12 +61,16 @@ the launch failed: there is no fallback.
 A megaround on one device is a CUDA graph (solver/speculate.py): the
 wrappers run once, at its capture, where nothing launches, and each
 replay launches what they recorded. So a capture's launches go to a
-tally of its own (``capturing``), not to the counts, and each replay
+tally of its own (``capturing``), not to the counts. The graph is the
+resets and one ``spec_gate`` before a WHILE node whose body is one
+iteration, captured once under a tally of its own. Each replay
 (``count_replay``) adds one to ``LAUNCHES["megaround_graph"]`` and the
-tally to each kernel's count: one replay of an ``iters``-deep graph
-counts ``iters`` launches of ``spec_gate`` and of each claim kernel and
-``iters`` of each solve kernel per bucket, dead iterations included
-(they launch and return at once).
+launches before the node (one ``spec_gate``); the body ran as many
+times as the iteration word says, so whoever reads that word
+(solver/batch.py) adds the body's tally that many times
+(``count_passes``): a cfg4 round 0 of 4 iterations counts 5 launches of
+``spec_gate``, 4 of each claim kernel and 4 of each solve kernel per
+bucket that was live, and nothing for the passes the node never ran.
 
 Threads: the streaming tiler (solver/streaming.py) launches from several
 worker threads at once. The counts are kept under a lock, and each
@@ -155,8 +165,16 @@ def capturing() -> Iterator[Dict[str, int]]:
 
 
 def count_replay(tally: Dict[str, int]) -> None:
-    """One replay of a graph whose capture recorded *tally*."""
+    """One replay of a graph whose capture recorded *tally* outside its
+    WHILE node."""
     _add({GRAPH: 1, **tally})
+
+
+def count_passes(body: Dict[str, int], passes: int) -> None:
+    """*passes* runs of a WHILE node's body whose capture recorded
+    *body*: the launches the card made inside the node."""
+    if passes > 0:
+        _add({name: n * passes for name, n in body.items()})
 
 
 _LIVE: Dict[torch.device, Tensor] = {}
@@ -261,7 +279,8 @@ def sizes_for(name: str, args: Sequence[Tensor], **kw) -> Dict[str, int]:
                     n_global=N if n_global is None else int(n_global))
     if name == "spec_gate":
         TT1, B1 = t["status"].shape[0], t["offsets"].shape[0]
-        return dict(TT=TT1 - 1, TT1=TT1, B=B1 - 1, B1=B1, B2=B1 + 1)
+        return dict(TT=TT1 - 1, TT1=TT1, B=B1 - 1, B1=B1, B2=B1 + 1,
+                    iters=int(kw["iters"]), handle=int(kw.get("handle", 0)))
     if name == "spec_fill":
         TT1 = t["status"].shape[0]
         return dict(TT=TT1 - 1, TT1=TT1, N=t["plan"].shape[1])
@@ -283,8 +302,7 @@ def sizes_for(name: str, args: Sequence[Tensor], **kw) -> Dict[str, int]:
     if name == "spec_elect":
         sizes["PL"] = t["planes"].shape[0]
     else:
-        sizes.update(S=t["gpu_free_sw"].shape[1], IT=t["claims"].shape[0],
-                     it=int(kw["it"]))
+        sizes.update(S=t["gpu_free_sw"].shape[1], IT=t["claims"].shape[0])
     return sizes
 
 
@@ -297,17 +315,33 @@ def _rank_width(R: int, n: int) -> int:
     return R
 
 
+def _into(out: Optional[Sequence[Tensor]], got: Sequence[Tensor],
+          gate: Tensor) -> Tuple[Tensor, ...]:
+    """The plain version's results *got*, or written into *out* (which a
+    dead *gate* leaves as it was, as the kernel does)."""
+    if out is None:
+        return tuple(got)
+    if not reference._dead(gate):
+        for o, g in zip(out, got, strict=True):
+            o.copy_(g)
+    return tuple(out)
+
+
 def nic_node_masks(
     nic_count: Tensor, nic_sw: Tensor, gpu_free_sw: Tensor,
     combo: Tensor, pick: Tensor, need_max: Tensor,
-    gate: Optional[Tensor] = None,
+    gate: Optional[Tensor] = None, *,
+    out: Optional[Tuple[Tensor, Tensor]] = None,
 ) -> Tuple[Tensor, Tensor]:
-    """(valid [N, C*A] bool, pci_ok [N, C*A] bool)."""
+    """(valid [N, C*A] bool, pci_ok [N, C*A] bool); written into *out*
+    when given."""
     args = (nic_count, nic_sw, gpu_free_sw, combo, pick, need_max,
             _gate(gate, nic_count))
     if _on_cpu(nic_count):
-        return reference.nic_node_masks(*args)
-    valid, pci_ok = _launch("nic_node_masks", args, sizes_for("nic_node_masks", args))
+        valid, pci_ok = _into(out, reference.nic_node_masks(*args), args[-1])
+        return valid, pci_ok
+    valid, pci_ok = _launch("nic_node_masks", args, sizes_for("nic_node_masks", args),
+                            out)
     return valid, pci_ok
 
 
@@ -316,20 +350,24 @@ def nic_any_first(
     unchosen: Tensor, valid: Tensor, pci_ok: Tensor, map_pci: Tensor,
     gate: Optional[Tensor] = None,
     *, U: int, K: int, C: int, A: int,
+    out: Optional[Tuple[Tensor, Tensor, Tensor]] = None,
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """(nic_any [T, N, C] bool, first_a [T, N, C] int32, n_picks [T, N, C]
-    int32), the signature of attic/nic_pallas.py nic_any_first."""
+    int32), the signature of attic/nic_pallas.py nic_any_first; written
+    into *out* when given."""
     gate = _gate(gate, free_rx)
     if _on_cpu(free_rx):
-        return reference.nic_any_first(
+        nic_any, first_a, n_picks = _into(out, reference.nic_any_first(
             free_rx, free_tx, dem_rx, dem_tx, unchosen, valid, pci_ok,
             map_pci, gate, U=U, K=K, C=C, A=A,
-        )
+        ), gate)
+        return nic_any, first_a, n_picks
     map_pci = (map_pci if map_pci.dtype == torch.bool else map_pci != 0).contiguous()
     args = (free_rx, free_tx, dem_rx, dem_tx, unchosen, valid, pci_ok, map_pci,
             gate)
     nic_any, first_a, n_picks = _launch(
         "nic_any_first", args, sizes_for("nic_any_first", args, U=U, K=K, C=C, A=A),
+        out,
     )
     return nic_any, first_a, n_picks
 
@@ -370,32 +408,72 @@ def solve_planes(
     return planes
 
 
-def spec_gate(status: Tensor, offsets: Tensor, ctl: Tensor) -> None:
+def spec_gate(status: Tensor, offsets: Tensor, ctl: Tensor, *, iters: int,
+              handle: int = 0) -> Optional[bool]:
     """Open one megaround iteration: write its alive flag, iteration
     count and per-bucket live flags into *ctl* (``abi.py``) from the
-    progress flag and the need in *status* and the buckets' first rows
-    *offsets*."""
+    progress flag and the need in *status*, the buckets' first rows
+    *offsets* and the cap *iters*; where *handle* is not 0, set that
+    conditional handle of the graph being captured to the alive flag.
+    On the CPU returns the alive flag (the plain version's), on the card
+    None: the host never reads it."""
     args = (status, offsets, ctl)
     if _on_cpu(status):
-        return reference.spec_gate(*args)
-    _launch("spec_gate", args, sizes_for("spec_gate", args))
+        return reference.spec_gate(*args, iters=iters, handle=handle)
+    _launch("spec_gate", args, sizes_for("spec_gate", args, iters=iters,
+                                         handle=handle))
     return None
+
+
+def while_handle(capture, device) -> int:
+    """A conditional handle on the graph the stream *capture*
+    (``torch.cuda.Stream``) is capturing (``graph_while.cu``)."""
+    import ctypes
+
+    from nhd_tpu_torch.kernels import build
+
+    handle = ctypes.c_uint64(0)
+    build.call_helper("graph_while", "nhd_graph_while_handle",
+                      capture.cuda_stream, ctypes.byref(handle),
+                      torch.device(device).index)
+    return int(handle.value)
+
+
+def while_open(capture, handle: int, body, device) -> None:
+    """Add a WHILE node on *handle* after what *capture* captured so far,
+    the capture going on after it, and start capturing stream *body*
+    into the node's body graph."""
+    from nhd_tpu_torch.kernels import build
+
+    build.call_helper("graph_while", "nhd_graph_while_open", capture.cuda_stream,
+                      handle, body.cuda_stream, torch.device(device).index)
+
+
+def while_close(body, device) -> None:
+    """End the capture of the WHILE node's body on stream *body*."""
+    from nhd_tpu_torch.kernels import build
+
+    build.call_helper("graph_while", "nhd_graph_while_close", body.cuda_stream,
+                      torch.device(device).index)
 
 
 def spec_elect(
     planes, plane_off, trow, smt, cpu_free, gpu_free, hp_free, nic_free,
     cpu_g, cpu_m, gpu_g, nic_occ, status, gate=None, *, sharing: bool,
-    respect_busy: bool,
+    respect_busy: bool, out: Optional[Tensor] = None,
 ) -> Tensor:
-    """The per-node plan [7, N] int32 (``PLAN`` rows); clears status[0]."""
+    """The per-node plan [7, N] int32 (``PLAN`` rows), written into *out*
+    when given; clears status[0]."""
     args = (planes, plane_off, trow, smt, cpu_free, gpu_free, hp_free,
             nic_free, cpu_g, cpu_m, gpu_g, nic_occ, status, _gate(gate, planes))
+    outs = None if out is None else (out,)
     if _on_cpu(planes):
-        return reference.spec_elect(*args, sharing=sharing,
-                                    respect_busy=respect_busy)
+        (plan,) = _into(outs, (reference.spec_elect(
+            *args, sharing=sharing, respect_busy=respect_busy),), args[-1])
+        return plan
     sizes = sizes_for("spec_elect", args, sharing=sharing,
                       respect_busy=respect_busy)
-    (plan,) = _launch("spec_elect", args, sizes)
+    (plan,) = _launch("spec_elect", args, sizes, outs)
     return plan
 
 
@@ -411,17 +489,18 @@ def spec_fill(plan: Tensor, status: Tensor, gate: Optional[Tensor] = None) -> No
 def spec_apply(
     plan, trow, smt, nic_sw, cpu_g, cpu_m, gpu_g, nic_occ, gpu_uk, nic_rx,
     nic_tx, busy, hp_free, cpu_free, gpu_free, nic_free, gpu_free_sw,
-    claims, counts, gate=None, *, it: int, sharing: bool, respect_busy: bool,
+    claims, counts, step, gate=None, *, sharing: bool, respect_busy: bool,
 ) -> None:
     """Apply the claims of *plan* to the node tensors in place and record
-    them in row *it* of claims and counts."""
+    them in row step[0] - 1 of claims and counts (*step*: an int32 [1]
+    word on the device, the megaround's iteration count)."""
     args = (plan, trow, smt, nic_sw, cpu_g, cpu_m, gpu_g, nic_occ, gpu_uk,
             nic_rx, nic_tx, busy, hp_free, cpu_free, gpu_free, nic_free,
-            gpu_free_sw, claims, counts, _gate(gate, plan))
+            gpu_free_sw, claims, counts, step, _gate(gate, plan))
     if _on_cpu(plan):
-        return reference.spec_apply(*args, it=it, sharing=sharing,
+        return reference.spec_apply(*args, sharing=sharing,
                                     respect_busy=respect_busy)
-    sizes = sizes_for("spec_apply", args, it=it, sharing=sharing,
+    sizes = sizes_for("spec_apply", args, sharing=sharing,
                       respect_busy=respect_busy)
     _launch("spec_apply", args, sizes)
     return None

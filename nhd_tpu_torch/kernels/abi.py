@@ -20,7 +20,10 @@ kernels run over the megaround's global type axis ``TT`` (every bucket's
 padded rows, bucket after bucket; ``TT1`` = TT + 1 for the status
 vector), with ``CM`` and ``CAM`` the largest C and C*A of its buckets,
 ``PL`` the length of the flat solve-plane buffer and ``IT`` the
-iteration depth; ``it``, ``SHARING`` and ``BUSY`` are plain ints.
+iteration depth; ``SHARING`` and ``BUSY`` are plain ints. ``spec_apply``
+writes claim row ``step - 1``, ``step`` one int32 word: the control
+tensor's iteration count in the megaround, a word of
+``arange(1, IT + 1)`` in the host loop.
 
 The rank kernels take the solve's planes (``P`` = 8 rows) and write the
 packed rank tensor, ``RANK`` = 9 rows of ``R`` slots a type row:
@@ -32,11 +35,21 @@ Every kernel but ``spec_gate`` takes a ``gate`` (its last input): one
 int32 word, and where it is 0 the kernel returns at once. In the
 megaround it is a word of the control tensor ``ctl`` [B + 2] (``B``
 buckets; ``B1`` = B + 1 bucket offsets, ``B2`` = B + 2) that
-``spec_gate`` writes at the start of each iteration: ``ctl[0]`` the
-loop's alive flag (the claim kernels' gate), ``ctl[1]`` the iterations
-used, ``ctl[2 + b]`` bucket b's live flag (its solve kernels' gate).
+``spec_gate`` writes before each iteration: ``ctl[0]`` the loop's alive
+flag (the claim kernels' gate), ``ctl[1]`` the iterations used,
+``ctl[2 + b]`` bucket b's live flag (its solve kernels' gate).
 Elsewhere it is a word that is always 1 (``kernels.live_gate``); the
-rank kernels run only there.
+rank kernels run only there. ``spec_gate`` takes ``iters`` (the loop's
+cap, IT) and ``handle``, a CUDA graph conditional handle it sets to the
+alive flag where it is not 0: the sizes in ``WIDE`` are 64-bit
+(``unsigned long long`` in the ``.cu``), every other size an ``int``.
+
+``HELPERS`` lists the C entry points of a source that holds no kernel:
+``graph_while.cu``, the runtime calls that capture the megaround's
+WHILE node (solver/speculate.py). Each parameter is written with its
+C kind (``ptr`` a ``void*``, ``u64`` an ``unsigned long long``,
+``u64ptr`` a pointer to one, ``int``); ``build.py`` binds them from it
+and nhdlint holds them against the ``.cu``.
 """
 
 from __future__ import annotations
@@ -193,9 +206,10 @@ ABI: Dict[str, KernelABI] = {
             _io("gpu_free_sw", "int32", "N S"),
             _io("claims", "int32", "IT N"),
             _io("counts", "int32", "IT N"),
+            _a("step", "int32", "ONE"),
             _a("gate", "int32", "ONE"),
         ),
-        ("TT", "N", "U", "K", "S", "CM", "CAM", "IT", "it", "SHARING", "BUSY"),
+        ("TT", "N", "U", "K", "S", "CM", "CAM", "IT", "SHARING", "BUSY"),
     ),
     "spec_gate": KernelABI(
         "nhd_spec_gate",
@@ -204,7 +218,7 @@ ABI: Dict[str, KernelABI] = {
             _a("offsets", "int32", "B1"),
             _io("ctl", "int32", "B2"),
         ),
-        ("TT", "B"),
+        ("TT", "B", "iters", "handle"),
     ),
     "rank_top": KernelABI(
         "nhd_rank_top",
@@ -232,6 +246,31 @@ ABI: Dict[str, KernelABI] = {
 #: fixed size symbols: the small constant axes of the claim kernels'
 #: tables, and the rows of the packed rank tensor (RankOut)
 FIXED = {"TWO": 2, "FOUR": 4, "PLAN": 7, "ONE": 1, "RANK": 9}
+
+#: the sizes passed as 64-bit unsigned ints
+WIDE = ("handle",)
+
+
+class HelperEntry(NamedTuple):
+    entry: str                         # the extern "C" function
+    params: Tuple[Tuple[str, str], ...]  # (the .cu parameter name, its C kind)
+
+
+#: the sources that hold no kernel, by name: their C entry points (the
+#: source's ``nhd_<name>_error`` names any code they return)
+HELPERS: Dict[str, Tuple[HelperEntry, ...]] = {
+    "graph_while": (
+        HelperEntry("nhd_graph_while_handle",
+                    (("capture", "ptr"), ("handle", "u64ptr"), ("device", "int"))),
+        HelperEntry("nhd_graph_while_open",
+                    (("capture", "ptr"), ("handle", "u64"), ("body", "ptr"),
+                     ("device", "int"))),
+        HelperEntry("nhd_graph_while_close", (("body", "ptr"), ("device", "int"))),
+    ),
+}
+
+#: every source this directory builds: the kernels, then the helpers
+SOURCES = tuple(ABI) + tuple(HELPERS)
 
 def shape(arg: Arg, sizes: Dict[str, int]) -> Tuple[int, ...]:
     """The shape of *arg* at *sizes*."""

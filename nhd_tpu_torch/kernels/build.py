@@ -4,7 +4,9 @@ Each ``*.cu`` source in this directory is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, and loaded
 with ctypes. The wrappers pass raw device pointers (``tensor.data_ptr()``)
 and PyTorch's current stream, in the order ``abi.ABI`` gives for each
-kernel. No source includes PyTorch's headers, so a
+kernel. ``graph_while.cu`` holds no kernel: its entry points
+(``abi.HELPERS``) are the CUDA runtime calls that capture the
+megaround's WHILE node, called through ``call_helper``. No source includes PyTorch's headers, so a
 build takes seconds, not the minutes ``torch.utils.cpp_extension.load``
 needs for a binding file.
 
@@ -32,7 +34,7 @@ import time
 from pathlib import Path
 from typing import Dict, List, Optional
 
-from nhd_tpu_torch.kernels.abi import ABI
+from nhd_tpu_torch.kernels.abi import ABI, HELPERS, SOURCES, WIDE
 
 _DIR = Path(__file__).resolve().parent
 #: the default build directory (the kernel cache's, solver/aot.py)
@@ -168,7 +170,7 @@ def build_all() -> Dict[str, str]:
     import json
 
     todo = []
-    for name in ABI:
+    for name in SOURCES:
         why = stale_reason(name)
         if why is None:
             continue
@@ -223,10 +225,21 @@ def _open(name: str) -> ctypes.CDLL:
     OSError or AttributeError for a library that is not what it says."""
     # the one caller, load, memoizes the handle in _LIBS
     lib = ctypes.CDLL(str(library_path(name)))  # nhdlint: ignore[NHD104]
-    spec = ABI[name]
+    if name in HELPERS:
+        entries = {e.entry: [_KIND[k] for _, k in e.params] for e in HELPERS[name]}
+        errors = dict.fromkeys(entries, helper_error(name))
+    else:
+        spec = ABI[name]
+        # tensor pointers, int sizes, then the device index and the stream
+        entries = {spec.entry: (
+            [ctypes.c_void_p] * len(spec.args)
+            + [ctypes.c_uint64 if s in WIDE else ctypes.c_int for s in spec.sizes]
+            + [ctypes.c_int, ctypes.c_void_p]
+        )}
+        errors = {spec.entry: spec.entry + "_error"}
     try:
-        fn = getattr(lib, spec.entry)
-        err = getattr(lib, spec.entry + "_error")
+        bound = [(getattr(lib, entry), getattr(lib, errors[entry]), argtypes)
+                 for entry, argtypes in entries.items()]
     except AttributeError:
         # unmap it: a rebuild lands at the same path, and while this
         # handle stays open dlopen would hand it back
@@ -234,16 +247,17 @@ def _open(name: str) -> ctypes.CDLL:
 
         _ctypes.dlclose(lib._handle)
         raise
-    fn.restype = ctypes.c_int
-    # tensor pointers, int sizes, then the device index and the stream
-    fn.argtypes = (
-        [ctypes.c_void_p] * len(spec.args)
-        + [ctypes.c_int] * len(spec.sizes)
-        + [ctypes.c_int, ctypes.c_void_p]
-    )
-    err.restype = ctypes.c_char_p
-    err.argtypes = [ctypes.c_int]
+    for fn, err, argtypes in bound:
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        err.restype = ctypes.c_char_p
+        err.argtypes = [ctypes.c_int]
     return lib
+
+
+#: the ctypes type of each C kind in ``abi.HELPERS``
+_KIND = {"ptr": ctypes.c_void_p, "u64": ctypes.c_uint64,
+         "u64ptr": ctypes.POINTER(ctypes.c_uint64), "int": ctypes.c_int}
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -290,9 +304,23 @@ def launch(name: str, *args) -> None:
     """Call kernel *name*'s C entry point; raise KernelLaunchError on a
     launch error (a refused launch never runs, and a later synchronize
     would not say so)."""
+    _call(name, ABI[name].entry, ABI[name].entry + "_error", args)
+
+
+def helper_error(source: str) -> str:
+    """The error-string function of helper *source*: one per source."""
+    return f"nhd_{source}_error"
+
+
+def call_helper(source: str, entry: str, *args) -> None:
+    """Call helper *source*'s C entry point *entry* (``abi.HELPERS``);
+    raise KernelLaunchError, named *source*, on the cudaError it returns."""
+    _call(source, entry, helper_error(source), args)
+
+
+def _call(name: str, entry: str, error: str, args) -> None:
     lib = load(name)
-    entry = ABI[name].entry
     rc = getattr(lib, entry)(*args)
     if rc != 0:
-        msg = getattr(lib, entry + "_error")(rc).decode()
+        msg = getattr(lib, error)(rc).decode()
         raise KernelLaunchError(name, rc, msg)

@@ -317,15 +317,17 @@ def spec_fill(plan: Tensor, status: Tensor, gate: Optional[Tensor] = None) -> No
 def spec_apply(
     plan, trow, smt, nic_sw, cpu_g, cpu_m, gpu_g, nic_occ, gpu_uk, nic_rx,
     nic_tx, busy, hp_free, cpu_free, gpu_free, nic_free, gpu_free_sw,
-    claims, counts, gate=None, *, it: int, sharing: bool, respect_busy: bool,
+    claims, counts, step, gate=None, *, sharing: bool, respect_busy: bool,
 ) -> None:
     """The claim deltas and the claim record (speculate.py:448-527) for the
     nodes that took copies: cpu, gpu and hugepages, NIC bandwidth (sharing
     on) or the lowest free NICs zeroed (sharing off), the per-switch GPUs
     through nic_sw, busy; the packed claim word and the count go to row
-    *it* of claims and counts. Every float step is the reference's: f32
-    arithmetic, then a truncating cast back."""
-    if _dead(gate):
+    step[0] - 1 of claims and counts (a row outside them: nothing). Every
+    float step is the reference's: f32 arithmetic, then a truncating cast
+    back."""
+    it = int(step[0]) - 1
+    if _dead(gate) or not 0 <= it < claims.shape[0]:
         return
     U = cpu_free.shape[1]
     K = nic_sw.shape[2]
@@ -366,23 +368,28 @@ def spec_apply(
     counts[it, ns] = p[6]
 
 
-def spec_gate(status: Tensor, offsets: Tensor, ctl: Tensor) -> None:
+def spec_gate(status: Tensor, offsets: Tensor, ctl: Tensor, *, iters: int,
+              handle: int = 0) -> bool:
     """The megaround's loop condition (spec_gate.cu; the reference's
     while-loop cond, speculate.py:533-535, and its per-bucket skip,
     :286-289), written into *ctl* [B + 2] from the progress flag
     status[0], the need status[1:] and the buckets' first rows *offsets*
-    [B + 1]: ctl[0] = ctl[0] and status[0] and sum(need) > 0 (alive),
-    ctl[1] += alive, ctl[2 + b] = alive and bucket b's need sum > 0."""
+    [B + 1]: ctl[0] = ctl[0] and status[0] and sum(need) > 0 and
+    ctl[1] < iters (alive), ctl[1] += alive, ctl[2 + b] = alive and
+    bucket b's need sum > 0. Returns alive, the value the kernel sets its
+    graph's conditional *handle* to (no graph here: the handle is not
+    read), so a loop on the CPU can stop where the WHILE node stops."""
     need = status[1:].long()
     TT, B = need.shape[0], offsets.shape[0] - 1
     rows = torch.arange(TT, device=status.device)
     bucket = torch.searchsorted(offsets[1:].long(), rows, right=True)
     per = torch.zeros(B, dtype=torch.int64, device=status.device)
     per.index_add_(0, bucket, need)
-    alive = (ctl[0] != 0) & (status[0] != 0) & (per.sum() > 0)
+    alive = (ctl[0] != 0) & (status[0] != 0) & (per.sum() > 0) & (ctl[1] < iters)
     ctl[1] += alive.to(ctl.dtype)
     ctl[2:] = ((per > 0) & alive).to(ctl.dtype)
     ctl[0] = alive.to(ctl.dtype)
+    return bool(alive)
 
 
 def _top(key: Tensor, R: int) -> Tuple[Tensor, Tensor]:

@@ -14,7 +14,11 @@
 //   gpu_free_sw[n, s] = int(f32(gpu_free_sw) - sum over slots on switch s
 //                       of k * gpu_uk[t, ca, slot])
 //   busy[n] = 1 when respect_busy
-//   claims[it, n] = t * 2^21 + (c * U + m) * A_t + a,  counts[it, n] = k.
+//   claims[row, n] = t * 2^21 + (c * U + m) * A_t + a,  counts[row, n] = k,
+// with row = *step - 1: the iteration count spec_gate keeps in the
+// megaround's control tensor (ctl[1]), so one captured body serves every
+// pass of the graph's WHILE node; the host loop passes the word of
+// arange(1, IT + 1) for its iteration.
 // Nodes that took nothing keep their state, their claim word -1 and their
 // count 0 (the dispatch fills those planes once). Every float step is the
 // reference's float32 arithmetic, rounded as XLA rounds it (the products
@@ -58,10 +62,11 @@
 
 // Gate: *gate* is one int32 word of the megaround's control tensor (its
 // alive flag, written by spec_gate.cu). Where it is 0 every block returns
-// before it writes device memory: a dead iteration of the fixed-trip
-// megaround. Its load issues beside the kernel's first loads and is
-// tested after them, so a live launch waits for no extra round trip.
-// Outside the megaround it is a word that is always 1.
+// before it writes device memory: a dead iteration of the launch-by-launch
+// trip. Its load, and the step's, issue beside the kernel's first loads
+// and are tested after them, so a live launch waits for no extra round
+// trip. Outside the megaround it is a word that is always 1. A step
+// outside [1, IT] writes nothing either (spec_gate's cap keeps it inside).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -105,11 +110,13 @@ __global__ void __launch_bounds__(THREADS) spec_apply_kernel(
     int32_t* __restrict__ gpu_free_sw,     // [N, S]
     int32_t* __restrict__ claims,          // [IT, N]
     int32_t* __restrict__ counts,          // [IT, N]
+    const int32_t* __restrict__ step,      // [1]: the iteration, 1-based
     const int32_t* __restrict__ gate,      // [1]: 0 = a dead megaround iteration
-    int TT, int N, int U, int K, int S, int CM, int CAM, int it,
+    int TT, int N, int U, int K, int S, int CM, int CAM, int IT,
     int sharing, int respect_busy)
 {
     const int open = *gate;  // 0: nothing reaches device memory
+    const int it = *step - 1;  // the claim row
     extern __shared__ float s_delta_all[];  // [warps a block, S]
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int n = blockIdx.x * (blockDim.x >> 5) + warp;
@@ -123,7 +130,8 @@ __global__ void __launch_bounds__(THREADS) spec_apply_kernel(
     const int a = plan[5 * row + n];
     const int k = plan[6 * row + n];
     const bool smt_n = smt[n];
-    if (!open || t < 0 || k <= 0) return;  // a dead iteration, or no copies
+    if (!open || it < 0 || it >= IT || t < 0 || k <= 0)
+        return;  // a dead iteration, or no copies
 
     const int A_t = trow[4 * t], C_t = trow[4 * t + 1], hp_t = trow[4 * t + 3];
     const int cb = min(max(c, 0), C_t - 1);
@@ -208,11 +216,11 @@ extern "C" int nhd_spec_apply(
     const void* cpu_g, const void* cpu_m, const void* gpu_g, const void* nic_occ,
     const void* gpu_uk, const void* nic_rx, const void* nic_tx,
     void* busy, void* hp_free, void* cpu_free, void* gpu_free, void* nic_free,
-    void* gpu_free_sw, void* claims, void* counts, const void* gate,
-    int TT, int N, int U, int K, int S, int CM, int CAM, int IT, int it,
-    int SHARING, int BUSY, int device, void* stream)
+    void* gpu_free_sw, void* claims, void* counts, const void* step,
+    const void* gate, int TT, int N, int U, int K, int S, int CM, int CAM,
+    int IT, int SHARING, int BUSY, int device, void* stream)
 {
-    if (TT < 1 || U < 1 || K < 1 || S < 1 || CM < 1 || CAM < 1 || it < 0 || it >= IT)
+    if (TT < 1 || U < 1 || K < 1 || S < 1 || CM < 1 || CAM < 1 || IT < 1)
         return (int)cudaErrorInvalidValue;
     // a warp's switch accumulators in 48 KB of shared memory: fewer warps a
     // block for a wide switch row
@@ -236,7 +244,8 @@ extern "C" int nhd_spec_apply(
         (const float*)nic_rx, (const float*)nic_tx, (bool*)busy,
         (int32_t*)hp_free, (int32_t*)cpu_free, (int32_t*)gpu_free,
         (float*)nic_free, (int32_t*)gpu_free_sw, (int32_t*)claims,
-        (int32_t*)counts, (const int32_t*)gate, TT, N, U, K, S, CM, CAM, it, SHARING, BUSY);
+        (int32_t*)counts, (const int32_t*)step, (const int32_t*)gate, TT, N, U, K, S,
+        CM, CAM, IT, SHARING, BUSY);
     return (int)cudaGetLastError();
 }
 

@@ -269,8 +269,9 @@ def spec_case(seed: int, N: int, U: int, K: int, S: int, buckets, sharing: bool,
     largest C and C*A, the node state on the request grid (integer cpu,
     gpu and hugepages; NIC headroom on a 0.5 Gbps grid, -1 where absent)
     and the status vector (progress, then every type row's need, some 0).
-    Also ``it`` and ``IT``, the iteration row and depth. *fill* as the
-    ``SPEC_SWEEP`` notes say; "rand" draws nothing more."""
+    Also ``it``, the claim row, and ``step`` = [it + 1], the word
+    ``spec_apply`` reads it from. *fill* as the ``SPEC_SWEEP`` notes say;
+    "rand" draws nothing more."""
     rng = np.random.default_rng(seed)
     i32, f32 = np.int32, np.float32
     TT = sum(tp for tp, _, _ in buckets)
@@ -327,6 +328,7 @@ def spec_case(seed: int, N: int, U: int, K: int, S: int, buckets, sharing: bool,
         gate=np.ones(1, i32),
         it=int(rng.integers(0, 4)), sharing=sharing, respect_busy=respect_busy,
     )
+    case["step"] = np.array([case["it"] + 1], i32)
     if fill == "tie":
         case["status"][1:] = np.where(need > 0, 17, 0)
     elif fill == "multi":
@@ -419,7 +421,7 @@ SPEC_ELECT_ARGS = ("planes", "plane_off", "trow", "smt", "cpu_free", "gpu_free",
 SPEC_APPLY_ARGS = ("trow", "smt", "nic_sw", "cpu_g", "cpu_m", "gpu_g", "nic_occ",
                    "gpu_uk", "nic_rx", "nic_tx", "busy", "hp_free", "cpu_free",
                    "gpu_free", "nic_free", "gpu_free_sw", "claims", "counts",
-                   "gate")
+                   "step", "gate")
 
 #: (TT, B, fill) of ``spec_gate``: one row and one bucket; rows that are
 #: no multiple of the 256-thread block, and past it and past four of it
@@ -465,6 +467,19 @@ def gate_case(seed: int, TT: int, B: int, fill: str = "rand"
         progress = 1
     status = np.concatenate([[progress], need]).astype(np.int32)
     return status, offsets, ctl.astype(np.int32)
+
+
+#: the caps each ``GATE_SWEEP`` case runs at, against its ctl[1]: "at"
+#: (the cap binds: the loop is dead whatever the need), "above" (one
+#: iteration left) and "far"
+GATE_CAPS = ("at", "above", "far")
+
+
+def gate_iters(ctl: np.ndarray, cap: str) -> int:
+    """``spec_gate``'s ``iters`` for the control tensor *ctl* at *cap*
+    (``GATE_CAPS``); at least 1, as the launcher requires."""
+    used = int(ctl[1])
+    return {"at": max(used, 1), "above": used + 1, "far": 1 << 20}[cap]
 
 
 #: (T, N, U, R, S, node_base, fill) of ``rank_top`` and ``rank_merge``

@@ -3,7 +3,9 @@
 The counterpart of the reference's nhd_tpu/solver/aot.py, which keeps
 one StableHLO program per compiled solve shape. The port compiles no
 per-shape program: each of its nine CUDA kernels is one library, built
-by ``nvcc`` from its source (kernels/build.py) and shape-generic. So
+by ``nvcc`` from its source (kernels/build.py) and shape-generic, and
+so is the helper that captures the megaround's WHILE node
+(``graph_while``). So
 its cache keeps the reference's contract on two kinds of artifact:
 
 * **Kernel libraries** — ``lib{kernel}-{fingerprint}.so`` beside a
@@ -29,7 +31,7 @@ its cache keeps the reference's contract on two kinds of artifact:
   ``aot_export_failures_total`` and logs once.
 
 ``prewarm(progress=, device=, mesh=)`` (daemon flag ``--prewarm``)
-builds any missing library and loads all nine, creates the CUDA context,
+builds any missing library and loads all ten, creates the CUDA context,
 and for every manifest key runs the solve kernels (for a ranked key,
 then ``rank_top``, and on a mesh ``rank_merge``; for a
 single-device megaround key, captures the key's graph into the
@@ -346,13 +348,13 @@ class AotCache:
         if dev.type == "cuda":
             import torch
 
-            from nhd_tpu_torch import kernels
             from nhd_tpu_torch.kernels import build
+            from nhd_tpu_torch.kernels.abi import SOURCES
 
             # the CUDA context first: every later step needs it
             torch.zeros(1, device=dev)
             before = dict(build.COUNTS)
-            for name in kernels.KERNELS:
+            for name in SOURCES:
                 # once per library: load memoizes the handle
                 build.load(name)  # nhdlint: ignore[NHD104]
                 libs.add(build.library_path(name).name[: -len(".so")])

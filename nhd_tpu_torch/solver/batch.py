@@ -56,6 +56,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
+from nhd_tpu_torch import kernels
 from nhd_tpu_torch.core.node import AssignmentError, HostNode
 from nhd_tpu_torch.core.request import PodRequest
 from nhd_tpu_torch.core.topology import MapMode, NicDir, PodTopology
@@ -132,10 +133,12 @@ RankHost = namedtuple(
 # one speculative dispatch (see _speculate_dispatch): its four result
 # tensors on their way to the host (HostPulls started at dispatch);
 # ``certifiable`` records the saturation-certificate preconditions
-# evaluated at dispatch time
+# evaluated at dispatch time; ``body`` the launches of one pass of the
+# graph's WHILE node, counted once per iteration when iters_used is read
 SpecDispatch = namedtuple(
     "SpecDispatch",
-    "bucket_keys bucket_pods claims counts need_left iters_used certifiable",
+    "bucket_keys bucket_pods claims counts need_left iters_used certifiable "
+    "body",
 )
 
 
@@ -531,14 +534,13 @@ class BatchScheduler:
                 for pods, need in zip(bucket_pods, needs)
             )
         )
-        claims, counts, need_left, it = dev.megaround(
-            bucket_pods, needs, self.respect_busy
-        )
+        res = dev.megaround(bucket_pods, needs, self.respect_busy)
+        claims, counts, need_left, it = res
         # the four copies to the host start now, each into pinned memory
         # behind an event, so the FastCluster join runs under them
         return SpecDispatch(
             bucket_keys, bucket_pods, HostPull(claims), HostPull(counts),
-            HostPull(need_left), HostPull(it), certifiable,
+            HostPull(need_left), HostPull(it), certifiable, res.body,
         )
 
     def _expand_speculative(self, spec, claims_np, counts_np, cluster):
@@ -1176,6 +1178,9 @@ class BatchScheduler:
                         counts_np = spec.counts.numpy()  # nhdlint: ignore[NHD107]
                         spec_need_left = int(spec.need_left.numpy().sum())  # nhdlint: ignore[NHD107]
                         spec_it = int(spec.iters_used.numpy())  # nhdlint: ignore[NHD107]
+                        # the passes the graph's WHILE node ran, as the
+                        # card ran them
+                        kernels.count_passes(spec.body, spec_it)
                         stats.phase_add(
                             "spec_pull", time.perf_counter() - t_pull
                         )

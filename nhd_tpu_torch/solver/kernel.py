@@ -301,11 +301,44 @@ def mask_args(node: Sequence[Tensor], pod: PodTensors,
             tb.combo, tb.pick, tb.need_max, _gate(gate, node))
 
 
-def free_planes(node: Sequence[Tensor]) -> Tuple[Tensor, Tensor]:
-    """The node NIC headroom split into contiguous rx/tx [N, U*K] planes."""
+def free_planes(node: Sequence[Tensor],
+                out: Optional[Tuple[Tensor, Tensor]] = None) -> Tuple[Tensor, Tensor]:
+    """The node NIC headroom split into contiguous rx/tx [N, U*K] planes,
+    copied into *out* when given (two float32 [N, U*K] tensors)."""
     a = dict(zip(_ARG_ORDER, node))
     nic_free = a["nic_free"].reshape(a["nic_free"].shape[0], -1, 2)
-    return nic_free[..., 0].contiguous(), nic_free[..., 1].contiguous()
+    if out is None:
+        return nic_free[..., 0].contiguous(), nic_free[..., 1].contiguous()
+    out[0].copy_(nic_free[..., 0])
+    out[1].copy_(nic_free[..., 1])
+    return out[0], out[1]
+
+
+class SolveBuffers(NamedTuple):
+    """The intermediate outputs of one bucket's solve, held by a caller
+    whose solve must allocate nothing (the megaround graph's WHILE body):
+    ``nic_node_masks``' two, then ``nic_any_first``'s three."""
+
+    valid: Tensor    # [N, C*A] bool
+    pci_ok: Tensor   # [N, C*A] bool
+    nic_any: Tensor  # [T, N, C] bool
+    first_a: Tensor  # [T, N, C] int32
+    n_picks: Tensor  # [T, N, C] int32
+
+
+def solve_buffers(Tp: int, N: int, pod: PodTensors) -> SolveBuffers:
+    """Empty ``SolveBuffers`` for a bucket of *Tp* type rows on *N* nodes
+    (its tables from *pod*), on *pod*'s device."""
+    tb = pod.tables
+    dev = pod.dem_rx.device
+    b, i32 = torch.bool, torch.int32
+    return SolveBuffers(
+        torch.zeros((N, tb.C * tb.A), dtype=b, device=dev),
+        torch.zeros((N, tb.C * tb.A), dtype=b, device=dev),
+        torch.zeros((Tp, N, tb.C), dtype=b, device=dev),
+        torch.zeros((Tp, N, tb.C), dtype=i32, device=dev),
+        torch.zeros((Tp, N, tb.C), dtype=i32, device=dev),
+    )
 
 
 def nic_args(node: Sequence[Tensor], pod: PodTensors, valid: Tensor,
@@ -345,7 +378,8 @@ def solve_planes(G: int, U: int, K: int, node: Sequence[Tensor],
                  pod: PodTensors, out: Optional[Tensor] = None, *,
                  node_base: int = 0, n_global: Optional[int] = None,
                  gate: Optional[Tensor] = None,
-                 free: Optional[Tuple[Tensor, Tensor]] = None) -> Tensor:
+                 free: Optional[Tuple[Tensor, Tensor]] = None,
+                 bufs: Optional[SolveBuffers] = None) -> Tensor:
     """The padded solve: [8, Tp, Np] int32 planes (kernels.PLANES order)
     from the 15 node tensors (``_ARG_ORDER``) and one bucket's pod
     tensors — three kernel launches on CUDA tensors. With *out*, the
@@ -354,13 +388,17 @@ def solve_planes(G: int, U: int, K: int, node: Sequence[Tensor],
     padded axis of *n_global* rows, and sel ranks by the global index.
     *gate*: the bucket's live flag in the megaround (``kernels/abi.py``):
     where it is 0 the three kernels return at once and *out* keeps its
-    planes. *free*: ``free_planes(node)``, when the caller has them."""
+    planes. *free*: ``free_planes(node)``, when the caller has them.
+    *bufs*: where the intermediate outputs go (``SolveBuffers``), so that
+    with *out* and *free* the solve allocates nothing."""
     tb = pod.tables
     if (tb.G, tb.U, tb.K) != (G, U, K):
         raise ValueError(f"pod tensors were built for {(tb.G, tb.U, tb.K)}")
-    valid, pci_ok = kernels.nic_node_masks(*mask_args(node, pod, gate))
+    valid, pci_ok = kernels.nic_node_masks(
+        *mask_args(node, pod, gate), out=None if bufs is None else bufs[:2])
     args, kw = nic_args(node, pod, valid, pci_ok, gate, free)
-    nic = kernels.nic_any_first(*args, **kw)
+    nic = kernels.nic_any_first(*args, **kw,
+                                out=None if bufs is None else bufs[2:])
     return kernels.solve_planes(*plane_args(node, pod, *nic, gate), out=out,
                                 node_base=node_base, n_global=n_global)
 

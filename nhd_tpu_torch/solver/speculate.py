@@ -14,26 +14,31 @@ every claim through the native assignment, exactly like a classic round;
 what it rejects retries in the classic rounds that follow.
 
 The reference runs the loop as one ``lax.while_loop``. On one device
-the port runs it as one CUDA graph: ``megaround_trip`` issues a fixed
-trip of ``spec_iters()`` iterations, each opened by the ``spec_gate``
-kernel, which decides on the card what the reference's ``cond`` decides
-(progress, need left; the trip itself is the ``it < iters`` bound) and
-which buckets still have need (its ``lax.cond``); every other kernel of
-the iteration (the three solve kernels of each bucket, then
-``spec_elect``, ``spec_fill`` and ``spec_apply``) returns at once where
-its gate word is 0. An iteration after the exit takes nothing and
-changes nothing, so the fixed trip's claims, counts, need and node state
-are the loop's, and the gate counts the iterations the loop would run.
-``MegaroundGraph`` holds the trip's buffers at fixed addresses (its own
-copy of the node tensors, the pod arrays, the hoisted tables, the status
-and control tensors, refilled through one pinned staging copy a
-dispatch) and captures the trip once per key in the process
-(``GRAPHS``); a dispatch is one replay and no device-to-host read. The
-CPU runs the same trip launch by launch through the plain versions. The
-per-bucket demand projections are hoisted out of the loop into tables
-over the global type axis, as the reference hoists them
-(speculate.py:176-248). The claim kernels update the node tensors in
-place.
+the port runs it as one CUDA graph with the same loop inside: the
+resets and one ``spec_gate`` (``megaround_open``), then a WHILE node
+(kernels/graph_while.cu) whose body is one iteration
+(``megaround_iteration``: the three solve kernels of each bucket,
+``spec_elect``, ``spec_fill``, ``spec_apply``, then ``spec_gate``).
+``spec_gate`` decides on the card what the reference's ``cond`` decides
+(progress, need left, ``it < iters``) and which buckets still have need
+(its ``lax.cond``), writes it to the control tensor and sets the node's
+condition, so the node runs exactly the reference's iterations and
+nothing launches after the exit. ``spec_apply`` writes claim row
+``ctl[1] - 1``, so one captured body serves every pass.
+``MegaroundGraph`` holds every buffer the graph reads or writes at
+fixed addresses (its own copy of the node tensors, the pod arrays, the
+hoisted tables, the status and control tensors, refilled through one
+pinned staging copy a dispatch; the body's intermediate outputs, since
+its capture has no allocator pool) and captures the graph once per key
+in the process (``GRAPHS``); a dispatch is one replay and no
+device-to-host read. The same body issued launch by launch is the fixed
+trip (``MegaroundGraph.trip``: ``spec_iters()`` iterations, every kernel
+of an iteration after the exit returning at once on its gate word),
+which the card runs with ``REPLAY`` off; the CPU loops on the plain
+``spec_gate``'s result (``MegaroundGraph.loop``). The per-bucket demand
+projections are hoisted out of the loop into tables over the global
+type axis, as the reference hoists them (speculate.py:176-248). The
+claim kernels update the node tensors in place.
 
 ``run_megaround_shards`` keeps the host loop: per iteration the solves
 of each live bucket and the claim kernels, then one small pull of the
@@ -60,6 +65,7 @@ Claim word (one int32, -1 = no claim):
 from __future__ import annotations
 
 import collections
+import contextlib
 import hashlib
 import os
 import threading
@@ -83,11 +89,13 @@ from nhd_tpu_torch.solver.kernel import (
     _MUTABLE,
     _POD_ARG_ORDER,
     PodTensors,
+    SolveBuffers,
     _pad_pow2,
     _pad_rows_to,
     bucket_tables,
     free_planes,
     nic_demand,
+    solve_buffers,
     solve_planes,
     to_device,
 )
@@ -260,7 +268,7 @@ def run_megaround(
     K: int,
     iters: int,
     respect_busy: bool,
-) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+) -> Megaround:
     """The claim loop against the resident node tensors *node* (by
     ``_ARG_ORDER`` name; the mutable ones are updated in place) on one
     device: ``run_megaround_shards`` with one shard.
@@ -283,7 +291,7 @@ def run_megaround_shards(
     K: int,
     iters: int,
     respect_busy: bool,
-) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+) -> Megaround:
     """The claim loop over the node shards of a mesh: ``shards[s]`` holds
     global rows [s*Ns, (s+1)*Ns) by ``_ARG_ORDER`` name on its own device
     (shard 0's is the lead), ``pod_tensors[s]`` the buckets' uploads on
@@ -318,6 +326,8 @@ def run_megaround_shards(
     st_s = [status if d == lead else status.to(d) for d in devs]
     claims = [torch.full((iters, Ns), -1, dtype=torch.int32, device=d) for d in devs]
     counts = [torch.zeros((iters, Ns), dtype=torch.int32, device=d) for d in devs]
+    # spec_apply's claim row is a device word: iteration it writes row it
+    steps = [torch.arange(1, iters + 1, dtype=torch.int32, device=d) for d in devs]
     node_lists = [[shard[name] for name in _ARG_ORDER] for shard in shards]
     need_b = [int(need0[offsets[b]: offsets[b + 1]].sum())
               for b in range(len(bucket_pods))]
@@ -354,7 +364,7 @@ def run_megaround_shards(
                 tb.cpu_m, tb.gpu_g, tb.nic_occ, tb.gpu_uk, tb.nic_rx,
                 tb.nic_tx, node["busy"], node["hp_free"], node["cpu_free"],
                 node["gpu_free"], node["nic_free"], node["gpu_free_sw"],
-                claims[s], counts[s], it=it, sharing=sharing,
+                claims[s], counts[s], steps[s][it: it + 1], sharing=sharing,
                 respect_busy=respect_busy,
             )
         st = HostPull(status, into=pinned).numpy()
@@ -364,22 +374,59 @@ def run_megaround_shards(
         it += 1
     it_t = torch.tensor(it, dtype=torch.int32, device=lead)
     if S == 1:
-        return claims[0], counts[0], status[1:], it_t
+        return Megaround((claims[0], counts[0], status[1:], it_t))
 
     def join(parts):
         return torch.cat([t.to(lead) for t in parts], dim=1)
 
-    return join(claims), join(counts), status[1:], it_t
+    return Megaround((join(claims), join(counts), status[1:], it_t))
 
 
 #: a single-device megaround on CUDA is a graph replay; a check that
 #: copies every launch's inputs (chip_smoke.py) sets it False for the
-#: duration, and the same trip then launches one kernel at a time, as it
-#: always does on the CPU
+#: duration, and the fixed trip then launches one kernel at a time
 REPLAY = True
 
 
-def megaround_trip(
+class BodyBuffers(NamedTuple):
+    """What one iteration writes besides the node state, the planes, the
+    claims and the control words: the NIC headroom planes, each bucket's
+    intermediate solve outputs and the plan, held so that the iteration
+    allocates nothing (the WHILE body's capture has no allocator pool)."""
+
+    free: Tuple[Tensor, Tensor]   # [N, U*K] float32 rx, tx
+    solve: List[SolveBuffers]     # per bucket
+    plan: Tensor                  # [7, N] int32
+
+
+def body_buffers(node: Sequence[Tensor], pods: Sequence[PodTensors]) -> BodyBuffers:
+    """Empty ``BodyBuffers`` for the node tensors *node* (``_ARG_ORDER``)
+    and the buckets' uploads *pods*."""
+    n = dict(zip(_ARG_ORDER, node))
+    N, U, K = n["nic_free"].shape[:3]
+    dev = n["nic_free"].device
+    f32 = torch.float32
+    return BodyBuffers(
+        (torch.zeros((N, U * K), dtype=f32, device=dev),
+         torch.zeros((N, U * K), dtype=f32, device=dev)),
+        [solve_buffers(int(pt.dem_rx.shape[0]), N, pt) for pt in pods],
+        torch.zeros((7, N), dtype=torch.int32, device=dev),
+    )
+
+
+def megaround_open(status: Tensor, offsets: Tensor, ctl: Tensor, claims: Tensor,
+                   counts: Tensor, handle: int = 0) -> Optional[bool]:
+    """Before the claim loop: the claim planes reset, then ``spec_gate``
+    for the first iteration (setting *handle*, the WHILE node's, where
+    it is not 0). ctl must start at (1, 0, ...) and status[0] at 1.
+    Returns the gate's alive flag on the CPU, None on the card."""
+    claims.fill_(-1)
+    counts.zero_()
+    return kernels.spec_gate(status, offsets, ctl, iters=claims.shape[0],
+                             handle=handle)
+
+
+def megaround_iteration(
     node: Sequence[Tensor],
     bucket_G: Sequence[int],
     pods: Sequence[PodTensors],
@@ -389,47 +436,62 @@ def megaround_trip(
     ctl: Tensor,
     claims: Tensor,
     counts: Tensor,
+    body: BodyBuffers,
     U: int,
     K: int,
     respect_busy: bool,
     sharing: bool,
-) -> None:
-    """The claim loop as a fixed trip of ``claims.shape[0]`` iterations,
-    its control on the device: each iteration is ``spec_gate``, the three
-    solve kernels of every bucket, ``spec_elect``, ``spec_fill`` and
-    ``spec_apply``, in that order, against the node tensors *node*
-    (``_ARG_ORDER``; the mutable ones updated in place). ``spec_gate``
-    writes *ctl* [B + 2] from *status* (the progress flag, then the
-    need), so a bucket with no need skips its solves and an iteration
-    after the loop's exit (no progress, no need) does nothing: the claims,
-    counts, need and node state are those of the host loop, and ctl[1]
-    counts the iterations the host loop would run. ctl must start at
-    (1, 0, ...) and status[0] at 1. Nothing here reads the device from
-    the host, so a CUDA graph can capture it whole."""
-    claims.fill_(-1)
-    counts.zero_()
+    handle: int = 0,
+) -> Optional[bool]:
+    """One iteration of the claim loop, its control on the device: the
+    three solve kernels of every bucket, ``spec_elect``, ``spec_fill``
+    and ``spec_apply`` against the node tensors *node* (``_ARG_ORDER``;
+    the mutable ones updated in place), then ``spec_gate`` for the next
+    iteration (setting *handle* where it is not 0). The gate words of
+    *ctl* [B + 2], written by the gate before, hold each kernel: a bucket
+    with no need skips its solves, and where the loop is dead every
+    kernel returns at once; ``spec_apply`` writes claim row ctl[1] - 1.
+    Nothing here reads the device from the host or allocates (*body*
+    holds the outputs), so it is the WHILE node's body as it stands.
+    Returns the closing gate's alive flag on the CPU, None on the card."""
     alive = ctl[0:1]
     n = dict(zip(_ARG_ORDER, node))
-    for it in range(claims.shape[0]):
-        kernels.spec_gate(status, offsets, ctl)
-        free = free_planes(node)  # the iteration's headroom, for every bucket
-        for b, (G, pt) in enumerate(zip(bucket_G, pods)):
-            solve_planes(G, U, K, node, pt, out=tabs.views[b],
-                         gate=ctl[2 + b: 3 + b], free=free)
-        plan = kernels.spec_elect(
-            tabs.planes, tabs.plane_off, tabs.trow, n["smt"], n["cpu_free"],
-            n["gpu_free"], n["hp_free"], n["nic_free"], tabs.cpu_g, tabs.cpu_m,
-            tabs.gpu_g, tabs.nic_occ, status, alive, sharing=sharing,
-            respect_busy=respect_busy,
-        )
-        kernels.spec_fill(plan, status, alive)
-        kernels.spec_apply(
-            plan, tabs.trow, n["smt"], n["nic_sw"], tabs.cpu_g, tabs.cpu_m,
-            tabs.gpu_g, tabs.nic_occ, tabs.gpu_uk, tabs.nic_rx, tabs.nic_tx,
-            n["busy"], n["hp_free"], n["cpu_free"], n["gpu_free"],
-            n["nic_free"], n["gpu_free_sw"], claims, counts, alive, it=it,
-            sharing=sharing, respect_busy=respect_busy,
-        )
+    free = free_planes(node, body.free)  # the iteration's headroom, for every bucket
+    for b, (G, pt) in enumerate(zip(bucket_G, pods)):
+        solve_planes(G, U, K, node, pt, out=tabs.views[b],
+                     gate=ctl[2 + b: 3 + b], free=free, bufs=body.solve[b])
+    plan = kernels.spec_elect(
+        tabs.planes, tabs.plane_off, tabs.trow, n["smt"], n["cpu_free"],
+        n["gpu_free"], n["hp_free"], n["nic_free"], tabs.cpu_g, tabs.cpu_m,
+        tabs.gpu_g, tabs.nic_occ, status, alive, sharing=sharing,
+        respect_busy=respect_busy, out=body.plan,
+    )
+    kernels.spec_fill(plan, status, alive)
+    kernels.spec_apply(
+        plan, tabs.trow, n["smt"], n["nic_sw"], tabs.cpu_g, tabs.cpu_m,
+        tabs.gpu_g, tabs.nic_occ, tabs.gpu_uk, tabs.nic_rx, tabs.nic_tx,
+        n["busy"], n["hp_free"], n["cpu_free"], n["gpu_free"],
+        n["nic_free"], n["gpu_free_sw"], claims, counts, ctl[1:2], alive,
+        sharing=sharing, respect_busy=respect_busy,
+    )
+    return kernels.spec_gate(status, offsets, ctl, iters=claims.shape[0],
+                             handle=handle)
+
+
+class Megaround(tuple):
+    """A megaround's (claims [iters, Np], counts [iters, Np], need left
+    [TT], iterations used as a scalar), with ``body``: the launches of one
+    pass of its graph's WHILE node, which the replay could not count, to
+    be counted once per iteration by whoever reads the iteration word
+    (``kernels.count_passes``); empty where every launch was counted as
+    it was made."""
+
+    body: Dict[str, int]
+
+    def __new__(cls, results: Sequence[Tensor], body: Optional[Dict[str, int]] = None):
+        self = super().__new__(cls, results)
+        self.body = dict(body or {})
+        return self
 
 
 def control_arrays(needs: Sequence[np.ndarray], shapes: Sequence[Tuple[int, int]]
@@ -550,14 +612,17 @@ class MegaroundGraph:
     """One single-device megaround at fixed shapes: its own copy of the
     node tensors, the table buffer (pod arrays, hoisted tables, status,
     offsets, control), the plane buffer and the claim planes, all held
-    here so their addresses never move, and on CUDA the captured graph
-    of ``megaround_trip`` over them. A dispatch copies the caller's
-    resident node tensors in, refills the table buffer, replays (or, on
-    the CPU and with ``REPLAY`` off, issues the trip launch by
-    launch), copies the six mutable node tensors back and returns copies
-    of the results. The graph bakes in no address of the caller's, so
-    one capture serves every resident state of the key: each batch's
-    own, each tile's, a rebuilt one's."""
+    here so their addresses never move, with the body's intermediate
+    outputs (``BodyBuffers``), and on CUDA the captured graph over them:
+    ``megaround_open``, then a WHILE node whose body is one
+    ``megaround_iteration``, both gates setting the node's condition. A
+    dispatch copies the caller's resident node tensors in, refills the
+    table buffer, replays (with ``REPLAY`` off, issues the fixed trip
+    launch by launch, ``trip``; on the CPU, ``loop``), copies the six
+    mutable node tensors back and returns copies of the results. The
+    graph bakes in no address of the caller's, so one capture serves
+    every resident state of the key: each batch's own, each tile's, a
+    rebuilt one's."""
 
     def __init__(self, node: Dict[str, Tensor], bucket_G: Sequence[int],
                  shapes: Sequence[Tuple[int, int]], U: int, K: int,
@@ -586,9 +651,13 @@ class MegaroundGraph:
         i32 = torch.int32
         self.claims = torch.full((iters, Np), -1, dtype=i32, device=self.device)
         self.counts = torch.zeros((iters, Np), dtype=i32, device=self.device)
+        self.body = body_buffers([self.node[name] for name in _ARG_ORDER], self.pods)
         self.lock = threading.Lock()
         self.graph = None
+        #: the launches a replay makes before the WHILE node, and those of
+        #: one pass of its body (``kernels.count_replay``/``count_passes``)
         self.tally: Dict[str, int] = {}
+        self.body_tally: Dict[str, int] = {}
         #: host seconds of the warm-up and the capture (None until captured)
         self.capture_s: Optional[float] = None
         self.replays = 0
@@ -598,41 +667,86 @@ class MegaroundGraph:
         self._done = None  # the event after the last dispatch's copies
         self._digest: Optional[bytes] = None  # the type rows the tables hold
 
-    def trip(self) -> None:
+    def open(self, handle: int = 0) -> Optional[bool]:
         v = self.buf.views
-        megaround_trip([self.node[name] for name in _ARG_ORDER], self.bucket_G,
-                       self.pods, self.tabs, v["status"], v["offsets"],
-                       v["ctl"], self.claims, self.counts, self.U, self.K,
-                       self.respect_busy, self.sharing)
+        return megaround_open(v["status"], v["offsets"], v["ctl"], self.claims,
+                              self.counts, handle)
+
+    def iteration(self, handle: int = 0) -> Optional[bool]:
+        v = self.buf.views
+        return megaround_iteration(
+            [self.node[name] for name in _ARG_ORDER], self.bucket_G, self.pods,
+            self.tabs, v["status"], v["offsets"], v["ctl"], self.claims,
+            self.counts, self.body, self.U, self.K, self.respect_busy,
+            self.sharing, handle)
+
+    def trip(self, passes: Optional[int] = None) -> None:
+        """The fixed trip launch by launch: ``megaround_open`` and
+        *passes* (default the depth) iterations, each closed by the gate
+        that opens the next; after the exit every kernel returns at
+        once."""
+        self.open()
+        for _ in range(self.claims.shape[0] if passes is None else passes):
+            self.iteration()
+
+    def loop(self) -> None:
+        """The WHILE node's loop on the CPU: an iteration while the plain
+        gate's alive flag (a CPU tensor's value) holds."""
+        alive = self.open()
+        while alive:
+            alive = self.iteration()
 
     def capture(self) -> None:
-        """Warm every launch once with the loop dead (each kernel loads
-        and returns; nothing is written but the claim planes' reset), then
-        capture the trip on a side stream of its own, one capture at a
-        time in the process."""
+        """Warm every launch once with the loop dead (each kernel and the
+        helper load, and the kernels return; nothing is written but the
+        claim planes' reset), then capture the graph on a side stream of
+        its own, one capture at a time in the process: the resets and the
+        first gate, a WHILE node on a conditional handle, its body (one
+        iteration) captured once on a second stream. A failure raises
+        KernelLaunchError: there is no other form to fall back to."""
+        from nhd_tpu_torch.kernels import build
+
         t0 = time.perf_counter()
         self.buf.views["ctl"].zero_()
-        self.trip()
-        cur = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
+        self.trip(passes=1)
+        build.load("graph_while")  # nhdlint: ignore[NHD104] memoized; once per capture
+        dev = self.device
+        cur = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        body = torch.cuda.Stream(dev)
         side.wait_stream(cur)
         graph = torch.cuda.CUDAGraph()  # nhdlint: ignore[NHD104] once per cache entry
         try:
             with _CAPTURE_LOCK, torch.cuda.stream(side), capturing() as tally:
                 graph.capture_begin(capture_error_mode="thread_local")
                 try:
-                    self.trip()
-                finally:
-                    graph.capture_end()
+                    handle = kernels.while_handle(side, dev)
+                    self.open(handle)
+                    kernels.while_open(side, handle, body, dev)
+                    try:
+                        with torch.cuda.stream(body), capturing() as body_tally:
+                            self.iteration(handle)
+                    except BaseException:
+                        with contextlib.suppress(Exception):
+                            kernels.while_close(body, dev)
+                        raise
+                    kernels.while_close(body, dev)
+                except BaseException:
+                    # the capture ends either way; its own error (a graph
+                    # left half built) must not hide the first one
+                    with contextlib.suppress(Exception):
+                        graph.capture_end()
+                    raise
+                graph.capture_end()
         except Exception as exc:
             raise _graph_error("megaround capture", exc) from exc
         cur.wait_stream(side)
-        self.graph, self.tally = graph, dict(tally)
+        self.graph, self.tally, self.body_tally = graph, dict(tally), dict(body_tally)
         self.capture_s = time.perf_counter() - t0
 
     def run(self, node: Dict[str, Tensor], control: Dict[str, np.ndarray],
             digest: bytes, tables: Callable[[], Dict[str, np.ndarray]]
-            ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+            ) -> Megaround:
         """One dispatch against the resident tensors *node* (updated in
         place), with the need in *control* (``control_arrays``) and the
         buckets' type rows of *digest* (``pods_digest``), whose tables
@@ -640,7 +754,8 @@ class MegaroundGraph:
         from the last dispatch's (no kernel writes them). Returns
         (claims [iters, Np], counts [iters, Np], need left [TT],
         iterations used as a scalar), device copies that the next
-        dispatch does not touch. Call under ``lock``."""
+        dispatch does not touch, with the WHILE body's launches still to
+        count (``Megaround.body``). Call under ``lock``."""
         cuda = self.device.type == "cuda"
         graph = cuda and REPLAY
         if graph and self.graph is None:
@@ -674,8 +789,10 @@ class MegaroundGraph:
                 raise _graph_error("megaround replay", exc) from exc
             count_replay(self.tally)
             self.replays += 1
-        else:
+        elif cuda:
             self.trip()
+        else:
+            self.loop()
         lap("replay")
         for name in _MUTABLE:
             node[name].copy_(self.node[name])
@@ -687,7 +804,7 @@ class MegaroundGraph:
             self._done.record(torch.cuda.current_stream(self.device))
         lap("copy_out")
         self.dispatches += 1
-        return out
+        return Megaround(out, self.body_tally if graph else None)
 
 
 class MegaroundCache:
@@ -719,7 +836,7 @@ class MegaroundCache:
 
     def run(self, node: Dict[str, Tensor], bucket_pods: Sequence,
             needs: Sequence[np.ndarray], U: int, K: int, iters: int,
-            respect_busy: bool) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+            respect_busy: bool) -> Megaround:
         """The megaround against *node* (one device's resident tensors by
         ``_ARG_ORDER`` name, the mutable ones updated in place):
         ``run_megaround``'s results, from one replay of the key's graph."""

@@ -46,7 +46,7 @@ def test_abi_matches_the_cuda_entry_point(name):
     params = _entry_params(name)
     want = (
         [(a.name, "ptr") for a in spec.args]
-        + [(s, "int") for s in spec.sizes]
+        + [(s, "unsigned long long" if s in abi.WIDE else "int") for s in spec.sizes]
         + [("device", "int"), ("stream", "ptr")]
     )
     got = [(p, "ptr" if t.endswith("void*") else t) for t, p in params]
@@ -56,6 +56,33 @@ def test_abi_matches_the_cuda_entry_point(name):
         assert t.startswith("const") != (a.out or a.inplace), (p, t)
         assert not (a.out and a.inplace), p
     assert spec.args == spec.inputs + spec.outputs
+
+
+#: each HELPERS kind as the .cu writes it
+_C_TYPES = {"ptr": "void*", "u64": "unsigned long long",
+            "u64ptr": "unsigned long long*", "int": "int"}
+
+
+@pytest.mark.parametrize("entry", [e for es in abi.HELPERS.values() for e in es],
+                         ids=lambda e: e.entry)
+def test_helper_matches_its_cuda_entry_point(entry):
+    """Each entry point of a source with no kernel (the WHILE node's
+    helper) against its .cu: names, order and C types; build.py binds
+    every kind, and every source is built."""
+    source = next(s for s, es in abi.HELPERS.items() if entry in es)
+    src = (KDIR / f"{source}.cu").read_text()
+    m = re.search(r'extern "C" int ' + entry.entry + r"\s*\(([^)]*)\)", src)
+    assert m, entry.entry
+    got = []
+    for p in m.group(1).split(","):
+        p = " ".join(p.split())
+        typ, pname = p.rsplit(" ", 1)
+        got.append((pname, typ.replace(" *", "*")))
+    assert got == [(n, _C_TYPES[k]) for n, k in entry.params]
+    assert f"const char* {build.helper_error(source)}(int code)" in src
+    assert {k for _, k in entry.params} <= set(build._KIND)
+    assert set(abi.SOURCES) == set(abi.ABI) | set(abi.HELPERS)
+    assert (KDIR / f"{source}.cu").exists() and source not in kernels.KERNELS
 
 
 def _stage(seed=3, n_nodes=24):
@@ -132,9 +159,8 @@ def _claim_stage(shape=sweep.SPEC_SWEEP[1], case=None):
         "spec_elect": (elect, kw),
         "spec_fill": ((plan, status, t["gate"]), {}),
         "spec_gate": (tuple(torch.from_numpy(a) for a in sweep.gate_case(
-            0, *sweep.GATE_SWEEP[3])), {}),
-        "spec_apply": ((filled, *(t[k] for k in sweep.SPEC_APPLY_ARGS)),
-                       dict(kw, it=case["it"])),
+            0, *sweep.GATE_SWEEP[3])), {"iters": 16, "handle": 0x7F00_0000_0001}),
+        "spec_apply": ((filled, *(t[k] for k in sweep.SPEC_APPLY_ARGS)), kw),
     }
 
 
@@ -160,14 +186,17 @@ def test_wrapper_passes_each_tensor_to_its_parameter(name, monkeypatch):
     n_ptr = len(spec.args)
     assert list(sent[:n_ptr]) == [t.data_ptr() for t in (*args, *outs)]
     want = getattr(reference, name)(*(a.clone() for a in args), **kw)
-    want = () if want is None else want if isinstance(want, tuple) else (want,)
+    # spec_gate's plain version returns the alive flag for the CPU's loop
+    want = () if want is None or isinstance(want, bool) else \
+        want if isinstance(want, tuple) else (want,)
     assert [(o.shape, o.dtype) for o in outs] == [(w.shape, w.dtype) for w in want]
     sizes = dict(zip(spec.sizes, sent[n_ptr:n_ptr + len(spec.sizes)]))
     for arg, t in zip(spec.args, (*args, *outs)):
         for sym, size in zip(arg.dims, t.shape):
             if sym in sizes:
                 assert sizes[sym] == size, (arg.name, sym)
-    for flag, key in (("SHARING", "sharing"), ("BUSY", "respect_busy"), ("it", "it")):
+    for flag, key in (("SHARING", "sharing"), ("BUSY", "respect_busy"),
+                      ("iters", "iters"), ("handle", "handle")):
         if flag in sizes:
             assert sizes[flag] == int(kw[key])
 
@@ -293,7 +322,8 @@ def _hand_case():
         nic_sw=np.array([[[0, 1, 1]], [[1, 0, -1]]], i32),
         busy=np.zeros(2, bool), gpu_free_sw=np.full((2, 2), 4, i32),
         status=np.array([1, 5, 0], i32), claims=np.full((1, 2), -1, i32),
-        counts=np.zeros((1, 2), i32), gate=np.ones(1, i32), it=0,
+        counts=np.zeros((1, 2), i32), step=np.ones(1, i32), gate=np.ones(1, i32),
+        it=0,
         sharing=False, respect_busy=False,
     )
 

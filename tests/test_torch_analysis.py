@@ -521,7 +521,17 @@ MINI = {
                     _a("plan", "int32", "PLAN N"),
                     _io("status", "bool", "N"),
                 ),
-                ("N",),
+                ("N", "handle"),
+            ),
+        }
+
+        WIDE = ("handle",)
+
+        HELPERS = {
+            "graph_while": (
+                HelperEntry("nhd_graph_while_open",
+                            (("capture", "ptr"), ("handle", "u64"),
+                             ("body", "ptr"), ("device", "int"))),
             ),
         }
     ''',
@@ -536,7 +546,15 @@ MINI = {
     ''',
     "kernels/spec_fill.cu": '''
         extern "C" int nhd_spec_fill(
-            const void* plan, void* status, int N, int device, void* stream)
+            const void* plan, void* status, int N, unsigned long long handle,
+            int device, void* stream)
+        {
+            return 0;
+        }
+    ''',
+    "kernels/graph_while.cu": '''
+        extern "C" int nhd_graph_while_open(
+            void* capture, unsigned long long handle, void* body, int device)
         {
             return 0;
         }
@@ -598,6 +616,18 @@ MUTATIONS = [
      "int U, int node_base, int device", "NHD701", "'node_base'"),
     ("cu-entry-renamed", "kernels/spec_fill.cu", "nhd_spec_fill(",
      "nhd_spec_fill2(", "NHD701", "no extern"),
+    ("cu-wide-size-as-int", "kernels/spec_fill.cu",
+     "unsigned long long handle", "int handle", "NHD701", "64-bit"),
+    ("abi-wide-size-unlisted", "kernels/abi.py", 'WIDE = ("handle",)',
+     "WIDE = ()", "NHD701", "an int"),
+    ("helper-swapped-pointers", "kernels/graph_while.cu",
+     "void* capture, unsigned long long handle, void* body",
+     "void* body, unsigned long long handle, void* capture", "NHD702",
+     "position 0"),
+    ("helper-kind", "kernels/graph_while.cu", "unsigned long long handle",
+     "int handle", "NHD701", "binds it as u64"),
+    ("helper-entry-renamed", "kernels/graph_while.cu", "nhd_graph_while_open(",
+     "nhd_graph_while_opn(", "NHD701", "no extern"),
     ("plain-order", "kernels/reference.py", "def solve_planes(smt, busy,",
      "def solve_planes(busy, smt,", "NHD702", "plain version"),
     ("plain-missing", "kernels/reference.py", "def spec_fill(plan, status)",
@@ -674,12 +704,20 @@ def test_contract_model_reads_the_live_abi():
         assert row.inputs == tuple(a.name for a in ABI[name].inputs)
         assert row.sizes == ABI[name].sizes
     assert model.abi_rows["spec_apply"].inplace
+    from nhd_tpu_torch.kernels.abi import HELPERS, WIDE
+
+    assert model.wide == WIDE
+    assert [(h.source, h.entry, h.params) for h in model.helper_rows] == [
+        (src, e.entry, e.params) for src, es in HELPERS.items() for e in es]
     sites = {Path(s.path).name: s for s in model.fingerprint_sites}
     assert set(sites["aot.py"].hashed) == {"kernel", "combos"}
     assert sites["build.py"].library and sites["build.py"].sources
     assert {Path(r.path).name for r in model.registries} == {
         "knobs.py", "port_knobs.py"}
-    assert {c.kernel for c in model.kernel_calls} == set(ABI)
+    # every kernel is called; the other ``kernels.`` calls are the WHILE
+    # node's helpers and the count of its passes
+    assert {c.kernel for c in model.kernel_calls} == set(ABI) | {
+        "while_handle", "while_open", "while_close", "count_passes"}
 
 
 # ---------------------------------------------------------------------------
@@ -759,7 +797,7 @@ def test_nvcc_wait_is_bounded(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="killed after 0.3 s"):
         build.build_all()
     started = [int(p) for p in pids.read_text().split()]
-    assert len(started) == len(build.ABI)
+    assert len(started) == len(build.SOURCES)
     for pid in started:
         with pytest.raises(ProcessLookupError):
             os.kill(pid, 0)

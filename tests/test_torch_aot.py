@@ -32,7 +32,7 @@ import torch
 
 from nhd_tpu_torch.k8s.retry import API_COUNTERS
 from nhd_tpu_torch.kernels import build
-from nhd_tpu_torch.kernels.abi import ABI
+from nhd_tpu_torch.kernels.abi import ABI, SOURCES
 from nhd_tpu_torch.obs.jitstats import JIT_STATS
 from nhd_tpu_torch.solver import aot, guard
 from nhd_tpu_torch.solver.kernel import solve_bucket_ranked
@@ -340,7 +340,7 @@ def test_zero_recompile_invariant_under_chaos(aot_cache):
 # ---------------------------------------------------------------------------
 
 _FAKE_NVCC = '''#!{python}
-import os, subprocess, sys
+import os, re, subprocess, sys
 args = sys.argv[1:]
 if "--version" in args:
     print("Cuda compilation tools, release 0.0")
@@ -350,12 +350,14 @@ if os.environ.get("FAKE_NVCC_FAIL"):
     print("fake nvcc: refused")
     sys.exit(1)
 out, src = args[args.index("-o") + 1], args[-1]
-entry = "nhd_" + os.path.basename(src)[: -len(".cu")]
+text = open(src).read()
 c = out + ".c"
 with open(c, "w") as fh:
     if not os.environ.get("FAKE_NVCC_NO_ENTRY"):
-        fh.write("int %s(void) {{ return 0; }}\\n" % entry)
-    fh.write('const char *%s_error(int c) {{ return "stub"; }}\\n' % entry)
+        for entry in re.findall(r'extern "C" int (\\w+)', text):
+            fh.write("int %s(void) {{ return 0; }}\\n" % entry)
+    for entry in re.findall(r'extern "C" const char\\s*\\*\\s*(\\w+)', text):
+        fh.write('const char *%s(int c) {{ return "stub"; }}\\n' % entry)
 sys.exit(subprocess.call(["cc", "-shared", "-fPIC", "-o", out, c]))
 '''
 
@@ -387,18 +389,19 @@ def _restart(monkeypatch):
 
 def test_library_meta_written_and_reused(fake_toolchain, monkeypatch):
     build.load("spec_fill")
-    assert build.COUNTS["builds"] == len(ABI)   # every source at once
-    for name in ABI:
+    # every source at once: the kernels and the WHILE node's helper
+    assert build.COUNTS["builds"] == len(SOURCES) == len(ABI) + 1
+    for name in SOURCES:
         meta = json.loads(build.meta_path(name).read_text())
         assert meta == build.library_meta(name)
         assert meta["kind"] == "library" and meta["target"] == "sm_90a"
         assert meta["fingerprint"] == build.fingerprint(name)
     _restart(monkeypatch)
-    for name in ABI:
+    for name in SOURCES:
         build.load(name)
     # a warm restart builds nothing and opens each library once
-    assert build.COUNTS["builds"] == len(ABI)
-    assert build.COUNTS["loads"] == 1 + len(ABI)
+    assert build.COUNTS["builds"] == len(SOURCES)
+    assert build.COUNTS["loads"] == 1 + len(SOURCES)
     assert build.COUNTS["quarantined"] == 0
 
 
@@ -455,7 +458,7 @@ def test_prewarm_on_the_cpu_skips_libraries(fake_toolchain):
     _seed_cache()
     _fresh(fake_toolchain)
     summary = aot.prewarm(device="cpu")
-    assert summary["skipped"] == len(ABI)     # no library runs on the CPU
+    assert summary["skipped"] == len(SOURCES)     # no library runs on the CPU
     assert summary["libraries"] == 0 and summary["quarantined"] == 0
     assert summary["loaded"] >= 1
 

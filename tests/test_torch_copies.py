@@ -164,7 +164,8 @@ DIFFERS = {
     "solver/__init__.py": "exports the port's batched matcher, not the JAX "
                           "one",
     "solver/aot.py": "the cache contract on the port's artifacts: nine "
-                     "kernel libraries with toolchain metas and a manifest "
+                     "kernel libraries and the WHILE node's helper library "
+                     "with toolchain metas and a manifest "
                      "of shape keys, warmed by launching the kernels on "
                      "zeros; NHDC_AOT_DIR; the probe defaults to cuda",
     "solver/batch.py": "the round loop on torch tensors and HostPull; the "
@@ -184,9 +185,11 @@ DIFFERS = {
                         "base and the shards' candidates merge by one more "
                         "top-R; the dispatch records unquarantined shapes "
                         "to the kernel cache",
-    "solver/speculate.py": "the megaround's loop on the host around the "
-                           "claim kernels; on a mesh the shards' plans "
-                           "join for one balanced fill",
+    "solver/speculate.py": "the megaround through the claim kernels: on "
+                           "one device one CUDA graph whose loop is a WHILE "
+                           "node that spec_gate ends on the card; on a mesh "
+                           "the host loop, the shards' plans joined for one "
+                           "balanced fill",
     "solver/streaming.py": "no CPU mesh gate (the port's mesh has no "
                            "in-process collective); the default worker count "
                            "comes from the scheduler's device type, not a "

@@ -234,8 +234,8 @@ def test_claim_kernels_sweep_match_plain(shape):
     assert torch.equal(plan_k, plan_p)
     _assert_same(k, p, ["status"])
     assert (plan_p[6] > 0).any()
-    kernels.spec_apply(plan_p, *(k[n] for n in sweep.SPEC_APPLY_ARGS), it=k["it"], **kw)
-    reference.spec_apply(plan_p, *(p[n] for n in sweep.SPEC_APPLY_ARGS), it=p["it"], **kw)
+    kernels.spec_apply(plan_p, *(k[n] for n in sweep.SPEC_APPLY_ARGS), **kw)
+    reference.spec_apply(plan_p, *(p[n] for n in sweep.SPEC_APPLY_ARGS), **kw)
     torch.cuda.synchronize()
     _assert_same(k, p, sweep.SPEC_APPLY_ARGS)
     for n, v in launches.items():
@@ -264,30 +264,49 @@ def test_spec_fill_sweep_matches_plain(shape, offset):
     assert torch.equal(status_k, status_p)
 
 
+@pytest.mark.parametrize("cap", sweep.GATE_CAPS)
 @pytest.mark.parametrize("shape", sweep.GATE_SWEEP, ids=str)
-def test_spec_gate_sweep_matches_plain(shape):
-    """spec_gate against its plain version on every gate sweep case: the
-    control tensor equal after the call, the inputs untouched."""
+def test_spec_gate_sweep_matches_plain(shape, cap):
+    """spec_gate against its plain version on every gate sweep case at
+    each cap: the control tensor equal after the call, the inputs
+    untouched."""
     _need_cuda()
-    status, offsets, ctl = (torch.from_numpy(a).cuda() for a in sweep.gate_case(
-        sweep.GATE_SWEEP.index(shape), *shape))
+    case = sweep.gate_case(sweep.GATE_SWEEP.index(shape), *shape)
+    status, offsets, ctl = (torch.from_numpy(a).cuda() for a in case)
+    iters = sweep.gate_iters(case[2], cap)
     want = ctl.clone()
     before = kernels.LAUNCHES["spec_gate"]
-    kernels.spec_gate(status, offsets, ctl)
-    reference.spec_gate(status, offsets, want)
+    kernels.spec_gate(status, offsets, ctl, iters=iters)
+    reference.spec_gate(status, offsets, want, iters=iters)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["spec_gate"] == before + 1
     assert torch.equal(ctl, want)
 
 
+def _megaround_case(iters, zero_need=False):
+    """A cap_cluster(40) megaround instance: (cluster, buckets, needs)."""
+    from nhd_tpu_torch.sim.workloads import cap_cluster, workload_mix
+    from nhd_tpu_torch.solver.encode import encode_cluster, encode_pods
+    from nhd_tpu_torch.solver.kernel import _pad_pow2
+
+    groups = ["default", "edge", "batch"]
+    cluster = encode_cluster(cap_cluster(40, groups), now=0.0)
+    buckets = list(encode_pods(workload_mix(400, groups), cluster.interner).values())
+    needs = [np.bincount(p.pod_type, minlength=_pad_pow2(p.n_types)).astype(np.int32)
+             * (0 if zero_need else 1) for p in buckets]
+    return cluster, buckets, needs
+
+
 @pytest.mark.parametrize("graph", ["1", "0"])
 @pytest.mark.parametrize("sharing", [False, True])
 def test_megaround_graph_equals_host_loop(sharing, graph, monkeypatch):
-    """The megaround as the graph replays it (and, with the replay off,
-    as its fixed trip launches one by one) against the host loop, both on
-    the card, from the same encoded state: claims, counts, need left,
-    iterations and node state; one replay counts one megaround_graph
-    launch and NHD_TPU_SPEC_ITERS of spec_gate."""
+    """The megaround as the graph replays it (its WHILE node) and, with
+    the replay off, as its fixed trip launches one by one, against the
+    host loop, all on the card, from the same encoded state: claims,
+    counts, need left, iterations and node state. A replay counts one
+    megaround_graph launch and one spec_gate, and its body once per
+    iteration when the iteration word is read (``count_passes``): 1 +
+    iterations of spec_gate; the fixed trip 1 + NHD_TPU_SPEC_ITERS."""
     _need_cuda()
     import nhd_tpu_torch.core.node as node_mod
     from nhd_tpu_torch.sim.workloads import cap_cluster, workload_mix
@@ -316,12 +335,98 @@ def test_megaround_graph_equals_host_loop(sharing, graph, monkeypatch):
     before = dict(kernels.LAUNCHES)
     got = state.megaround(buckets, needs, False)
     torch.cuda.synchronize()
+    its = int(got[3])
+    kernels.count_passes(got.body, its)
     moved = {n: kernels.LAUNCHES[n] - before[n] for n in kernels.COUNTED}
     for g, w in zip([*got, *(state._dev[n] for n in _MUTABLE)],
                     [*loop, *(loop_state._dev[n] for n in _MUTABLE)]):
         assert torch.equal(g.cpu(), w.cpu())
-    assert moved["spec_gate"] == 8
+    assert its >= 1
+    assert moved["spec_gate"] == (1 + its if graph == "1" else 9)
+    assert moved["spec_apply"] == (its if graph == "1" else 8)
     assert moved[kernels.GRAPH] == (1 if graph == "1" else 0)
+    assert (got.body.get("spec_gate") == 1) == (graph == "1")
+
+
+@pytest.mark.parametrize("case", ["cap", "no_need"])
+def test_while_graph_passes_equal_the_iterations(case, monkeypatch):
+    """The WHILE graph runs its body exactly as many times as the
+    iteration word says: a body with one more op (a pass counter) is
+    captured, and after a replay the counter equals ctl[1] and the
+    results equal the fixed trip's and the host loop's, where the cap
+    binds (NHD_TPU_SPEC_ITERS=2 with need left: 2) and where the need
+    is 0 at the start (no pass: 0)."""
+    _need_cuda()
+    from nhd_tpu_torch.solver import speculate
+    from nhd_tpu_torch.solver.device_state import DeviceClusterState
+    from nhd_tpu_torch.solver.kernel import _MUTABLE
+    from nhd_tpu_torch.solver.speculate import run_megaround
+
+    iters = 2 if case == "cap" else 8
+    monkeypatch.setenv("NHD_TPU_SPEC_ITERS", str(iters))
+    cluster, buckets, needs = _megaround_case(iters, zero_need=case == "no_need")
+    passes = torch.zeros(1, dtype=torch.int32, device="cuda")
+    iteration = speculate.megaround_iteration
+
+    def counted(*a, **kw):
+        passes.add_(1)
+        return iteration(*a, **kw)
+
+    monkeypatch.setattr(speculate, "megaround_iteration", counted)
+    monkeypatch.setattr(speculate, "GRAPHS", speculate.MegaroundCache())
+    outs = []
+    for form in ("graph", "fixed", "loop"):
+        state = DeviceClusterState(cluster, "cuda")
+        if form == "loop":
+            res = run_megaround(state._dev, buckets,
+                                [state.pod_tensors(p) for p in buckets], needs,
+                                cluster.U, cluster.K, iters, False)
+        else:
+            monkeypatch.setattr(speculate, "REPLAY", form == "graph")
+            if form == "graph":
+                # the capture (its warm-up runs one pass eagerly) first
+                DeviceClusterState(cluster, "cuda").megaround(buckets, needs, False)
+                (entry,) = speculate.GRAPHS.entries()
+                assert entry.graph is not None
+                torch.cuda.synchronize()
+                passes.zero_()
+            res = state.megaround(buckets, needs, False)
+        torch.cuda.synchronize()
+        outs.append([t.cpu() for t in res] + [state._dev[n].cpu() for n in _MUTABLE])
+        if form == "graph":
+            assert int(passes) == int(res[3])   # one pass per iteration, no more
+    for got in outs[1:]:
+        assert all(torch.equal(g, w) for g, w in zip(outs[0], got))
+    assert int(outs[0][3]) == (2 if case == "cap" else 0)
+
+
+def test_while_capture_failure_raises(monkeypatch):
+    """A helper call that fails during the capture raises
+    KernelLaunchError with its CUDA code; nothing falls back to the
+    fixed trip or the host loop, and no graph is kept."""
+    _need_cuda()
+    from nhd_tpu_torch.kernels import build
+    from nhd_tpu_torch.kernels.build import KernelLaunchError
+    from nhd_tpu_torch.solver import speculate
+    from nhd_tpu_torch.solver.device_state import DeviceClusterState
+
+    cluster, buckets, needs = _megaround_case(8)
+    monkeypatch.setattr(speculate, "GRAPHS", speculate.MegaroundCache())
+    call = build.call_helper
+
+    def refused(source, entry, *args):
+        if entry == "nhd_graph_while_open":
+            raise KernelLaunchError(source, 801, "refused for the test")
+        return call(source, entry, *args)
+
+    monkeypatch.setattr(build, "call_helper", refused)
+    before = dict(kernels.LAUNCHES)
+    state = DeviceClusterState(cluster, "cuda")
+    with pytest.raises(KernelLaunchError) as info:
+        state.megaround(buckets, needs, False)
+    assert info.value.code == 801
+    assert kernels.LAUNCHES[kernels.GRAPH] == before[kernels.GRAPH]
+    assert all(e.graph is None for e in speculate.GRAPHS.entries())
 
 
 @pytest.mark.parametrize("sharing", [False, True])
@@ -452,7 +557,8 @@ def test_truncated_library_quarantined_and_rebuilt(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "COUNTS", dict.fromkeys(build.COUNTS, 0))
     try:
         build.build_all()   # built, not opened: rewriting a mapped file faults
-        assert build.COUNTS["builds"] == len(kernels.KERNELS)
+        # every source: the kernels and the WHILE node's helper
+        assert build.COUNTS["builds"] == len(build.SOURCES)
         so = build.library_path("nic_any_first")
         with open(so, "r+b") as fh:
             fh.truncate(64)
@@ -468,7 +574,7 @@ def test_truncated_library_quarantined_and_rebuilt(tmp_path, monkeypatch):
             assert torch.equal(g.cpu(), w.cpu())
         assert so.name in os.listdir(tmp_path / "quarantine")
         assert build.COUNTS["quarantined"] == 1
-        assert build.COUNTS["builds"] == len(kernels.KERNELS) + 1
+        assert build.COUNTS["builds"] == len(build.SOURCES) + 1
         assert build.stale_reason("nic_any_first") is None
     finally:
         aot.reset()

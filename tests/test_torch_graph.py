@@ -1,19 +1,23 @@
-"""The megaround as one device program: the fixed trip with its exit on the
-device (nhd_tpu_torch/solver/speculate.py, kernels/spec_gate.cu) on the CPU.
+"""The megaround as one device program: the claim loop with its exit on
+the device (nhd_tpu_torch/solver/speculate.py, kernels/spec_gate.cu,
+kernels/graph_while.cu) on the CPU.
 
-On the card a single-device megaround is one CUDA graph replay of
-``megaround_trip``: ``spec_gate`` opens each of ``spec_iters()``
-iterations and every other kernel returns at once where its gate word is
-0. On the CPU the same trip runs launch by launch through the plain
-versions, so these tests hold the gate's semantics: the trip against the
-host loop (``run_megaround``) and the JAX reference's
-``lax.while_loop`` at each way the loop can end, no host pull inside the
-trip, the table buffer's refill against a fresh ``spec_tables``, the
-graph cache across resident states and re-uploads, the launch accounting
-of a replay, the prewarm's key, and ``spec_gate``'s plain version
-against a numpy statement of its rule. The card's own cases (replay
-against the host loop, the kernel against its plain version) are in
-tests/test_torch_cuda.py.
+On the card a single-device megaround is one CUDA graph replay: the
+resets and ``spec_gate`` (``megaround_open``), then a WHILE node whose
+body is one ``megaround_iteration`` closed by ``spec_gate``, which sets
+the node's condition. On the CPU the same body runs through the plain
+versions, as a while loop on the plain gate's result (``loop``, the
+dispatch's form) and as the fixed trip (``trip``, the card's
+launch-by-launch form), so these tests hold the gate's semantics: both
+forms against the host loop (``run_megaround``) and the JAX reference's
+``lax.while_loop`` at each way the loop can end (the cap among them, and
+no need at the start), the body allocating nothing, no host pull inside
+a dispatch, the table buffer's refill against a fresh ``spec_tables``,
+the graph cache across resident states and re-uploads, the launch
+accounting of a replay, the prewarm's key, and ``spec_gate``'s plain
+version against a numpy statement of its rule. The card's own cases
+(the WHILE graph against the fixed trip and the host loop, the kernel
+against its plain version) are in tests/test_torch_cuda.py.
 
 Tolerance: exact. Claim words, counts, need, iteration counts and node
 state (float32 NIC headroom included) are bit-identical.
@@ -57,6 +61,11 @@ def _few_pairs(reqs, keep=2):
     return out
 
 
+def _no_need(reqs):
+    """*reqs* as they are: the need is zeroed after encoding (``NO_NEED``)."""
+    return reqs
+
+
 #: exit -> (nodes, requests) through the reference's packages
 EXITS = {
     "need_exhausted": lambda wl: (wl.cap_cluster(32, G3), wl.workload_mix(300, G3)),
@@ -65,7 +74,14 @@ EXITS = {
     "bucket_dead_mid_loop": lambda wl: (
         wl.cap_cluster(32, G3), _few_pairs(wl.workload_mix(600, G3))),
     "nic_sharing": lambda wl: (wl.cap_cluster(32, G3), wl.workload_mix(300, G3)),
+    "no_need_at_start": lambda wl: (
+        wl.cap_cluster(32, G3), _no_need(wl.workload_mix(300, G3))),
 }
+#: exits whose pods start with no need: every need row is 0
+NO_NEED = ("no_need_at_start",)
+#: the forms of the one-device megaround on the CPU: the WHILE node's loop
+#: (the dispatch's form) and the fixed trip (the card's launch by launch)
+FORMS = ("while", "fixed")
 
 
 def _encode(name):
@@ -77,6 +93,8 @@ def _encode(name):
     pods = list(encode_pods(reqs, cluster.interner).values())
     needs = [np.bincount(p.pod_type, minlength=_pad_pow2(p.n_types)).astype(np.int32)
              for p in pods]
+    if name in NO_NEED:
+        needs = [np.zeros_like(n) for n in needs]
     return cluster, pods, needs
 
 
@@ -85,21 +103,34 @@ def _gate_log(monkeypatch):
     seen = []
     gate = kernels.spec_gate
 
-    def spy(status, offsets, ctl):
-        gate(status, offsets, ctl)
+    def spy(status, offsets, ctl, **kw):
+        alive = gate(status, offsets, ctl, **kw)
         seen.append(ctl.clone().numpy())
+        return alive
 
     monkeypatch.setattr(kernels, "spec_gate", spy)
     return seen
 
 
+def _form(form, monkeypatch):
+    """Run the dispatches of *form*: ``MegaroundGraph.loop`` as it is, or
+    the fixed trip in its place."""
+    if form == "fixed":
+        monkeypatch.setattr(speculate.MegaroundGraph, "loop",
+                            lambda self: self.trip())
+
+
+@pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("name", sorted(EXITS))
-def test_fixed_trip_matches_host_loop_and_reference(name, monkeypatch):
-    """The gated fixed trip (``DeviceClusterState.megaround`` on one
-    device) against the host loop and the reference, at each exit: need
-    spent, no progress (a saturated cluster), the NHD_TPU_SPEC_ITERS cap,
-    a bucket whose need runs out while another claims, and NIC sharing
-    on. Claims, counts, need left, iterations and node state equal."""
+def test_fixed_trip_matches_host_loop_and_reference(name, form, monkeypatch):
+    """Each form of the one-device megaround (``DeviceClusterState.
+    megaround``: the WHILE node's loop, the fixed trip) against the host
+    loop and the reference, at each exit: need spent, no progress (a
+    saturated cluster), the NHD_TPU_SPEC_ITERS cap (2 iterations with
+    need left and progress, so ctl[1] == 2 as the reference's ``it``), a
+    bucket whose need runs out while another claims, NIC sharing on, and
+    no need at the start (no iteration runs, ctl[1] == 0). Claims,
+    counts, need left, iterations and node state equal."""
     iters = 2 if name == "iters_cap" else 8
     monkeypatch.setenv("NHD_TPU_SPEC_ITERS", str(iters))
     sharing = name == "nic_sharing"
@@ -118,6 +149,7 @@ def test_fixed_trip_matches_host_loop_and_reference(name, monkeypatch):
         loop_state._dev, pods, [loop_state.pod_tensors(p) for p in pods], needs,
         cluster.U, cluster.K, iters, False)
     loop = [t.numpy() for t in loop] + [loop_state._dev[n].numpy() for n in _MUTABLE]
+    _form(form, monkeypatch)
     seen = _gate_log(monkeypatch)
     state = PtState(cluster, "cpu")
     got = [t.numpy() for t in state.megaround(pods, needs, False)]
@@ -126,20 +158,88 @@ def test_fixed_trip_matches_host_loop_and_reference(name, monkeypatch):
         assert g.dtype == w.dtype and g.shape == w.shape
         assert np.array_equal(g, w) and np.array_equal(lp, w)
     its, need_left = int(want[3]), int(want[2].sum())
-    assert len(seen) == iters   # the trip is fixed; the gate counts
+    # one gate before the loop and one closing each iteration: the
+    # while form stops at the first dead one, the fixed trip runs them all
+    assert len(seen) == (its if form == "while" else iters) + 1
     assert [int(c[1]) for c in seen][-1] == its
+    assert seen[-1][0] == 0 or form == "fixed"
     if name == "need_exhausted":
         assert need_left == 0 and 1 <= its < iters
     elif name == "no_progress":
         assert need_left > 0 and its < iters
     elif name == "iters_cap":
-        assert need_left > 0 and its == iters
+        assert need_left > 0 and its == iters == 2
+        assert seen[-2][0] == 1   # alive with need and progress: the cap ends it
     elif name == "bucket_dead_mid_loop":
         first = seen[0]
         mid = [c for c in seen[1:] if c[0] == 1 and (c[2:] < first[2:]).any()]
         assert len(pods) == 2 and first[2:].all() and mid
+    elif name == "no_need_at_start":
+        assert its == 0 and need_left == 0 and (want[0] == -1).all()
+        assert not (want[1] > 0).any()
     else:
         assert (want[1] > 0).any()
+
+
+@pytest.mark.parametrize("form", FORMS)
+def test_body_allocates_nothing(form, monkeypatch):
+    """Every tensor an iteration's launches write (each wrapper's
+    outputs and in-place inputs, the headroom planes) is one the
+    ``MegaroundGraph`` holds: the same ``data_ptr`` in every iteration,
+    none of them new, so the WHILE body's capture needs no allocator."""
+    _form(form, monkeypatch)
+    cluster, pods, needs = _encode("need_exhausted")
+    speculate.GRAPHS.clear()
+    state = PtState(cluster, "cpu")
+    state.megaround(pods, needs, False)
+    (entry,) = speculate.GRAPHS.entries()
+    written = {"nic_node_masks": (), "nic_any_first": (), "solve_planes": (),
+               "spec_elect": ("status",), "spec_fill": ("plan", "status"),
+               "spec_apply": ("busy", "hp_free", "cpu_free", "gpu_free",
+                              "nic_free", "gpu_free_sw", "claims", "counts"),
+               "spec_gate": ("ctl",)}
+    per_iteration, current = [], []
+
+    def spy(name):
+        wrapped = getattr(kernels, name)
+        names = [a.name for a in kernels.ABI[name].inputs]
+
+        def call(*args, **kw):
+            out = wrapped(*args, **kw)
+            got = dict(zip(names, args))
+            outs = out if isinstance(out, tuple) else (out,) if torch.is_tensor(out) \
+                else ()
+            current.append((name, tuple(got[k].data_ptr() for k in written[name])
+                            + tuple(o.data_ptr() for o in outs)))
+            if name == "spec_gate":
+                per_iteration.append(list(current))
+                current.clear()
+            return out
+        return call
+
+    for name in written:
+        monkeypatch.setattr(kernels, name, spy(name))
+    copies = speculate.free_planes
+
+    def free(node, out=None):
+        planes = copies(node, out)
+        current.append(("free_planes", tuple(p.data_ptr() for p in planes)))
+        return planes
+
+    monkeypatch.setattr(speculate, "free_planes", free)
+    entry.buf.fill(speculate.control_arrays(needs, speculate._shapes(pods)))
+    if form == "fixed":
+        entry.trip(passes=2)
+    else:
+        entry.loop()
+    held = {t.data_ptr() for t in (
+        *entry.node.values(), *entry.buf.views.values(), entry.claims,
+        entry.counts, *entry.tabs.views, *entry.body.free, entry.body.plan,
+        *(b for s in entry.body.solve for b in s))}
+    first, second = per_iteration[1:3]   # after the opening gate
+    assert [n for n, _ in first] == [n for n, _ in second]
+    assert len(first) == 1 + 3 * len(pods) + 4 and first == second
+    assert {p for _, ptrs in first for p in ptrs} <= held
 
 
 def test_no_host_pull_inside_the_trip(monkeypatch):
@@ -257,27 +357,73 @@ def test_one_graph_serves_every_resident_state_of_a_key():
 
 
 def test_launch_accounting_of_a_replay():
-    """A capture's launches go to its tally, not to the counts; each
-    replay adds one megaround_graph launch and the tally, to the counts
-    and to the replaying thread's own."""
+    """A capture's launches go to its tallies, not to the counts: the
+    launches before the WHILE node to one, its body's to another (nested).
+    Each replay adds one megaround_graph launch and the first tally; the
+    body's tally counts once per iteration the node ran, when the
+    iteration word is read (``count_passes``; none for 0), to the counts
+    and to the counting thread's own."""
     saved = dict(kernels.LAUNCHES)
     try:
         kernels.reset_launches()
         before = kernels.thread_launches()
         with kernels.capturing() as tally:
-            for name in ("spec_gate", "spec_elect", "spec_gate"):
-                kernels._count(name)
+            kernels._count("spec_gate")
+            with kernels.capturing() as body:
+                for name in ("spec_elect", "spec_apply", "spec_gate"):
+                    kernels._count(name)
         assert kernels.LAUNCHES == dict.fromkeys(kernels.COUNTED, 0)
-        assert tally["spec_gate"] == 2 and tally["spec_elect"] == 1
+        assert tally["spec_gate"] == 1 and tally["spec_elect"] == 0
+        assert body["spec_gate"] == body["spec_elect"] == body["spec_apply"] == 1
         kernels.count_replay(tally)
+        kernels.count_passes(body, 4)
         kernels.count_replay(tally)
+        kernels.count_passes(body, 0)   # an all-dead replay: the node never ran
         after = kernels.thread_launches()
         want = dict.fromkeys(kernels.COUNTED, 0)
-        want.update({kernels.GRAPH: 2, "spec_gate": 4, "spec_elect": 2})
+        want.update({kernels.GRAPH: 2, "spec_gate": 2 + 4, "spec_elect": 4,
+                     "spec_apply": 4})
         assert kernels.LAUNCHES == want
         assert {n: after[n] - before[n] for n in kernels.COUNTED} == want
     finally:
         kernels.LAUNCHES.update(saved)
+
+
+def test_graph_dispatch_leaves_its_body_to_count(monkeypatch):
+    """A replay's results carry its body's tally (``Megaround.body``),
+    and the batch counts it once per iteration it read: a schedule's
+    counts hold the prologue's gate per replay and the body per
+    iteration. The CPU's dispatch counted as it went and leaves none."""
+    cluster, pods, needs = _encode("need_exhausted")
+    state = PtState(cluster, "cpu")
+    res = state.megaround(pods, needs, False)
+    assert isinstance(res, speculate.Megaround) and res.body == {}
+    loop_state = PtState(cluster, "cpu")
+    loop = speculate.run_megaround(
+        loop_state._dev, pods, [loop_state.pod_tensors(p) for p in pods], needs,
+        cluster.U, cluster.K, 8, False)
+    assert isinstance(loop, speculate.Megaround) and loop.body == {}
+    counted = []
+    monkeypatch.setattr(kernels, "count_passes",
+                        lambda body, n: counted.append((dict(body), n)))
+    from nhd_tpu_torch.solver import batch as batch_mod
+
+    tally = {"spec_gate": 1, "spec_elect": 1}
+    megaround = PtState.megaround
+
+    def replayed(self, *a, **kw):
+        out = megaround(self, *a, **kw)
+        return speculate.Megaround(tuple(out), tally)
+
+    monkeypatch.setattr(PtState, "megaround", replayed)
+    import nhd_tpu_torch.sim.workloads as pt_workloads
+
+    sched = batch_mod.BatchScheduler(device="cpu", respect_busy=False,
+                                     register_pods=False)
+    items = [batch_mod.BatchItem(("ns", f"p{i}"), r)
+             for i, r in enumerate(pt_workloads.workload_mix(60, G3))]
+    sched.schedule(pt_workloads.cap_cluster(8, G3), items, now=0.0)
+    assert counted and all(body == tally and n >= 1 for body, n in counted)
 
 
 @pytest.mark.parametrize("code,transient", [(2, True), (None, False)])
@@ -318,39 +464,48 @@ def test_prewarm_warms_the_key_a_batch_dispatches():
     assert set(map(id, speculate.GRAPHS.entries())) == set(map(id, warmed))
 
 
-def _gate_rule(status, offsets, ctl):
+def _gate_rule(status, offsets, ctl, iters):
     """spec_gate's rule, in numpy."""
     need = status[1:].astype(np.int64)
     per = np.array([need[offsets[b]:offsets[b + 1]].sum()
                     for b in range(len(offsets) - 1)])
-    alive = int(ctl[0] != 0 and status[0] != 0 and per.sum() > 0)
+    alive = int(ctl[0] != 0 and status[0] != 0 and per.sum() > 0 and ctl[1] < iters)
     return np.concatenate([[alive, ctl[1] + alive], (per > 0) & bool(alive)]).astype(np.int32)
 
 
+@pytest.mark.parametrize("cap", sweep.GATE_CAPS)
 @pytest.mark.parametrize("shape", sweep.GATE_SWEEP, ids=str)
-def test_spec_gate_plain_matches_its_rule(shape):
+def test_spec_gate_plain_matches_its_rule(shape, cap):
+    """The plain spec_gate on every sweep case at each cap: the control
+    words as the rule says, the alive flag returned, the inputs kept."""
     status, offsets, ctl = sweep.gate_case(sweep.GATE_SWEEP.index(shape), *shape)
-    want = _gate_rule(status, offsets, ctl)
+    iters = sweep.gate_iters(ctl, cap)
+    want = _gate_rule(status, offsets, ctl, iters)
     t = [torch.from_numpy(a.copy()) for a in (status, offsets, ctl)]
-    kernels.spec_gate(*t)   # CPU tensors: the plain version
-    assert np.array_equal(t[2].numpy(), want)
+    alive = kernels.spec_gate(*t, iters=iters, handle=12345)   # CPU: the plain version
+    assert np.array_equal(t[2].numpy(), want) and alive is bool(want[0])
     assert np.array_equal(t[0].numpy(), status) and np.array_equal(t[1].numpy(), offsets)
 
 
 def test_gate_sweep_reaches_its_edges():
     """The sweep has live and dead outcomes, buckets live and dead beside
     each other, and a bucket whose sum is 0 or below though a row is
-    above 0 (the rule reads the sum)."""
-    outcomes, mixed, by_sum = set(), False, False
+    above 0 (the rule reads the sum); at its caps, the cap alone ends a
+    loop that is alive below it, and one iteration below it does not."""
+    outcomes, mixed, by_sum, capped = set(), False, False, False
     for i, shape in enumerate(sweep.GATE_SWEEP):
         status, offsets, ctl = sweep.gate_case(i, *shape)
-        out = _gate_rule(status, offsets, ctl)
+        out = _gate_rule(status, offsets, ctl, sweep.gate_iters(ctl, "far"))
         outcomes.add(int(out[0]))
         mixed |= bool(out[0]) and 0 < out[2:].sum() < len(out) - 2
         for b in range(len(offsets) - 1):
             rows = status[1:][offsets[b]:offsets[b + 1]].astype(np.int64)
             by_sum |= bool((rows > 0).any() and rows.sum() <= 0)
-    assert outcomes == {0, 1} and mixed and by_sum
+        at = _gate_rule(status, offsets, ctl, sweep.gate_iters(ctl, "at"))
+        above = _gate_rule(status, offsets, ctl, sweep.gate_iters(ctl, "above"))
+        assert np.array_equal(above, out)
+        capped |= bool(out[0]) and not at[0] and ctl[1] >= 1
+    assert outcomes == {0, 1} and mixed and by_sum and capped
 
 
 def test_dead_gate_leaves_every_kernel_a_no_op():
@@ -366,8 +521,7 @@ def test_dead_gate_leaves_every_kernel_a_no_op():
     plan = kernels.spec_elect(*args, dead, **kw)
     assert not plan.any()
     kernels.spec_fill(plan, t["status"], dead)
-    kernels.spec_apply(plan, *(t[k] for k in sweep.SPEC_APPLY_ARGS[:-1]), dead,
-                       it=case["it"], **kw)
+    kernels.spec_apply(plan, *(t[k] for k in sweep.SPEC_APPLY_ARGS[:-1]), dead, **kw)
     for k, v in before.items():
         assert torch.equal(t[k], v), k
     args = [torch.from_numpy(a) for a in sweep.plane_case(0, *sweep.PLANE_SWEEP[0])]

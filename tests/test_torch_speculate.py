@@ -234,7 +234,8 @@ def test_claim_kernels_match_reference_iteration_by_iteration(name, monkeypatch)
             plan, tabs.trow, node["smt"], node["nic_sw"], tabs.cpu_g, tabs.cpu_m,
             tabs.gpu_g, tabs.nic_occ, tabs.gpu_uk, tabs.nic_rx, tabs.nic_tx,
             node["busy"], node["hp_free"], node["cpu_free"], node["gpu_free"],
-            node["nic_free"], node["gpu_free_sw"], claims, counts, it=0, **kw)
+            node["nic_free"], node["gpu_free_sw"], claims, counts,
+            torch.ones(1, dtype=torch.int32), **kw)
         assert np.array_equal(claims.numpy(), w_claims), "spec_apply claims"
         assert np.array_equal(counts.numpy(), w_counts), "spec_apply counts"
         for n in _MUTABLE:
@@ -345,8 +346,7 @@ def test_sweep_ties_and_consume_match_the_jax_step(fill):
         used = unocc & (jnp.cumsum(unocc.astype(jnp.int32), axis=2)
                         <= nic_consume[..., None])
         want = np.asarray(jnp.where(used[..., None], 0.0, nic_free))
-        reference.spec_apply(plan, *(t[k] for k in sweep.SPEC_APPLY_ARGS),
-                             it=case["it"], **kw)
+        reference.spec_apply(plan, *(t[k] for k in sweep.SPEC_APPLY_ARGS), **kw)
         assert np.array_equal(t["nic_free"].numpy(), want), shape
         free = np.asarray(unocc.sum(2))
         assert (k[took] > 1).any()

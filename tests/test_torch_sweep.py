@@ -181,8 +181,7 @@ def test_spec_case_runs_the_plain_versions(shape):
     assert torch.equal(t["status"][1:], need0 - per_type)
     assert int(t["status"][0]) == int(per_type.sum() > 0)
     before = t["cpu_free"].clone()
-    kernels.spec_apply(plan, *(t[k] for k in sweep.SPEC_APPLY_ARGS),
-                       it=t["it"], **kw)
+    kernels.spec_apply(plan, *(t[k] for k in sweep.SPEC_APPLY_ARGS), **kw)
     took = has & (take > 0)
     assert took.any()
     row = t["claims"][t["it"]]
