@@ -18,7 +18,10 @@ Phases (one line each; the last line is the contract line):
    launch, its hand-counted bound, torch.topk alone on the same sel plane
    and the eager chain it replaced (``eager_rank_chain``, kept here as a
    yardstick only), and rank_merge on the candidates of cfg4's G=2 bucket
-   cut into 4 shards, equal to the unsharded rank at every slot; then every
+   cut into 4 shards, equal to the unsharded rank at every slot; both
+   rank kernels, timed the same way, on the ``RANK_TIMED`` rows of the
+   sweep (R = 2,048 at N = 16,384, past 1,024 winners; every type row
+   padding, at N = 1,024 and 4,096); then every
    kernel on every edge shape of nhd_tpu_torch/kernels/sweep.py (random
    from a seed); plus the CUDA matcher against the serial oracle on a
    small random cluster;
@@ -247,6 +250,11 @@ N_TIMED = 30
 #: the cells' size: pods per batch, nodes per cluster; and the wide
 #: bucket's node count
 CELL_PODS, CELL_NODES, WIDE_N = 10_000, 1_000, 4096
+#: RANK_SWEEP rows phase 3 times both rank kernels on: R = 2,048 at
+#: cfg5's tile width (past 1,024 winners, only under NHD_TPU_RANK_CAP),
+#: and every type row padding in each regime of rank_select.cuh
+RANK_TIMED = ((8, 16384, 2, 2048, 4, 0, "sparse"), (4, 1024, 2, 512, 1, 0, "zero"),
+              (8, 4096, 2, 512, 2, 0, "zero"))
 #: the daemon phase's pending set: cfg4 nodes and pods (DAEMON_CUT names
 #: a cut of the pod count, if one was made to stay in the time limit)
 DAEMON_NODES, DAEMON_PODS, DAEMON_CUT = 1_000, 10_000, None
@@ -691,6 +699,32 @@ def check_merge(torch, label, cand, whole, real, *, timed=False):
     if not torch.equal(merged, whole):
         fail(f"rank_merge at {label} is not the unsharded rank at every slot")
     return res
+
+
+def rank_rows(torch, dev, report):
+    """Both rank kernels on the ``RANK_TIMED`` sweep rows against their
+    plain versions, exactly, timed as in ``check_rank`` beside the empty
+    launch on the same grid (rank_merge on the row's shards' candidates)."""
+    from nhd_tpu_torch import kernels
+    from nhd_tpu_torch.kernels import sweep
+
+    gate = kernels.live_gate(dev)
+    for row in RANK_TIMED:
+        c = sweep.rank_case(sweep.RANK_SWEEP.index(row), *row)
+        up = {k: torch.from_numpy(c[k]).to(dev)
+              for k in ("planes", "gpu_free", "cpu_free", "hp_free", "cand")}
+        label = f"sweep (T, N, U, R, S, node_base, fill)={row}"
+        res = {}
+        res["rank_top"], _ = check_rank(
+            torch, label, "rank_top",
+            (up["planes"], up["gpu_free"], up["cpu_free"], up["hp_free"], gate),
+            {"R": c["R"], "node_base": c["node_base"]}, {"T": row[0], "N": row[1]},
+            timed=True, floors=build_floors())
+        res["rank_merge"], _ = check_rank(
+            torch, f"{label} merge (M={up['cand'].shape[2]})", "rank_merge",
+            (up["cand"], gate), {"R": c["merge_R"]}, {"T": row[0]},
+            timed=True, floors=build_floors())
+        report["kernels"][label] = res
 
 
 def stage(kernel_mod, reference, node, pod):
@@ -2121,6 +2155,11 @@ def log_tail(path, n=40):
     return f" (log {path}, last lines:\n" + "\n".join(lines[-n:]) + ")"
 
 
+#: CLI starts retried on another metrics port when its bind found the
+#: port taken (``free_port`` probes it, the CLI binds it seconds later)
+CLI_REBINDS = 2
+
+
 def free_port():
     """A port free on every interface, below Linux's ephemeral range
     (32768 and up): a port the kernel handed out and took back could be
@@ -2282,17 +2321,31 @@ def run_cli(device, n_nodes, n_pods, workdir, label, log_dir="chiprun_out",
             cwd=ROOT,
         )
         done, mid = threading.Event(), {}
-        scraper = threading.Thread(target=scrape_until_answered,
-                                   args=(port, done, mid), daemon=True)
+        rebinds = 0
         try:
             while not cli_ready(stub, port):
                 if proc.poll() is not None:
+                    if rebinds < CLI_REBINDS and "Address already in use" in log_tail(log_path):
+                        # another socket took the metrics port between its
+                        # probe and the CLI's bind: the same run on another
+                        rebinds += 1
+                        port = free_port()
+                        cmd[cmd.index("--metrics-port") + 1] = str(port)
+                        out["cmd"] = " ".join(cmd[1:])
+                        proc = subprocess.Popen(
+                            cmd, stdout=fh, stderr=subprocess.STDOUT, text=True,
+                            env=child_env, cwd=ROOT,
+                        )
+                        continue
                     fail(f"cli {label}: exited early with {proc.returncode}"
                          f"{log_tail(log_path)}")
                 if time.perf_counter() - t0 > CLI_READY_S:
                     fail(f"cli {label}: not up within {CLI_READY_S:.0f}s"
                          f"{log_tail(log_path)}")
                 time.sleep(0.1)
+            out["metrics_rebinds"] = rebinds
+            scraper = threading.Thread(target=scrape_until_answered,
+                                       args=(port, done, mid), daemon=True)
             feed0 = time.perf_counter()
             created, bound_at = {}, {}
             seen = fed = 0
@@ -3939,6 +3992,7 @@ def main():
     check_kernels(torch, f"wide G=3 U=2 K=8 T=8 N={WIDE_N}", node, pod, report,
                   {"T": 8, "N": WIDE_N}, R=min(kernel_mod.rank_cap(True), WIDE_N))
     del node, pod
+    rank_rows(torch, dev, report)
     sweep_check(torch, dev, report)
     oracle_check(dev)
 

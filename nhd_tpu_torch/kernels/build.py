@@ -12,7 +12,10 @@ needs for a binding file.
 
 Libraries land in the kernel cache's directory (``NHDC_AOT_DIR``,
 default ``nhd_tpu_torch/_build/``, git-ignored), named by a fingerprint
-of the source, ``abi.py`` and the flags, so an edited source rebuilds.
+of the source, every header of this directory it includes (``#include
+"..."``: ``rank_select.cuh``, the rank kernels' shared select/sort core),
+``abi.py`` and the flags, so an edited source or header rebuilds every
+library that includes it.
 Each library carries a sidecar meta (solver/aot.py) that names the
 toolchain and the card it was built for; ``load`` validates it, and a
 library that fails validation, ``dlopen`` or its entry symbols is
@@ -27,6 +30,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -42,9 +46,13 @@ BUILD_DIR = _DIR.parent / "_build"
 #: the architecture every library is built for
 TARGET = "sm_90a"
 
+#: the kernels' own headers are found here, also by a source compiled
+#: from a copy elsewhere (kernel_variants.py)
+INCLUDE = f"-I{_DIR}"
 NVCC_FLAGS = [
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    INCLUDE,
 ]
 
 #: seconds one nvcc process may take before it is killed and the build
@@ -88,12 +96,35 @@ def build_dir() -> Path:
     return Path(AOT.directory())
 
 
+_INCLUDE_RE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def headers(name: str) -> List[Path]:
+    """The headers of this directory that kernel *name*'s source
+    includes, directly or through another header, in first-seen order."""
+    seen: List[Path] = []
+    todo = [source_path(name)]
+    while todo:
+        for inc in _INCLUDE_RE.findall(todo.pop(0).read_text()):
+            path = _DIR / inc
+            if path not in seen:
+                seen.append(path)
+                todo.append(path)
+    return seen
+
+
 def fingerprint(name: str) -> str:
-    """Hash over kernel *name*'s source, the interface table and the
-    compiler flags: what the library's code depends on in this tree."""
+    """Hash over kernel *name*'s source, the headers it includes, the
+    interface table and the compiler flags (the include directory by
+    role, not by path): what the library's code depends on in this
+    tree."""
     h = hashlib.sha1(source_path(name).read_bytes())
+    for header in headers(name):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update((_DIR / "abi.py").read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(f if f != INCLUDE else "-I<kernels>"
+                      for f in NVCC_FLAGS).encode())
     return h.hexdigest()[:12]
 
 

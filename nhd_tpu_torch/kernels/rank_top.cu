@@ -19,343 +19,123 @@
 // Bound: the launch and a chain of dependent block steps. At the main
 // path's shapes (Np = 1,024 padded nodes, R <= 512) a row needs 4 KB of
 // sel, R * (4 + 2U + 1) words of gathers and 9 * R words out, well under a
-// microsecond of HBM time. The design keeps the chain short:
-//   * the row's sel words are staged in shared memory when they and the
-//     winner list fit in STAGE_BYTES (N up to 50,176 with R <= 512: the
-//     tiler's 16,384-row tile stages); past that every pass reads them from
-//     device memory (L2-resident after the first pass);
-//   * the R-th largest key is found by a radix select on the
-//     order-preserving unsigned image of sel (sign bit flipped): passes of
-//     8 bits from the highest byte where the row's smallest and largest
-//     keys differ (two at cfg4, three at the 16,384-row tile), each a
-//     256-bin shared histogram, the lanes of a warp that hit one bin
-//     adding once (__match_any_sync: most of a row is the val-0 bin), and a
-//     suffix scan of the bins by one warp. The passes leave the threshold
-//     key and how many keys equal to it the top R takes (k_eq);
-//   * one ordered pass compacts the winners: every key above the
-//     threshold and the first k_eq keys equal to it by index (a block scan
-//     of ballots carries the count of equal keys across THREADS-wide
-//     chunks). Slots come from a warp-aggregated shared counter, so the
-//     list is unordered; the pass stops once all R are found. A winner is
-//     one 64-bit word, its key above its index's complement, so that one
-//     descending order is (key descending, index ascending), and the words
-//     are distinct;
-//   * the list, padded with zero words to a power of two P >= R, is
-//     sorted descending by a bitonic sort: each thread holds one word,
-//     pairs less than a warp apart exchange through shuffles and farther
-//     ones through shared memory (20 barriers at R = 512). Ordering by
-//     counting instead (a winner's slot = the winners before it, R^2
-//     shared reads a block) is the first design's, timed against this one
-//     in PERF.md;
-//   * the winners' rows are gathered by slot, thread j the j-th.
-// Past THREADS winners (R > 1,024: only under NHD_TPU_RANK_CAP) the list
-// lives in rows 2-4 of the type row's own output, which the gather
-// overwrites after a barrier, and is ordered by counting: quadratic in R,
-// milliseconds a row.
+// microsecond of HBM time. The design keeps the chain short
+// (rank_select.cuh, shared with rank_merge.cu): up to 1,024 node rows the
+// whole row is sorted in registers by 512 threads of 2 words, 10 of its
+// 55 steps through shared memory, and the thread that holds a slot
+// gathers and writes it with no read of its own output; past 1,024 a
+// radix select finds the threshold, the winners above it are sorted
+// (R log^2 R, any R) and the equal ones go to the tail slots in node
+// order. This file holds the gathers: one slot's four decision-plane
+// words, its 2U free words and its hugepages, all issued together.
 //
 // Gate: *gate* is one int32 word, always 1 on the rank's path (the rank
 // runs outside the megaround: kernels.live_gate); where it is 0 the block
-// returns before it writes device memory.
+// writes nothing to device memory. Its load overlaps the row's.
 //
 // Index math: plane, node and output offsets in 64 bits; node indices in
-// 32 bits (the launcher refuses an N within THREADS of 2^31).
+// 32 bits (the launcher refuses an N within 1,024 of 2^31).
 
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
 
+#include "rank_select.cuh"
+
 namespace {
 
-constexpr int THREADS = 1024;
-constexpr int WARPS = THREADS / 32;
-constexpr int BINS = 256;
-constexpr unsigned FULL = 0xffffffffu;
-constexpr size_t STAGE_BYTES = 200 * 1024;   // dynamic shared memory budget
+using namespace rank_select;
+
 // the planes' rows (kernels.PLANES order)
 constexpr int P_BEST_C = 3, P_BEST_M = 4, P_BEST_A = 5, P_N_PICKS = 7;
 
-__device__ __forceinline__ unsigned key_of(int v) { return (unsigned)v ^ 0x80000000u; }
-__device__ __forceinline__ int val_of(unsigned k) { return (int)(k ^ 0x80000000u); }
+// Type row t's slots: a winner node n with sel *key* and its nine words.
+struct TopEmit {
+    const int32_t* sel;       // planes[0][t]; plane p at + p * TN
+    const int32_t* gpu_free;
+    const int32_t* cpu_free;
+    const int32_t* hp_free;
+    int32_t* out;             // out[0][t]; row r at + r * TR
+    size_t TN, TR;
+    int U, node_base;
 
-// The R-th largest of keys[0 .. n) (as key_of images): *thr*, and how many
-// keys equal to it the top R takes, *k_eq* (1 <= k_eq). The bytes above
-// the highest bit where the smallest and largest key differ are common to
-// every key, so the passes start below them (sel stays under 2^24 up to
-// 21,000 node rows: two or three passes, not four), and none runs when
-// every key is equal.
-__device__ void radix_select(const int32_t* keys, int n, int R, int* hist,
-                             int* s_pick, unsigned* s_span, unsigned& thr,
-                             int& k_eq)
-{
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    if (threadIdx.x == 0) {
-        s_span[0] = ~0u;
-        s_span[1] = 0u;
-    }
-    __syncthreads();
-    unsigned lo = ~0u, hi = 0u;
-    for (int i = threadIdx.x; i < n; i += THREADS) {
-        const unsigned u = key_of(keys[i]);
-        lo = min(lo, u);
-        hi = max(hi, u);
-    }
-    lo = __reduce_min_sync(FULL, lo);
-    hi = __reduce_max_sync(FULL, hi);
-    if (lane == 0) {
-        atomicMin(&s_span[0], lo);
-        atomicMax(&s_span[1], hi);
-    }
-    __syncthreads();
-    lo = s_span[0];
-    const unsigned differ = lo ^ s_span[1];
-    int k = R;  // the rank, from the top and 1-based, still to place
-    if (differ == 0u) {  // every key equal
-        thr = lo;
-        k_eq = k;
-        return;
-    }
-    const int top = (31 - __clz(differ)) & ~7;  // the highest differing byte
-    unsigned mask = top == 24 ? 0u : ~0u << (top + 8);
-    unsigned prefix = lo & mask;
-    for (int shift = top; shift >= 0; shift -= 8) {
-        for (int b = threadIdx.x; b < BINS; b += THREADS) hist[b] = 0;
-        __syncthreads();
-        for (int base = 0; base < n; base += THREADS) {
-            const int i = base + threadIdx.x;
-            unsigned bin = BINS;  // none
-            if (i < n) {
-                const unsigned u = key_of(keys[i]);
-                if ((u & mask) == prefix) bin = (u >> shift) & (BINS - 1);
-            }
-            const unsigned peers = __match_any_sync(FULL, bin);
-            if (bin < BINS && lane == __ffs(peers) - 1)
-                atomicAdd(&hist[bin], __popc(peers));
-        }
-        __syncthreads();
-        if (warp == 0) {
-            // lane l holds bins 255 - 8l down to 248 - 8l: an inclusive
-            // scan over the lanes counts the keys from the top bin down
-            int c[8], s = 0;
-#pragma unroll
-            for (int j = 0; j < 8; ++j) {
-                c[j] = hist[BINS - 1 - 8 * lane - j];
-                s += c[j];
-            }
-            int inc = s;
-#pragma unroll
-            for (int o = 1; o < 32; o <<= 1) {
-                const int v = __shfl_up_sync(FULL, inc, o);
-                if (lane >= o) inc += v;
-            }
-            int run = inc - s;
-            if (run < k && k <= inc) {
-#pragma unroll
-                for (int j = 0; j < 8; ++j) {
-                    if (run + c[j] >= k) {
-                        s_pick[0] = BINS - 1 - 8 * lane - j;
-                        s_pick[1] = run;
-                        break;
-                    }
-                    run += c[j];
-                }
-            }
-        }
-        __syncthreads();
-        prefix |= (unsigned)s_pick[0] << shift;
-        mask |= (unsigned)(BINS - 1) << shift;
-        k -= s_pick[1];
-    }
-    thr = prefix;
-    k_eq = k;
-}
-
-// The top R of keys[0 .. n), unordered: every key above thr and the first
-// k_eq keys equal to it by position, as words word_of(key, position) into
-// *sorted* or, where it is null, as keys and positions into wkey/wpos.
-__device__ __forceinline__ unsigned long long word_of(unsigned u, int i)
-{
-    return ((unsigned long long)u << 32) | (unsigned)~(unsigned)i;
-}
-
-__device__ void compact(const int32_t* keys, int n, int R, unsigned thr,
-                        int k_eq, unsigned long long* sorted, unsigned* wkey,
-                        int* wpos, int* s_warp, int* s_count)
-{
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const unsigned lt = (1u << lane) - 1u;
-    if (threadIdx.x == 0) *s_count = 0;
-    __syncthreads();
-    int carry = 0;  // keys equal to thr before this chunk
-    for (int base = 0; base < n; base += THREADS) {
-        const int i = base + threadIdx.x;
-        const unsigned u = i < n ? key_of(keys[i]) : 0u;
-        const bool eq = i < n && u == thr;
-        const unsigned eqb = __ballot_sync(FULL, eq);
-        if (lane == 0) s_warp[warp] = __popc(eqb);
-        __syncthreads();
-        int before = 0, total = 0;
-        for (int w = 0; w < WARPS; ++w) {
-            const int c = s_warp[w];
-            before += w < warp ? c : 0;
-            total += c;
-        }
-        const bool win = (i < n && u > thr)
-            || (eq && carry + before + __popc(eqb & lt) < k_eq);
-        const unsigned wb = __ballot_sync(FULL, win);
-        int slot = 0;
-        if (lane == 0 && wb) slot = atomicAdd(s_count, __popc(wb));
-        slot = __shfl_sync(FULL, slot, 0) + __popc(wb & lt);
-        if (win) {
-            if (sorted != nullptr) {
-                sorted[slot] = word_of(u, i);
-            } else {
-                wkey[slot] = u;
-                wpos[slot] = i;
-            }
-        }
-        carry += total;
-        __syncthreads();
-        if (*s_count == R) break;  // every winner found (read after the barrier)
-    }
-}
-
-// A descending bitonic sort of P <= THREADS words, P a power of two,
-// thread i holding word i in *v*: pairs less than a warp apart exchange
-// through shuffles, farther ones through s[0 .. P) (two barriers a step:
-// log2(P / 32) * (log2(P / 32) + 1) / 2 steps, 10 at P = 512). Returns the
-// word thread i holds at the end, the i-th largest. Every thread of the
-// block calls it.
-__device__ unsigned long long bitonic_desc(unsigned long long* s, int P,
-                                              unsigned long long v)
-{
-    const int i = threadIdx.x;
-    for (int k = 2; k <= P; k <<= 1) {
-        for (int j = k >> 1; j > 0; j >>= 1) {
-            unsigned long long o;
-            if (j >= 32) {
-                __syncthreads();  // every read of s in the last step is done
-                if (i < P) s[i] = v;
-                __syncthreads();
-                o = i < P ? s[i ^ j] : 0ull;
-            } else {
-                o = __shfl_xor_sync(FULL, v, j);
-            }
-            // a descending run where (i & k) == 0: its lower index keeps
-            // the larger word; an ascending run the smaller
-            const bool larger = ((i & k) == 0) == ((i & j) == 0);
-            v = larger ? (v > o ? v : o) : (v < o ? v : o);
-        }
-    }
-    return v;
-}
-
-// Past THREADS winners: scratch[i] = the winners before winner i (a
-// greater key, or an equal key at a lower position).
-__device__ void order_by_count(const unsigned* wkey, const int* wpos, int R,
-                               int32_t* scratch)
-{
-    for (int i = threadIdx.x; i < R; i += THREADS) {
-        const unsigned ki = wkey[i];
-        const int pi = wpos[i];
-        int r = 0;
-        for (int j = 0; j < R; ++j) {
-            const unsigned kj = wkey[j];
-            r += (kj > ki) | ((kj == ki) & (wpos[j] < pi));
-        }
-        scratch[i] = r;
-    }
-}
-
-// The top R of keys[0 .. n) in order, each winner's key into row[0][slot]
-// and its position into row[1][slot] (rows of the type row's output;
-// rows 2-4 are scratch past THREADS winners). P: the sort's length, 0
-// past THREADS winners. Ends on a barrier.
-__device__ __forceinline__ void select_top(const int32_t* keys, int n, int R, int P,
-                           unsigned long long* sorted, int32_t* const* row,
-                           int* s_hist, int* s_pick, unsigned* s_span,
-                           int* s_warp, int* s_count)
-{
-    unsigned thr;
-    int k_eq;
-    radix_select(keys, n, R, s_hist, s_pick, s_span, thr, k_eq);
-    unsigned* wkey = (unsigned*)row[2];
-    int* wpos = (int*)row[3];
-    compact(keys, n, R, thr, k_eq, P ? sorted : nullptr, wkey, wpos, s_warp,
-            s_count);
-    if (P) {
-        // thread j holds word j (zero past R) and ends holding the j-th
-        const int j = threadIdx.x;
-        const unsigned long long w = bitonic_desc(
-            sorted, P, j < R ? sorted[j] : 0ull);
-        if (j < R) {
-            row[0][j] = val_of((unsigned)(w >> 32));
-            row[1][j] = (int)~(unsigned)w;
-        }
-    } else {
-        order_by_count(wkey, wpos, R, row[4]);
-        __syncthreads();
-        for (int i = threadIdx.x; i < R; i += THREADS) {
-            const int r = row[4][i];
-            row[0][r] = val_of(wkey[i]);
-            row[1][r] = wpos[i];
-        }
-    }
-    __syncthreads();
-}
-
-__global__ void __launch_bounds__(THREADS) rank_top_kernel(
-    const int32_t* __restrict__ planes,    // [8, T, N]
-    const int32_t* __restrict__ gpu_free,  // [N, U]
-    const int32_t* __restrict__ cpu_free,  // [N, U]
-    const int32_t* __restrict__ hp_free,   // [N]
-    const int32_t* __restrict__ gate,      // [1]: 0 = return at once
-    int32_t* __restrict__ out,             // [9, T, R]
-    int T, int N, int U, int R, int node_base, bool stage, int P)
-{
-    const int open = *gate;  // 0: nothing reaches device memory
-    if (!open) return;
-    // the sort's P words first (8-byte aligned), then the staged keys
-    extern __shared__ unsigned long long s_dyn[];
-    __shared__ int s_hist[BINS];
-    __shared__ int s_warp[WARPS];
-    __shared__ int s_pick[2];
-    __shared__ unsigned s_span[2];
-    __shared__ int s_count;
-    const int t = blockIdx.x;
-    const size_t TN = (size_t)T * N;
-    const int32_t* sel = planes + (size_t)t * N;
-    int32_t* row[9];
-#pragma unroll
-    for (int r = 0; r < 9; ++r) row[r] = out + ((size_t)r * T + t) * R;
-
-    const int32_t* keys = sel;
-    if (stage) {
-        int32_t* s_keys = (int32_t*)(s_dyn + P);
-        for (int i = threadIdx.x; i < N; i += THREADS) s_keys[i] = sel[i];
-        keys = s_keys;  // radix_select's first barrier orders these writes
-    }
-    select_top(keys, N, R, P, s_dyn, row, s_hist, s_pick, s_span, s_warp,
-               &s_count);
-    for (int j = threadIdx.x; j < R; j += THREADS) {
-        const int n = row[1][j];
-        const int32_t* at = sel + n;  // plane p of the row at at + p * TN
+    __device__ __forceinline__ Slot gather(int key, int n) const
+    {
+        const int32_t* at = sel + n;
         const int32_t* g = gpu_free + (size_t)n * U;
         const int32_t* c = cpu_free + (size_t)n * U;
+        Slot s;
+        s.w[0] = key;
+        s.w[1] = n + node_base;
+        s.w[2] = at[P_BEST_C * TN];
+        s.w[3] = at[P_BEST_M * TN];
+        s.w[4] = at[P_BEST_A * TN];
+        s.w[5] = at[P_N_PICKS * TN];
         int gs = 0, cs = 0;
         for (int u = 0; u < U; ++u) {
             gs += g[u];
             cs += c[u];
         }
-        row[2][j] = at[P_BEST_C * TN];
-        row[3][j] = at[P_BEST_M * TN];
-        row[4][j] = at[P_BEST_A * TN];
-        row[5][j] = at[P_N_PICKS * TN];
-        row[6][j] = gs;
-        row[7][j] = cs;
-        row[8][j] = hp_free[n];
-        row[1][j] = n + node_base;
+        s.w[6] = gs;
+        s.w[7] = cs;
+        s.w[8] = hp_free[n];
+        return s;
+    }
+
+    __device__ __forceinline__ void write(int j, const Slot& s) const
+    {
+#pragma unroll
+        for (int r = 0; r < RANK_ROWS; ++r) out[r * TR + j] = s.w[r];
+    }
+};
+
+// WHOLE: the whole-row regime (N <= WHOLE_MAX) at THREADS threads;
+// otherwise the wide regime at WIDE_THREADS under plan *wp*.
+template <int THREADS, bool WHOLE>
+__global__ void __launch_bounds__(THREADS) rank_top_kernel(
+    const int32_t* __restrict__ planes,    // [8, T, N]
+    const int32_t* __restrict__ gpu_free,  // [N, U]
+    const int32_t* __restrict__ cpu_free,  // [N, U]
+    const int32_t* __restrict__ hp_free,   // [N]
+    const int32_t* __restrict__ gate,      // [1]: 0 = write nothing
+    int32_t* __restrict__ out,             // [9, T, R]
+    int T, int N, int U, int R, int node_base, WidePlan wp)
+{
+    const int open = *gate;  // 0: nothing reaches device memory
+    extern __shared__ __align__(16) unsigned char s_dyn[];
+    const int t = blockIdx.x;
+    const TopEmit emit{planes + (size_t)t * N, gpu_free, cpu_free, hp_free,
+                       out + (size_t)t * R, (size_t)T * N, (size_t)T * R, U,
+                       node_base};
+    if constexpr (WHOLE) {
+        rank_whole<THREADS, WHOLE_PER>(emit.sel, N, R, open, emit);
+    } else {
+        rank_wide(emit.sel, N, R, open, wp, s_dyn, emit.out + 2 * emit.TR,
+                  emit.TR, emit);
     }
 }
+
+// One whole-row launch at the smallest block of TH, TH / 2, .. 32
+// threads that holds *threads*.
+template <int TH>
+cudaError_t launch_whole(int threads, cudaStream_t stream, const int32_t* planes,
+                         const int32_t* gpu_free, const int32_t* cpu_free,
+                         const int32_t* hp_free, const int32_t* gate, int32_t* out,
+                         int T, int N, int U, int R, int node_base)
+{
+    if constexpr (TH > 32) {
+        if (threads <= TH / 2)
+            return launch_whole<TH / 2>(threads, stream, planes, gpu_free, cpu_free,
+                                        hp_free, gate, out, T, N, U, R, node_base);
+    }
+    rank_top_kernel<TH, true><<<(unsigned)T, TH, 0, stream>>>(
+        planes, gpu_free, cpu_free, hp_free, gate, out, T, N, U, R, node_base,
+        WidePlan{});
+    return cudaGetLastError();
+}
+
+// devices whose wide kernel may take SMEM_BYTES of dynamic shared memory
+std::atomic<unsigned long long> g_wide_ready{0};
 
 }  // namespace
 
@@ -364,27 +144,28 @@ extern "C" int nhd_rank_top(
     const void* hp_free, const void* gate, void* out, int T, int N, int U,
     int R, int node_base, int device, void* stream)
 {
-    if (T < 0 || N < 1 || N > INT_MAX - THREADS || U < 0 || R < 1 || R > N)
+    if (T < 0 || N < 1 || N > INT_MAX - WIDE_THREADS || U < 0 || R < 1 || R > N)
         return (int)cudaErrorInvalidValue;
-    cudaError_t err = cudaSetDevice(device);
+    int current = -1;
+    cudaError_t err = cudaGetDevice(&current);
+    if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if (T == 0) return 0;
-    int P = 0;  // the sort's length: R's power of two, 0 past THREADS
-    if (R <= THREADS)
-        for (P = 1; P < R; P <<= 1) {}
-    const size_t win = (size_t)P * sizeof(unsigned long long);
-    const bool stage = (size_t)N * sizeof(int32_t) + win <= STAGE_BYTES;
-    const size_t bytes = win + (stage ? (size_t)N * sizeof(int32_t) : 0);
-    if (bytes > 48 * 1024) {
-        err = cudaFuncSetAttribute(rank_top_kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)bytes);
-        if (err != cudaSuccess) return (int)err;
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (N <= WHOLE_MAX) {
+        return (int)launch_whole<WHOLE_THREADS>(
+            whole_threads(N), s, (const int32_t*)planes, (const int32_t*)gpu_free,
+            (const int32_t*)cpu_free, (const int32_t*)hp_free,
+            (const int32_t*)gate, (int32_t*)out, T, N, U, R, node_base);
     }
-    rank_top_kernel<<<(unsigned)T, THREADS, bytes, (cudaStream_t)stream>>>(
+    // the wide kernel's shared-memory ceiling, once per device
+    err = allow_smem(rank_top_kernel<WIDE_THREADS, false>, device, g_wide_ready, SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    const WidePlan wp = wide_plan(N, R);
+    rank_top_kernel<WIDE_THREADS, false><<<(unsigned)T, WIDE_THREADS, wp.bytes, s>>>(
         (const int32_t*)planes, (const int32_t*)gpu_free,
         (const int32_t*)cpu_free, (const int32_t*)hp_free,
-        (const int32_t*)gate, (int32_t*)out, T, N, U, R, node_base, stage, P);
+        (const int32_t*)gate, (int32_t*)out, T, N, U, R, node_base, wp);
     return (int)cudaGetLastError();
 }
 

@@ -57,15 +57,26 @@ quarter of the rows 0.
 on [8, T, N] planes, and of ``rank_merge`` on the candidates of S shards
 of N / S rows each (``rank_case``): R = 1, R = N, R above the count of
 positive sel values (the val-0 slots take the lowest-index zero nodes),
-R = 1,024 (one winner a thread of the sort) and past it (the list in
-device memory, ordered by counting), N = 8, N no multiple of 32 (a
-ragged last chunk), the tiler's 16,384-row tile, 40,000 (still staged in
-shared memory) and 65,536 (read from device memory), 3 shards (M no
-power of two), node_base > 0. ``fill`` "sparse" makes a tenth of
+N = 8, N no multiple of 32 (a ragged last chunk), 3 shards (M no power
+of two), node_base > 0. The regimes of rank_select.cuh: N = 1,024, the
+whole-row register sort's largest row (R = N, ties), and N = 1,025, the
+smallest wide row (unaligned: staged by the per-thread loop; M = 1,025
+for the merge of 5 shards); in the wide regime the tiler's 16,384-row
+tile, 40,000 (still staged) and 65,536 (read from device memory); keys
+equal to the threshold past one 1,024-key chunk of the ordered pass
+(k_eq > 1,024: N = 8,192, R = 2,048); the list of winners above it at
+1,024 and past (R = 2,048 at N = 16,384; 5,000 sorted in shared memory,
+or a few hundred in registers beside a list region sized for 5,000);
+R = 20,000 (a list past shared memory, in the type row's output rows:
+"dense" sorted there, "sparse" sorted in registers); R = 36,000 (the
+tail's positions past shared memory too, in output row 6); every type
+row all padding at N = 4,096 (no sort). ``fill`` "sparse" makes a tenth of
 the nodes candidates, "dense" every node, "zero" none (all-zero rows),
 "pad" zeroes the upper half of the type rows (the main path's padded
 types), "ties" draws arbitrary int32 keys from a small range, negatives
-included (ties at every value, which sel never has).
+included (ties at every value, which sel never has), "span" 200 values
+drawn across the whole int32 range (a whole row too wide for 32-bit
+words: the 64-bit sort).
 
 ``PLANE_SWEEP`` rows are (T, N, U, G, C, NCLS, fill): C of 1, 2, 4, 8, not
 a power of two, and past 32 (lanes loop over combos); "tie" gives every
@@ -498,7 +509,43 @@ RANK_SWEEP = (
     (2, 2048, 2, 1024, 2, 0, "dense"),
     (2, 1500, 1, 1025, 3, 0, "sparse"),
     (2, 6000, 1, 5000, 2, 0, "dense"),
+    (2, 1024, 2, 1024, 1, 0, "ties"),
+    (3, 1025, 2, 1025, 5, 0, "dense"),
+    (4, 1025, 3, 600, 1, 3, "sparse"),
+    (2, 8192, 2, 2048, 2, 0, "sparse"),
+    (8, 16384, 2, 2048, 4, 0, "sparse"),
+    (8, 4096, 2, 512, 2, 0, "zero"),
+    (2, 6000, 1, 5000, 2, 0, "sparse"),
+    (1, 40000, 1, 20000, 2, 0, "sparse"),
+    (1, 40000, 1, 20000, 2, 0, "dense"),
+    (4, 1000, 2, 300, 2, 0, "span"),
+    (1, 40000, 1, 36000, 2, 0, "sparse"),
 )
+
+
+#: rank_select.cuh's limits: the whole-row sort's longest row, the
+#: register sort's longest list, the bytes of a list in shared memory
+RANK_WHOLE_MAX, RANK_REG_SORT_MAX, RANK_LIST_BYTES = 1024, 4096, 128 * 1024
+
+
+def rank_path(n: int, R: int, above: int) -> str:
+    """The path of rank_select.cuh that ranks a row of *n* keys at width
+    *R* with *above* keys above its threshold: "whole" (n <= 1,024), or
+    in the wide regime "wide none" (no key above: nothing sorted), "wide
+    registers" or "wide shared" (the list in shared memory, sorted in
+    registers or in memory), "wide rows registers" or "wide rows memory"
+    (the list in the type row's output rows)."""
+    if n <= RANK_WHOLE_MAX:
+        return "whole"
+    if above == 0:
+        return "wide none"
+    pr = 1 << (R - 1).bit_length()
+    rows = pr > RANK_REG_SORT_MAX and pr * 8 > RANK_LIST_BYTES
+    if 1 << (above - 1).bit_length() <= RANK_REG_SORT_MAX:
+        sort = "registers"
+    else:
+        sort = "memory" if rows else "shared"
+    return ("wide rows " if rows else "wide ") + sort
 
 
 def rank_case(seed: int, T: int, N: int, U: int, R: int, S: int,
@@ -525,6 +572,8 @@ def rank_case(seed: int, T: int, N: int, U: int, R: int, S: int,
     sel = np.where(cand, pref * (N + 1) + (N - n)[None, :], 0)
     if fill == "ties":
         sel = rng.integers(-3, 4, (T, N))
+    elif fill == "span":
+        sel = rng.choice(rng.integers(-2**31, 2**31 - 1, 200), (T, N))
     planes = np.stack([
         sel, cand, pref * cand, rng.integers(0, 8, (T, N)),
         rng.integers(0, 4, (T, N)), rng.integers(0, 64, (T, N)),

@@ -228,17 +228,27 @@ def _chip_smoke():
 
 def test_kernel_variants_apply_to_the_sources(monkeypatch):
     """kernel_variants.py's substitutions each meet their text exactly
-    once in the committed .cu sources, so a kernel edit that moves one
-    fails here rather than on the card."""
+    once in the committed .cu sources (with the headers they include
+    inlined, where the rank kernels' shared core lives), so a kernel edit
+    that moves one fails here rather than on the card."""
     kv = _script("kernel_variants")
     monkeypatch.chdir(ROOT)
     for kernel, variant in kv.VARIANTS:
         src = kv.variant_source(kernel, variant)
-        committed = (KDIR / f"{kernel}.cu").read_text()
+        committed = kv.inline_headers((KDIR / f"{kernel}.cu").read_text())
         assert (src == committed) == (kv.VARIANTS[(kernel, variant)] is None)
-    probe = kv.probe_source()
-    assert probe.count("PROBE(") == 1 + len(kv.PROBE_AT)
-    assert "nhd_probe_read" in probe
+        assert '#include "' not in src and "#pragma once" not in src
+    header = (KDIR / "rank_select.cuh").read_text()
+    for kernel in kv.RANK:
+        raw = (KDIR / f"{kernel}.cu").read_text()
+        assert raw.count('#include "rank_select.cuh"') == 1
+        assert header.split("#pragma once\n", 1)[1] in kv.inline_headers(raw)
+        # the empty body cuts every instantiation of the kernel template
+        assert raw.count(kv.GATE_LOAD) == 1
+    for kernel, (_, stamps, slots) in kv.PROBES.items():
+        probe = kv.probe_source(kernel)
+        assert probe.count("PROBE(") == 1 + len(stamps) == 1 + len(slots)
+        assert "nhd_probe_read" in probe
 
 
 @pytest.mark.parametrize("name", kernels.SOLVE_KERNELS)

@@ -405,6 +405,32 @@ def test_library_meta_written_and_reused(fake_toolchain, monkeypatch):
     assert build.COUNTS["quarantined"] == 0
 
 
+def test_header_edit_changes_its_includers_fingerprints(fake_toolchain, tmp_path,
+                                                       monkeypatch):
+    """The rank kernels include one shared header (rank_select.cuh): an
+    edit to it, in a copy of the kernels' directory, changes both rank
+    libraries' fingerprints and no other's, and the next build rebuilds
+    those two alone. The copy fingerprints as the tree does (the include
+    directory is hashed by role, not by path)."""
+    kdir = tmp_path / "kernels"
+    shutil.copytree(build._DIR, kdir, ignore=shutil.ignore_patterns("__pycache__"))
+    real = {name: build.fingerprint(name) for name in SOURCES}
+    monkeypatch.setattr(build, "_DIR", kdir)
+    assert {name: build.fingerprint(name) for name in SOURCES} == real
+    for name in SOURCES:
+        want = ["rank_select.cuh"] if name in ("rank_top", "rank_merge") else []
+        assert [h.name for h in build.headers(name)] == want
+    build.build_all()
+    assert build.COUNTS["builds"] == len(SOURCES)
+    header = kdir / "rank_select.cuh"
+    header.write_text(header.read_text() + "\n// an edit\n")
+    changed = {name for name in SOURCES if build.fingerprint(name) != real[name]}
+    assert changed == {"rank_top", "rank_merge"}
+    assert len(SOURCES) - len(changed) == 8
+    assert set(build.build_all()) == changed
+    assert build.COUNTS["builds"] == len(SOURCES) + 2
+
+
 @pytest.mark.parametrize("damage", [
     "truncated", "fingerprint", "device_name", "no_meta", "no_entry",
 ])

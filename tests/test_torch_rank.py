@@ -31,17 +31,20 @@ from tests.test_torch_sharding import cpu_mesh, jax_mesh
 ROOT = Path(__file__).resolve().parent.parent
 
 
-def _rank_inputs(seed, T, N, U, density, pad_from=None):
+def _rank_inputs(seed, T, N, U, density, pad_from=None, real=None):
     """(the port's [8, T, N] planes and [N, U] / [N] free tensors, the
     reference's _rank_body arguments after R): one solve's outcome drawn
     from a seed, cand and the policy-folded pref expressed as the sel
     plane they imply; type rows from *pad_from* on have no candidate (the
-    main path's padded types)."""
+    main path's padded types), nor node rows from *real* on (padded
+    nodes)."""
     rng = np.random.default_rng(seed)
     i32 = np.int32
     cand = rng.random((T, N)) < density
     if pad_from is not None:
         cand[pad_from:] = False
+    if real is not None:
+        cand[:, real:] = False
     pref = (rng.integers(1, 3, (T, N)) + 3 * rng.integers(0, 3, (T, N))).astype(i32)
     best_c, best_m, best_a, n_combos, n_picks = rng.integers(0, 9, (5, T, N)).astype(i32)
     gpu_free = rng.integers(0, 5, (N, U)).astype(i32)
@@ -193,7 +196,7 @@ def test_rank_sweep_plain_equals_numpy_oracle(i):
                                 R=min(R, Ns), node_base=s * Ns).numpy()
              for s in range(S)]
     assert np.array_equal(np.concatenate(parts, axis=2), cand)
-    if shape[-1] != "ties" and S * Ns == N:
+    if shape[-1] not in ("ties", "span") and S * Ns == N:
         one = sweep.np_rank(c["planes"], *free, c["merge_R"], 0)
         assert np.array_equal(merged, one)
 
@@ -213,6 +216,133 @@ def test_rank_sweep_covers_its_notes():
                  for i, r in enumerate(rows) if r[-1] == "sparse"]
     assert any((p < r[3]).all() for p, r in zip(
         positives, (r for r in rows if r[-1] == "sparse")))
+
+
+def _bitonic_desc(w):
+    """rank_select.cuh's bitonic network on the uint64 words *w* (a power
+    of two long), step by step: pair (lo, lo | j), lo with bit j clear,
+    the larger word to lo in a descending run ((lo & k) == 0)."""
+    w = w.copy()
+    P = len(w)
+    q = np.arange(P // 2)
+    k = 2
+    while k <= P:
+        j = k // 2
+        while j > 0:
+            lo = ((q & ~(j - 1)) << 1) | (q & (j - 1))
+            hi = lo | j
+            a, b = w[lo], w[hi]
+            desc = (lo & k) == 0
+            swap = np.where(desc, a < b, a > b)
+            w[lo] = np.where(swap, b, a)
+            w[hi] = np.where(swap, a, b)
+            j //= 2
+        k *= 2
+    return w
+
+
+def _radix_threshold(u, R, digit=9):
+    """rank_select.cuh's radix select on the key images *u* (uint32):
+    (thr, k_eq), passes of *digit* bits from the highest bit where the
+    smallest and largest image differ down, the last one overlapping bits
+    already fixed."""
+    lo, hi = int(u.min()), int(u.max())
+    if lo == hi:
+        return lo, R
+    high = int(lo ^ hi).bit_length() - 1
+    shift = max(high - (digit - 1), 0)
+    mask = 0 if shift + digit >= 32 else (0xFFFFFFFF << (shift + digit)) & 0xFFFFFFFF
+    prefix, k, bins = lo & mask, R, 1 << digit
+    while True:
+        live = u[(u & mask) == prefix]
+        hist = np.bincount((live >> shift) & (bins - 1), minlength=bins)
+        from_top = np.cumsum(hist[::-1])
+        b = bins - 1 - int(np.nonzero(from_top >= k)[0][0])
+        k -= int(from_top[bins - 1 - b] - hist[b])
+        prefix |= b << shift
+        mask |= (bins - 1) << shift
+        if shift == 0:
+            return prefix, k
+        shift = max(shift - digit, 0)
+
+
+def _split_rank(keys, R):
+    """The positions of the top R of one row of int32 *keys*, as the
+    kernels now rank them: up to 1,024 keys the whole row's words sorted;
+    past that the words above the radix threshold sorted, then the first
+    k_eq keys equal to it in ascending position, unsorted."""
+    n = len(keys)
+    u = (keys.astype(np.int64) & 0xFFFFFFFF).astype(np.uint32) ^ np.uint32(0x80000000)
+    pos = np.arange(n, dtype=np.uint64)
+    words = (u.astype(np.uint64) << np.uint64(32)) | (~pos & np.uint64(0xFFFFFFFF))
+    if n <= 1024:
+        P = 1 << (n - 1).bit_length()
+        padded = np.zeros(P, np.uint64)
+        padded[:n] = words
+        top = _bitonic_desc(padded)[:R]
+    else:
+        thr, k_eq = _radix_threshold(u, R)
+        above = words[u > thr]
+        assert len(above) == R - k_eq
+        eq = np.nonzero(u == thr)[0][:k_eq]
+        P = 1 << max(len(above) - 1, 0).bit_length()
+        padded = np.zeros(P, np.uint64)
+        padded[:len(above)] = above
+        sorted_above = _bitonic_desc(padded)[:len(above)]
+        top = np.concatenate([sorted_above, words[eq]])
+    return (~top & np.uint64(0xFFFFFFFF)).astype(np.int64)
+
+
+@pytest.mark.parametrize("i", range(len(sweep.RANK_SWEEP)))
+def test_split_model_equals_stable_argsort(i):
+    """The decomposition rank_top and rank_merge rely on, modelled in
+    numpy: the radix threshold, the sorted words above it and the tail of
+    equal keys in position order (or, up to 1,024 keys, the whole row's
+    bitonic sort) pick the same positions as a stable descending argsort,
+    on every row of every RANK_SWEEP case (rank_top's sel rows and
+    rank_merge's candidate keys)."""
+    c = sweep.rank_case(i, *sweep.RANK_SWEEP[i])
+    for keys, R in ((c["planes"][0], c["R"]), (c["cand"][0], c["merge_R"])):
+        for row in keys:
+            want = np.argsort(-row.astype(np.int64), kind="stable")[:R]
+            assert np.array_equal(_split_rank(row, R), want)
+
+
+# (seed, T, N, U, candidate density, R, first padded type row): the
+# regimes of rank_select.cuh at sizes the reference ranks as well
+REGIME_CASES = [
+    (30, 4, 1024, 2, 0.2, 512, None),    # the whole-row sort's largest row
+    (31, 4, 1025, 2, 0.2, 700, None),    # the smallest wide row, a long tail
+    (32, 2, 8192, 2, 0.1, 2048, None),   # k_eq > 1,024: the tail spans chunks
+    (33, 2, 16384, 2, 0.1, 2048, None),  # R = 2,048 at cfg5's tile width
+    (34, 8, 1024, 2, 0.3, 512, 0),       # every type row padding
+]
+
+
+@pytest.mark.parametrize("n_dev", [1, 2, 3, 8])
+@pytest.mark.parametrize("seed,T,N,U,density,R,pad_from", REGIME_CASES)
+def test_rank_regimes_equal_rank_body(seed, T, N, U, density, R, pad_from, n_dev):
+    """Each new regime's plain rank against the reference's _rank_body on
+    every slot: on one device, rank_top over the N rows; on n_dev shards
+    of the padded node axis (pad_nodes), each shard's rank_top with its
+    node_base joined in shard order and one rank_merge, as rank_shards
+    does, against _rank_body over the same padded rows."""
+    Np = N if n_dev == 1 else pk.pad_nodes(N, n_dev)
+    (planes, *free), ref = _rank_inputs(seed, T, Np, U, density, pad_from, real=N)
+    want = np.asarray(jk._rank_body(R, *(jnp.asarray(a) for a in ref)))
+    if n_dev == 1:
+        got = kernels.rank_top(planes, *free, R=R).numpy()
+    else:
+        Ns = Np // n_dev
+        parts = [kernels.rank_top(planes[:, :, s * Ns:(s + 1) * Ns].contiguous(),
+                                  *(f[s * Ns:(s + 1) * Ns] for f in free),
+                                  R=min(R, Ns), node_base=s * Ns)
+                 for s in range(n_dev)]
+        got = kernels.rank_merge(torch.cat(parts, dim=2), R=R).numpy()
+    assert got.shape == want.shape == (9, T, R)
+    assert np.array_equal(got, want)
+    if pad_from == 0:
+        assert (got[0] == 0).all() and (got[1] == np.arange(R)).all()
 
 
 def test_rank_width_is_checked():

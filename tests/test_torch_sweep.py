@@ -262,3 +262,54 @@ def test_switch_sums_exact_on_a_cfg4_table(map_mode):
     # rows, which spec_elect caps at one copy
     pci = (tabs.trow[:, 2].numpy() & reference.FLAG_MAP_PCI) != 0
     assert pci[(gpu_uk != 0).any(axis=(1, 2))].all()
+
+
+def test_rank_sweep_covers_the_regimes():
+    """RANK_SWEEP reaches each regime of the rank kernels' shared core
+    (kernels/rank_select.cuh): both sides of the whole-row sort's limit
+    (N = 1,024 and 1,025; the merge at M = 1,025), a whole row too wide
+    for 32-bit words, keys equal to the
+    threshold past one 1,024-key chunk, R = 2,048 at N = 16,384, a list
+    sorted in shared memory and one past it (in the output rows, sorted
+    there and in registers), a tail past shared memory, and every type
+    row padding in the wide regime."""
+    import re
+    from pathlib import Path
+
+    header = (Path(sweep.__file__).parent / "rank_select.cuh").read_text()
+    const = {m.group(1): m.group(2) for m in re.finditer(
+        r"constexpr (?:int|size_t) (\w+) = ([^;]+);", header)}
+    assert int(const["WHOLE_MAX"]) == sweep.RANK_WHOLE_MAX
+    assert const["REG_SORT_MAX"] == "WIDE_THREADS * WIDE_PER"
+    assert int(const["WIDE_THREADS"]) * int(const["WIDE_PER"]) == sweep.RANK_REG_SORT_MAX
+    assert const["LIST_BYTES"] == "128 * 1024"
+    assert sweep.RANK_LIST_BYTES == 128 * 1024
+    rows = sweep.RANK_SWEEP
+    assert any(r[1] == 1024 for r in rows) and any(r[1] == 1025 for r in rows)
+    assert (8, 16384, 2, 2048, 4, 0, "sparse") in rows
+    assert any(r[1] > 1024 and r[-1] == "zero" and r[4] > 1 for r in rows)
+    # the tail's positions past shared memory (a list region of 64 KB and
+    # 4 R bytes of positions over the wide block's 200 KB)
+    assert any(r[1] > 1024 and 64 * 1024 + 4 * r[3] > 200 * 1024 for r in rows)
+    seen = set()
+    for i, r in enumerate(rows):
+        c = sweep.rank_case(i, *r)
+        for what, keys, R in (("top", c["planes"][0], c["R"]),
+                              ("merge", c["cand"][0], c["merge_R"])):
+            n = keys.shape[1]
+            if n == 1025:
+                seen.add("n=1025" if what == "top" else "merge M=1025")
+            for row in keys:
+                order = np.sort(row.astype(np.int64))[::-1]
+                thr = order[R - 1]
+                k_eq = R - int((row > thr).sum())
+                seen.add(sweep.rank_path(n, R, int((row > thr).sum())))
+                P = 1 << max(n - 1, 0).bit_length()
+                span = int(row.max()) - int(row.min())
+                if n <= 1024 and span >> (32 - P.bit_length() + 1):
+                    seen.add("whole 64-bit words")
+                if n > 1024 and k_eq > 1024:
+                    seen.add("k_eq>1024")
+    assert {"n=1025", "merge M=1025", "k_eq>1024", "whole", "whole 64-bit words", "wide none",
+            "wide registers", "wide shared", "wide rows registers",
+            "wide rows memory"} <= seen, seen
