@@ -148,7 +148,8 @@ Phases (one line each; the last line is the contract line):
    with the start-up steps read from its log;
 13. the node mesh on the card (nhd_tpu_torch/parallel/; every shard on
    ``cuda:0``, so this is more launches of the same kernels, never a
-   multi-GPU speed): (a) the three solve kernels on each shard of an
+   multi-GPU speed; the megaround of one device's shards is one graph):
+   (a) the three solve kernels on each shard of an
    8-way mesh of cfg4's resident state (128 rows each) against their
    plain versions, solve_planes with its shard's ``node_base`` also
    against the unsharded planes' columns and, at ``node_base`` 0, its
@@ -161,9 +162,11 @@ Phases (one line each; the last line is the contract line):
    speculative and classic (warm, then counted): every pod
    placed as the single-device card run and the CPU run of phases 4 and
    6, the same rounds and megaround iterations, wall and launches
-   beside one card's; then every claim-kernel call of the mesh
-   megaround once more (not counted) against its plain version,
-   ``spec_elect`` and ``spec_apply`` at a shard's shapes and
+   beside one card's; the speculative round 0 one graph replay over the
+   shards (one ``megaround_graph``, 1 + iterations of ``spec_gate``, no
+   pinned status pull); then every claim-kernel and gate call of the
+   mesh megaround's fixed trip once more (not counted) against its plain
+   version, ``spec_elect`` and ``spec_apply`` at a shard's shapes,
    ``spec_fill`` over the joined plan, the first of each timed beside
    its bound and empty launch; (d) the port's cfg6 probe
    (``parallel/spmd_bench.run_probe(4096, 1024, 8)``: parity, churn rows
@@ -174,7 +177,15 @@ Phases (one line each; the last line is the contract line):
    CUDA context on ``cuda:0``, one gloo group over a FileStore
    (``chip_smoke.mesh_child``): the global sharded solve over 2 x 4
    shards equal to the one-process mesh and to one device, and each
-   rank's region of a 16-node federation placed as on the CPU;
+   rank's region of a 16-node federation placed as on the CPU; (g) the
+   mesh's megaround graph from the encoded state of cfg4 over 4 shards
+   and of cfg6 over 8 (``chip_smoke.mesh_graph``): the graph, its fixed
+   trip, its host loop, the plain versions on the card and the graph's
+   loop on the CPU's shards bit for bit; its WHILE node's passes counted
+   on the card; a pass's launches; the host loop, the graph (live and
+   with no need) and one card's graph in turns; the replay alone, live
+   and with no need; a dispatch's host parts; then the process's graph
+   cache (entries, captures, so an eviction shows);
 14. the port's nhdsan and nhdrace on the card, in a fresh process that
    installs the deadlock sanitizer before any port module builds a lock
    (``chip_smoke.race_child``; its log in chiprun_out/race-child.log):
@@ -211,7 +222,7 @@ Phases (one line each; the last line is the contract line):
    9-14 (counts set to 0 just before each counted run and read just
    after; a megaround graph replay adds what its capture recorded;
    phase 10's and the subprocesses of 12 and 13 are those processes'
-   own, from start to exit; 13's (a) and (b) are comparisons, not
+   own, from start to exit; 13's (a), (b) and (g) are comparisons, not
    counted; 14's are its child's (a) and (b) runs), its time, its plain
    version's time and its bound — the solve kernels and rank_top at the
    cfg4 G=2 bucket, rank_merge over its 4 shards, the claim kernels and
@@ -306,6 +317,9 @@ MESH_SHARDS = (2, 4, 8)
 MESH_BATCH_SHARDS = 4
 MESH_R = 512
 CFG6 = (4096, 1024, 8, 4)
+#: cfg6's groups and its pods, cycled from a catalog of 256 (the probe's,
+#: parallel/spmd_bench.py)
+CFG6_GROUPS = ["default", "edge"]
 MESH_RANKS, MESH_RANK_SHARDS = 2, 4
 #: phase 14, the sanitized legs: phase 11's cells under nhdsan and
 #: nhdrace (the reference's device-chaos posture, Makefile:198), the
@@ -324,14 +338,13 @@ SNAPS = {}
 PLAIN_REPLAYS = {}
 #: phase 15: replays timed per cell, and the dead-iteration probe's
 GRAPH_TIMED = 20
-#: the kernels of a mesh's path: its megaround is the host loop, which
-#: opens no iteration with spec_gate
-MESH_PATH = ("nic_node_masks", "nic_any_first", "solve_planes",
-             "spec_elect", "spec_fill", "spec_apply")
-#: the kernels of a speculative batch on one device: the solve kernels,
-#: the claim kernels and spec_gate (the rank kernels run only in the
-#: classic rounds after the megaround, where there are any)
-ONE_DEVICE_PATH = MESH_PATH + ("spec_gate",)
+#: the kernels of a speculative batch on one device, and on a mesh of
+#: one device's shards (one graph replay of the same body over the
+#: shards): the solve kernels, the claim kernels and spec_gate (the rank
+#: kernels run only in the classic rounds after the megaround, where
+#: there are any)
+SPEC_PATH = ("nic_node_masks", "nic_any_first", "solve_planes",
+             "spec_elect", "spec_fill", "spec_apply", "spec_gate")
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_JOURNAL = os.path.join(ROOT, "tests", "fixtures", "journal",
                               "golden_churn.journal.jsonl")
@@ -1436,7 +1449,7 @@ def run_cell(torch, name, cluster_fn, report, launches_total, *, speculative):
     # a classic round followed it (cfg4 and cfg3 place or certify every
     # pod in the megaround); the classic path: the solve kernels and
     # rank_top in every round
-    require_launched(name, launches, ONE_DEVICE_PATH if speculative else
+    require_launched(name, launches, SPEC_PATH if speculative else
                      kernels.SOLVE_KERNELS + ("rank_top",))
     # one rank_top a classic dispatch, and no merge on one device
     if (launches["rank_top"], launches["rank_merge"]) != (launches[RANKED], 0):
@@ -1607,7 +1620,7 @@ def daemon_phase(torch, report, launches_total, smi):
                for q in (0.5, 0.99)}
     # speculative batches; rank_top where a batch's megaround left pods
     # to a classic round
-    require_launched("daemon", launches, ONE_DEVICE_PATH)
+    require_launched("daemon", launches, SPEC_PATH)
     add_launches(launches_total, launches)
     now = API_COUNTERS.snapshot()
     moved = {k: now[k] - base[k] for k in (
@@ -1779,7 +1792,7 @@ def stream_phase(torch, report, launches_total, smi):
 
     def launched_all(label, launches):
         # speculative tiles; rank_top where a tile took a classic round
-        require_launched(label, launches, ONE_DEVICE_PATH)
+        require_launched(label, launches, SPEC_PATH)
         add_launches(launches_total, launches)
 
     def summary(label, res, stats, wall, launches):
@@ -2617,7 +2630,7 @@ def cli_phase(torch, report, launches_total, smi):
         # speculative batches (one graph replay each, no mesh); rank_top
         # where a batch's megaround left pods to a classic round
         require_launched("cli cuda", got["launches"],
-                         ONE_DEVICE_PATH + (kernels.GRAPH,))
+                         SPEC_PATH + (kernels.GRAPH,))
         add_launches(launches_total, got["launches"])
         cpu, cpu_outcome = run_cli("cpu", CLI_NODES, CLI_PODS, work, "cpu")
         log(f"cli cpu: up {cpu['ready_s']:.2f}s, bound {cpu['bound']}/"
@@ -2633,7 +2646,7 @@ def cli_phase(torch, report, launches_total, smi):
         # same batches; the golden journal on both
         sig, wall, launches = replay(torch, "cli journal", got["journal"],
                                      card(torch), counted=True)
-        require_launched("cli replay", launches, ONE_DEVICE_PATH)
+        require_launched("cli replay", launches, SPEC_PATH)
         cpu_sig, cpu_wall, _ = replay(torch, "cli journal", got["journal"], "cpu")
         if sig != cpu_sig:
             fail("cli replay: decisions differ between cuda and cpu")
@@ -2785,7 +2798,7 @@ def chaos_phase(torch, report, launches_total, smi):
                  "guard off")
     # speculative steps (the storm runs with NHD_MESH=off); rank_top where
     # a step's megaround left pods, or a faulted batch retried, classic
-    require_launched("chaos", phase, ONE_DEVICE_PATH)
+    require_launched("chaos", phase, SPEC_PATH)
     add_launches(launches_total, phase)
     log(f"chaos: faults by site over the matrix {sites_total}, bit flips "
         f"{flips_total}; launches in the phase {phase}; {smi}")
@@ -2992,7 +3005,7 @@ def prewarm_phase(torch, report, launches_total, smi):
                 f"{got['first_bind_s']:.3f}s after the first pod; {smi}")
     # speculative binds and prewarms on one card; rank_top where a bind
     # took a classic round or a prewarm warmed a ranked key
-    require_launched("prewarm", phase, ONE_DEVICE_PATH)
+    require_launched("prewarm", phase, SPEC_PATH)
     add_launches(launches_total, phase)
     out.update(cold=cold, restart=restart, prewarmed=warm, damaged=fixed,
                zero_recompile=z, cli=starts, launches=phase)
@@ -3160,14 +3173,39 @@ def mesh_rank_check(torch, label, cluster, buckets, mesh):
                  f"device (G={G})")
 
 
+@contextlib.contextmanager
+def status_pulls():
+    """While inside, every ``HostPull`` the megaround module makes (the
+    host loop's pinned pull of the status, one an iteration) appends
+    one to the yielded list."""
+    from nhd_tpu_torch.solver import speculate
+
+    pulls = []
+    pull = speculate.HostPull
+
+    class Counted(pull):
+        def __init__(self, *a, **kw):
+            pulls.append(1)
+            super().__init__(*a, **kw)
+
+    speculate.HostPull = Counted
+    try:
+        yield pulls
+    finally:
+        speculate.HostPull = pull
+
+
 def mesh_batch(torch, label, mesh, items, speculative):
     """cfg4's batch through ``BatchScheduler(mesh=)`` on the card, the
     card's default (speculative) or classic: a warm schedule, then one
     counted. Fails unless a dispatch ran on the mesh and every kernel of
     the path launched: classic, the solve kernels on each shard, rank_top
-    on each and rank_merge; speculative, the mesh's megaround (its host
-    loop: no spec_gate) and the rank kernels if a classic round followed.
-    Returns (scheduler, nodes, results, stats, wall, launches)."""
+    on each and rank_merge; speculative, the megaround's kernels and the
+    rank kernels if a classic round followed, with round 0 one graph
+    replay over the shards (one ``megaround_graph``, 1 + iterations of
+    ``spec_gate``, one ``spec_fill`` and S of ``spec_elect`` and
+    ``spec_apply`` a pass, no status pull). Returns (scheduler, nodes,
+    results, stats, wall, launches)."""
     from nhd_tpu_torch import kernels
     from nhd_tpu_torch.obs.jitstats import JIT_STATS
     from nhd_tpu_torch.sim.workloads import cap_cluster
@@ -3182,13 +3220,25 @@ def mesh_batch(torch, label, mesh, items, speculative):
         for n in nodes.values():
             n.reset_resources()
         JIT_STATS.reset()
-        (results, stats), wall, launches = counted(
-            torch, lambda: sched.schedule(nodes, items, now=0.0))
+        with status_pulls() as pulls:
+            (results, stats), wall, launches = counted(
+                torch, lambda: sched.schedule(nodes, items, now=0.0))
     shapes = JIT_STATS.snapshot()["shapes"]
     if not any(k.endswith(f"_M{mesh_desc(mesh)}") for k in shapes):
         fail(f"{label}: no dispatch ran on the mesh: {sorted(shapes)}")
-    path = MESH_PATH if speculative else kernels.SOLVE_KERNELS + kernels.RANK_KERNELS
+    path = SPEC_PATH if speculative else kernels.SOLVE_KERNELS + kernels.RANK_KERNELS
     require_launched(label, launches, path, mesh=True)
+    spec_it = stats.counters.get("spec_iterations", 0)
+    if speculative:
+        want = {kernels.GRAPH: 1, kernels.GATE_KERNEL: 1 + spec_it,
+                "spec_fill": spec_it, "spec_elect": mesh.size * spec_it,
+                "spec_apply": mesh.size * spec_it}
+        got = {k: launches[k] for k in want}
+        if got != want or pulls or not spec_it:
+            fail(f"{label}: round 0 was not one graph replay of {spec_it} passes "
+                 f"over {mesh.size} shards: {got}, {len(pulls)} status pulls")
+    elif launches[kernels.GRAPH] or spec_it:
+        fail(f"{label}: NHD_TPU_SPECULATE=0 ran the megaround")
     return sched, nodes, results, stats, wall, launches
 
 
@@ -3222,13 +3272,13 @@ def mesh_children(label, world):
 
 
 def mesh_phase(torch, report, launches_total, smi):
-    """Phase 13: the node mesh on the card (module docstring, parts a-f)."""
+    """Phase 13: the node mesh on the card (module docstring, parts a-g)."""
     from nhd_tpu_torch import kernels
     from nhd_tpu_torch.obs.jitstats import JIT_STATS
     from nhd_tpu_torch.parallel.sharding import make_mesh
     from nhd_tpu_torch.parallel.spmd_bench import run_probe
     from nhd_tpu_torch.sim.workloads import cap_cluster, workload_mix
-    from nhd_tpu_torch.solver import BatchItem, BatchScheduler, guard
+    from nhd_tpu_torch.solver import BatchItem, BatchScheduler, guard, speculate
     from nhd_tpu_torch.solver import kernel as kernel_mod
     from nhd_tpu_torch.solver.encode import encode_cluster, encode_pods
     from nhd_tpu_torch.solver.guard import GUARD, RUNG_NAMES, RUNG_SINGLE
@@ -3286,22 +3336,29 @@ def mesh_phase(torch, report, launches_total, smi):
                           "megaround_ms": stats.phases.get("spec_dispatch", 0.0) * 1e3}
         log(f"{label}: placed {placed}/{len(items)} as one card and as the CPU "
             f"(node, mapping, NICs); rounds={stats.rounds} megaround iterations="
-            f"{spec_it} wall={wall:.4f}s (one card: {cell['wall_s']:.4f}s) "
+            f"{spec_it} megaround={out['c'][name]['megaround_ms']:.3f}ms (one card: "
+            f"{cell['megaround_ms']:.3f}ms) wall={wall:.4f}s (one card: "
+            f"{cell['wall_s']:.4f}s) "
             f"launches={launches} (one card: {cell['launches']})")
         if speculative:
-            # every claim-kernel call of the mesh megaround once more (not
-            # counted): each against its plain version, spec_elect and
-            # spec_apply at a shard's shapes, spec_fill over the joined
-            # plan; the first call of each timed (shard 0: all rows real)
+            # every claim-kernel and gate call of the mesh megaround's
+            # fixed trip once more (not counted): each against its plain
+            # version, spec_elect and spec_apply at a shard's shapes,
+            # spec_fill over the joined plan; the first call of each timed
+            # (shard 0: all rows real)
             for n in nodes.values():
                 n.reset_resources()
             calls = []
-            with env(NHD_TPU_SPECULATE=None), spy_claims(calls):
-                again, _ = sched.schedule(nodes, items, now=0.0)
+            speculate.REPLAY = False  # a replay runs no Python to spy on
+            try:
+                with env(NHD_TPU_SPECULATE=None), spy_claims(calls):
+                    again, _ = sched.schedule(nodes, items, now=0.0)
+            finally:
+                speculate.REPLAY = True
             same_placements(label, again, results, "its counted run")
             floors = build_floors()
-            shard = [c for c in calls if c[0] != "spec_fill"]
-            joined = [c for c in calls if c[0] == "spec_fill"]
+            shard = [c for c in calls if c[0] in ("spec_elect", "spec_apply")]
+            joined = [c for c in calls if c[0] in ("spec_fill", "spec_gate")]
             out["claims"] = {
                 "shard": check_claims(torch, f"{label} shard 0", shard, report,
                                       {"N": min(CELL_NODES, kernel_mod.pad_nodes(
@@ -3312,9 +3369,9 @@ def mesh_phase(torch, report, launches_total, smi):
                                        report, {"N": CELL_NODES}, timed=True,
                                        floors=floors),
             }
-            log(f"{label}: all {len(calls)} claim-kernel calls of the mesh "
-                f"megaround exact ({len(shard)} at shard shapes, {len(joined)} "
-                "over the joined plan)")
+            log(f"{label}: all {len(calls)} claim-kernel and gate calls of the "
+                f"mesh megaround's fixed trip exact ({len(shard)} at shard shapes, "
+                f"{len(joined)} over the joined plan or the shared status)")
 
     # (d) the port's cfg6 probe
     t["d"] = time.perf_counter()
@@ -3385,20 +3442,276 @@ def mesh_phase(torch, report, launches_total, smi):
         f"device (solve {[round(c['solve_s'], 3) for c in children]} s); each "
         f"region placed as on the CPU, an exact cover")
 
+    # (g) the mesh's megaround graph alone, at cfg4 over 4 shards and cfg6
+    # over 8, against its host loop, its fixed trip, the plain versions
+    # and the CPU, with its replay timed
+    t["g"] = time.perf_counter()
+    cfg6 = encode_cluster(cap_cluster(CFG6[1], CFG6_GROUPS), now=0.0)
+    cfg6.busy[:] = False
+    catalog = workload_mix(256, CFG6_GROUPS)
+    out["g"] = {
+        f"cfg4:10kx1k-cap over {MESH_BATCH_SHARDS}": mesh_graph(
+            torch, f"mesh (g) cfg4 over {MESH_BATCH_SHARDS} shards", cluster,
+            list(buckets.values()), MESH_BATCH_SHARDS, smi),
+        f"cfg6:4kx1k-spmd over {CFG6[2]}": mesh_graph(
+            torch, f"mesh (g) cfg6 over {CFG6[2]} shards", cfg6,
+            list(encode_pods([catalog[i % len(catalog)] for i in range(CFG6[0])],
+                             cfg6.interner).values()), CFG6[2], smi),
+    }
+    stats = speculate.graph_stats()
+    out["graphs"] = stats
+    log(f"mesh: the process's megaround graphs after the phase: {stats['entries']} "
+        f"entries (at most {speculate.MegaroundCache.MAX_ENTRIES}), "
+        f"{stats['captures']} captured, {stats['dispatches']} dispatches, "
+        f"{stats['replays']} replays")
+
     t["end"] = time.perf_counter()
-    # the mesh's megaround is the host loop: no spec_gate on its path; (c)'s
-    # classic batch ranks on every shard and merges
-    for k in MESH_PATH + kernels.RANK_KERNELS:
+    # the mesh's megaround is one graph over the shards, spec_gate in it;
+    # (c)'s classic batch ranks on every shard and merges
+    for k in SPEC_PATH + kernels.RANK_KERNELS:
         if phase[k] == 0:
             fail(f"mesh: kernel {k} was never launched in the phase")
     add_launches(launches_total, phase)
-    steps = "abcdef"
+    steps = "abcdefg"
     out["seconds"] = {p: (t[steps[i + 1]] if i + 1 < len(steps) else t["end"]) - t[p]
                       for i, p in enumerate(steps)}
     out["launches"] = phase
     log(f"mesh: phase 13 in {t['end'] - t['a']:.1f}s of command time "
         f"({ {k: round(v, 1) for k, v in out['seconds'].items()} }); launches in "
         f"the phase {phase}; every number: {smi}; one card, so no multi-GPU speed")
+
+
+def mesh_graph(torch, label, cluster, bucket_pods, S, smi):
+    """Phase 13 (g) at one cell: the megaround of *cluster*'s encoded
+    state and *bucket_pods*' whole need over S shards of the card, as the
+    mesh's graph (a cache of its own, so its first dispatch captures),
+    its fixed trip (``speculate.REPLAY`` off), its host loop, the host
+    loop through the plain versions on the card and the graph's loop on S
+    shards of the CPU: claims, counts, need left, iterations and every
+    shard's node state bit for bit. Then the passes the WHILE node runs,
+    counted on the card (``passes_of``): the iterations live, none with
+    no need; the body's tally (S of each solve kernel a bucket, of
+    spec_elect and spec_apply, one spec_fill and one spec_gate); the
+    host loop, the graph, the graph with no need and one card's graph of
+    the same cell in turns from the starting state (``GRAPH_TIMED``
+    each: host wall per dispatch, wall to its end, CUDA-event device
+    time); the replay alone, live and with no need (medians of
+    ``GRAPH_TIMED``); and the dispatch's host parts. Returns the cell's
+    numbers."""
+    import numpy as np
+
+    from nhd_tpu_torch import kernels
+    from nhd_tpu_torch.parallel.sharding import make_mesh
+    from nhd_tpu_torch.solver import speculate
+    from nhd_tpu_torch.solver.device_state import DeviceClusterState
+    from nhd_tpu_torch.solver.kernel import _ARG_ORDER, _MUTABLE, _pad_pow2
+    from nhd_tpu_torch.solver.speculate import MegaroundCache, run_megaround_shards
+
+    dev = card(torch)
+    U, K, iters = cluster.U, cluster.K, speculate.spec_iters()
+    needs = [np.bincount(p.pod_type, minlength=_pad_pow2(p.n_types)).astype(np.int32)
+             for p in bucket_pods]
+    zero = [np.zeros_like(n) for n in needs]
+    meshes = {"cuda": make_mesh(n_shards=S, device=dev.type),
+              "cpu": make_mesh([torch.device("cpu")] * S)}
+    caches = {k: MegaroundCache() for k in ("graph", "fixed trip", "CPU", "one card")}
+
+    def fresh(kind="cuda"):
+        """The encoded state, resident anew: on the card's S shards, on
+        the CPU's, or on the card unsharded (``one``)."""
+        if kind == "one":
+            return DeviceClusterState(cluster, dev)
+        return DeviceClusterState(cluster, dev if kind == "cuda" else "cpu",
+                                  meshes[kind])
+
+    def loop(state, need=needs):
+        tensors = [state.shard_pod_tensors(p) for p in bucket_pods]
+        return run_megaround_shards(
+            state.shards, bucket_pods, [[pt[s] for pt in tensors] for s in range(S)],
+            need, U, K, iters, False)
+
+    def graph(state, need=needs, cache=caches["graph"]):
+        return cache.run(state.shards, bucket_pods, need, U, K, iters, False)
+
+    def fixed(state):
+        speculate.REPLAY = False
+        try:
+            return graph(state, cache=caches["fixed trip"])
+        finally:
+            speculate.REPLAY = True
+
+    def plain(state):
+        with plain_on_card():
+            return loop(state)
+
+    runs = {}
+    for kind, fn, where in (("host loop", loop, "cuda"), ("graph", graph, "cuda"),
+                            ("fixed trip", fixed, "cuda"),
+                            ("plain on the card", plain, "cuda"),
+                            ("CPU replay", lambda st: graph(st, cache=caches["CPU"]),
+                             "cpu")):
+        state = fresh(where)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(state)
+        torch.cuda.synchronize()
+        runs[kind] = ([t.cpu() for t in res]
+                      + [sh[n].cpu() for sh in state.shards for n in _MUTABLE],
+                      time.perf_counter() - t0)
+    want = runs["host loop"][0]
+    for kind, (got, _s) in runs.items():
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            fail(f"{label}: the host loop and the {kind} differ")
+    its = int(want[3])
+    (entry,) = caches["graph"].entries()
+    if entry.graph is None or len(entry.shards) != S:
+        fail(f"{label}: the dispatch captured no graph over {S} shards")
+    if caches["fixed trip"].entries()[0].graph is not None:
+        fail(f"{label}: REPLAY off captured a graph")
+    B = len(bucket_pods)
+    body = {k: n for k, n in entry.body_tally.items() if n}
+    want_body = {**{k: S * B for k in kernels.SOLVE_KERNELS}, "spec_elect": S,
+                 "spec_apply": S, "spec_fill": 1, "spec_gate": 1}
+    if body != want_body or {k: n for k, n in entry.tally.items() if n} != {
+            "spec_gate": 1}:
+        fail(f"{label}: a pass records {body} after {entry.tally}, expected "
+             f"{want_body} after one spec_gate")
+
+    # the passes the WHILE node runs, counted on the card by a body with
+    # one more op: one a live iteration, none without need
+    passes = graph_passes(torch, label,
+                          lambda need, cache: graph(fresh(), need, cache),
+                          needs, zero, its)
+
+    # in turns from the starting state: the mesh's host loop, its graph
+    # live and with no need, and one card's graph of the same cell
+    states = {"host loop": fresh(), "graph": fresh(), "one card": fresh("one")}
+    start = {k: [{n: t.clone() for n, t in sh.items()} for sh in st.shards]
+             for k, st in states.items()}
+
+    def reset(kind):
+        which = {"graph, no need": "graph", "one card's graph": "one card"}.get(kind, kind)
+        for sh, first in zip(states[which].shards, start[which]):
+            for n in _MUTABLE:
+                sh[n].copy_(first[n])
+
+    med = in_turns(torch, (
+        ("host loop", lambda: loop(states["host loop"])),
+        ("graph", lambda: graph(states["graph"])),
+        ("graph, no need", lambda: graph(states["graph"], zero)),
+        ("one card's graph", lambda: graph(states["one card"],
+                                           cache=caches["one card"]))), reset)
+    parts = {k: round(v / entry.dispatches * 1e3, 4) for k, v in entry.host_s.items()}
+
+    # the replay alone on the card, its buffers restored before each
+    # launch, live and with no need
+    Ns = int(start["graph"][0]["hp_free"].shape[0])
+    replay_ms, _restore = replay_alone(
+        torch, entry, bucket_pods, needs, zero, U, K,
+        {n: torch.cat([sh[n] for sh in start["graph"]]) for n in _ARG_ORDER},
+        n=GRAPH_TIMED)
+    per_pass = (replay_ms["live"] - replay_ms["dead"]) / max(its, 1)
+    cell = {"shards": S, "node_rows": S * Ns, "iterations": its, "passes": passes,
+            "capture_s": entry.capture_s, "first_s": {k: v[1] for k, v in runs.items()},
+            "medians": med, "replay_device_ms": replay_ms, "ms_per_pass": per_pass,
+            "host_parts_ms": parts, "tally": entry.tally, "body_tally": body}
+    log(f"{label} (Np={S * Ns}, {S} x {Ns} rows): graph == fixed trip == host loop "
+        f"== plain on the card == the CPU's {S} shards (claims, counts, need left, "
+        f"{its} iterations, node state); the node ran {passes['live'][0]} passes "
+        f"counted on the card ({passes['no need'][0]} with no need); a pass "
+        f"records {body}; capture {entry.capture_s * 1e3:.2f} ms (first "
+        f"dispatches, s: { {k: round(v, 4) for k, v in cell['first_s'].items()} }); "
+        f"medians of {GRAPH_TIMED}: "
+        + "; ".join(f"{k} host {m['host_ms']:.3f} ms, wall {m['wall_ms']:.3f} ms, "
+                    f"device {m['device_ms']:.4f} ms" for k, m in med.items())
+        + f"; the replay alone on the card {replay_ms['live']:.4f} ms, with no need "
+        f"{replay_ms['dead']:.4f} ms, so a pass {per_pass:.4f} ms; a dispatch's "
+        f"host parts (mean ms) {parts}; {smi}")
+    return cell
+
+
+#: mesh_dispatch_child: schedules and megaround dispatches timed a tree
+MESH_DISPATCH_RUNS = 20
+
+
+def mesh_dispatch_child(root=ROOT):
+    """The mesh's megaround dispatch on the card through the port in
+    *root* (this checkout, or an earlier commit unpacked beside it, so
+    that two versions are timed in one call), in a fresh process
+    (``python -c``): cfg4:10kx1k-cap through ``BatchScheduler(mesh=4
+    shards)`` as phase 13 (c) runs it, a warm schedule and then
+    ``MESH_DISPATCH_RUNS`` more, each one's ``spec_dispatch`` and wall;
+    then ``DeviceClusterState.megaround`` alone at cfg4 over 4 shards and
+    cfg6 over 8, from the encoded state, warm and then
+    ``MESH_DISPATCH_RUNS`` times (host time to its return, wall to its
+    end). Prints one JSON line of medians."""
+    sys.path.insert(0, os.path.abspath(root))
+    import numpy as np
+    import torch
+
+    import nhd_tpu_torch
+    from nhd_tpu_torch.parallel.sharding import make_mesh
+    from nhd_tpu_torch.sim.workloads import cap_cluster, workload_mix
+    from nhd_tpu_torch.solver import BatchItem, BatchScheduler
+    from nhd_tpu_torch.solver.device_state import DeviceClusterState
+    from nhd_tpu_torch.solver.encode import encode_cluster, encode_pods
+    from nhd_tpu_torch.solver.kernel import _MUTABLE, _pad_pow2
+
+    dev = card(torch)
+    out = {"root": os.path.dirname(os.path.abspath(nhd_tpu_torch.__file__)),
+           "smi": smi_line()}
+    mesh = make_mesh(n_shards=MESH_BATCH_SHARDS, device=dev.type)
+    items = [BatchItem(("ns", f"p{i}"), r)
+             for i, r in enumerate(workload_mix(CELL_PODS, GROUPS))]
+    nodes = cap_cluster(CELL_NODES, GROUPS)
+    sched = BatchScheduler(device=dev, respect_busy=False, register_pods=False,
+                           mesh=mesh)
+    spec, wall = [], []
+    for r in range(MESH_DISPATCH_RUNS + 1):
+        for n in nodes.values():
+            n.reset_resources()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _res, stats = sched.schedule(nodes, items, now=0.0)
+        torch.cuda.synchronize()
+        if r:  # the first warms
+            wall.append((time.perf_counter() - t0) * 1e3)
+            spec.append(stats.phases.get("spec_dispatch", 0.0) * 1e3)
+    out["cfg4 batch over 4"] = {"spec_dispatch_ms": statistics.median(spec),
+                                "wall_ms": statistics.median(wall),
+                                "spread_ms": [min(spec), max(spec)]}
+    cfg6 = encode_cluster(cap_cluster(CFG6[1], CFG6_GROUPS), now=0.0)
+    catalog = workload_mix(256, CFG6_GROUPS)
+    cfg4 = encode_cluster(cap_cluster(CELL_NODES, GROUPS), now=0.0)
+    for label, cluster, reqs, S in (
+            ("cfg4 megaround over 4", cfg4, workload_mix(CELL_PODS, GROUPS),
+             MESH_BATCH_SHARDS),
+            ("cfg6 megaround over 8", cfg6,
+             [catalog[i % len(catalog)] for i in range(CFG6[0])], CFG6[2])):
+        cluster.busy[:] = False
+        buckets = list(encode_pods(reqs, cluster.interner).values())
+        needs = [np.bincount(p.pod_type, minlength=_pad_pow2(p.n_types)).astype(np.int32)
+                 for p in buckets]
+        state = DeviceClusterState(cluster, dev, make_mesh(n_shards=S, device=dev.type))
+        start = [{n: sh[n].clone() for n in _MUTABLE} for sh in state.shards]
+        host, wall = [], []
+        for r in range(MESH_DISPATCH_RUNS + 1):
+            for sh, first in zip(state.shards, start):
+                for n in _MUTABLE:
+                    sh[n].copy_(first[n])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = state.megaround(buckets, needs, False)
+            t1 = time.perf_counter()
+            its = int(res[3])
+            torch.cuda.synchronize()
+            if r:
+                host.append((t1 - t0) * 1e3)
+                wall.append((time.perf_counter() - t0) * 1e3)
+        out[label] = {"iterations": its, "host_ms": statistics.median(host),
+                      "wall_ms": statistics.median(wall)}
+    print(json.dumps(out), flush=True)
+    return 0
 
 
 def race_child(workdir):
@@ -3517,7 +3830,7 @@ def race_phase(torch, report, launches_total, smi):
     def launched_all(label, launches):
         # phase 11's storms and phase 9's tiles: speculative on one card;
         # rank_top where a classic round ran
-        require_launched(label, launches, ONE_DEVICE_PATH)
+        require_launched(label, launches, SPEC_PATH)
         for k in phase:
             phase[k] += launches.get(k, 0)
 
@@ -3623,6 +3936,80 @@ def passes_of(torch, dev):
         speculate.megaround_iteration = iteration
 
 
+def graph_passes(torch, label, dispatch, needs, zero, its):
+    """The passes a WHILE node runs, counted on the card by a body with
+    one more op (``passes_of``, in a fresh cache's graph): *dispatch(need,
+    cache)* from the starting state, warm, live and with no need. Fails
+    unless the node ran one pass a live iteration (*its*) and none
+    without need; returns {kind: (passes counted, iteration word)}."""
+    from nhd_tpu_torch.solver.speculate import MegaroundCache
+
+    passes = {}
+    with passes_of(torch, card(torch)) as counter:
+        counting = MegaroundCache()
+        for kind, need in (("warm", zero), ("live", needs), ("no need", zero)):
+            torch.cuda.synchronize()
+            counter.zero_()
+            res = dispatch(need, counting)
+            torch.cuda.synchronize()
+            passes[kind] = (int(counter), int(res[3]))
+    if passes["live"] != (its, its) or passes["no need"] != (0, 0):
+        fail(f"{label}: the WHILE node ran passes (counted, iteration word) "
+             f"{passes}, expected ({its}, {its}) live and (0, 0) with no need")
+    return passes
+
+
+def in_turns(torch, plan, restore):
+    """Each dispatch of *plan* ((kind, call) pairs) ``GRAPH_TIMED`` times,
+    in turns whose order reverses every other round, *restore(kind)*
+    before each: by kind, the medians of the host wall to the call's
+    return, the wall to its end and its CUDA-event device time."""
+    times = {k: {"host_ms": [], "wall_ms": [], "device_ms": []} for k, _ in plan}
+    for r in range(GRAPH_TIMED):
+        for kind, call in (plan if r % 2 == 0 else plan[::-1]):
+            restore(kind)
+            torch.cuda.synchronize()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            s.record()
+            call()
+            e.record()
+            host = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            times[kind]["host_ms"].append(host * 1e3)
+            times[kind]["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+            times[kind]["device_ms"].append(s.elapsed_time(e))
+    return {k: {m: statistics.median(v) for m, v in t.items()} for k, t in times.items()}
+
+
+def replay_alone(torch, entry, bucket_pods, needs, zero, U, K, start, n=N_TIMED):
+    """The replay of *entry*'s graph alone on the card, live and with no
+    need, *n* times each (``cuda_time_ms``), its buffers restored before
+    each launch: the table buffer filled for that need, the node copy
+    from *start* ([Np] tensors by name). Returns the median ms by kind
+    and the restore."""
+    from nhd_tpu_torch.solver import speculate
+    from nhd_tpu_torch.solver.kernel import _ARG_ORDER
+
+    Ns = int(start["hp_free"].shape[0]) // len(entry.shards)
+    shapes = speculate._shapes(bucket_pods)
+    tables = {}
+    for kind, need in (("live", needs), ("dead", zero)):
+        entry.buf.fill(speculate.trip_arrays(bucket_pods, need, shapes, U, K, Ns))
+        tables[kind] = entry.buf.dev.clone()
+    entry._digest = None  # filled by hand: the next dispatch rebuilds
+
+    def restore(kind):
+        entry.buf.dev.copy_(tables[kind])
+        for k in _ARG_ORDER:
+            entry.node[k].copy_(start[k])
+
+    replay = entry.loop if entry.graph is None else entry.graph.replay
+    return {kind: cuda_time_ms(torch, replay, n=n, prep=functools.partial(restore, kind))
+            for kind in ("live", "dead")}, restore
+
+
 def replay_kernels(torch, replay, prep):
     """One replay under torch.profiler (its buffers restored by *prep*
     first): the device kernels it records by name."""
@@ -3689,7 +4076,7 @@ def graph_phase(torch, report, smi):
     import numpy as np
 
     from nhd_tpu_torch.solver import speculate
-    from nhd_tpu_torch.solver.kernel import _ARG_ORDER, _MUTABLE, _pad_pow2, upload_pods
+    from nhd_tpu_torch.solver.kernel import _MUTABLE, _pad_pow2, upload_pods
     from nhd_tpu_torch.solver.speculate import (
         MegaroundCache,
         _shapes,
@@ -3717,12 +4104,12 @@ def graph_phase(torch, report, smi):
                                  respect_busy)
 
         def graph(node, need=needs, cache=cache):
-            return cache.run(node, bucket_pods, need, U, K, iters, respect_busy)
+            return cache.run([node], bucket_pods, need, U, K, iters, respect_busy)
 
         def fixed(node, need=needs):
             speculate.REPLAY = False
             try:
-                return fixed_cache.run(node, bucket_pods, need, U, K, iters,
+                return fixed_cache.run([node], bucket_pods, need, U, K, iters,
                                        respect_busy)
             finally:
                 speculate.REPLAY = True
@@ -3760,47 +4147,24 @@ def graph_phase(torch, report, smi):
 
         # the passes the WHILE node runs, counted on the card by a body
         # with one more op: one a live iteration, none without need
-        passes = {}
-        with passes_of(torch, dev) as counter:
-            counting = MegaroundCache()
-            for kind, need in (("warm", zero), ("live", needs), ("no need", zero)):
-                node = {k: v.clone() for k, v in start.items()}
-                torch.cuda.synchronize()
-                counter.zero_()
-                res = graph(node, need, counting)
-                torch.cuda.synchronize()
-                passes[kind] = (int(counter), int(res[3]))
-        if passes["live"] != (its, its) or passes["no need"] != (0, 0):
-            fail(f"graph {label}: the WHILE node ran passes (counted, iteration "
-                 f"word) {passes}, expected ({its}, {its}) live and (0, 0) "
-                 "with no need")
+        passes = graph_passes(
+            torch, f"graph {label}",
+            lambda need, cache: graph({k: v.clone() for k, v in start.items()},
+                                      need, cache), needs, zero, its)
 
         # the host loop against the graph, in turns from the start state:
         # host wall per dispatch (the loop's includes its per-iteration
         # pulls; the graph's is the enqueue) and device time by events
-        times = {k: {"host_ms": [], "wall_ms": [], "device_ms": []}
-                 for k in ("host loop", "graph", "graph, no need")}
-        plan = (("host loop", loop, needs), ("graph", graph, needs),
-                ("graph, no need", graph, zero))
-        for r in range(GRAPH_TIMED):
-            for kind, fn, need in (plan if r % 2 == 0 else plan[::-1]):
-                node = runs["graph" if fn is graph else "host loop"][2]
-                for k in _MUTABLE:
-                    node[k].copy_(start[k])
-                torch.cuda.synchronize()
-                s = torch.cuda.Event(enable_timing=True)
-                e = torch.cuda.Event(enable_timing=True)
-                t0 = time.perf_counter()
-                s.record()
-                fn(node, need)
-                e.record()
-                host = time.perf_counter() - t0
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-                times[kind]["host_ms"].append(host * 1e3)
-                times[kind]["wall_ms"].append(wall * 1e3)
-                times[kind]["device_ms"].append(s.elapsed_time(e))
-        med = {k: {m: statistics.median(v) for m, v in t.items()} for k, t in times.items()}
+        nodes = {"host loop": runs["host loop"][2], "graph": runs["graph"][2]}
+
+        def reset(kind):
+            for k in _MUTABLE:
+                nodes["host loop" if kind == "host loop" else "graph"][k].copy_(start[k])
+
+        med = in_turns(torch, (
+            ("host loop", lambda: loop(nodes["host loop"])),
+            ("graph", lambda: graph(nodes["graph"])),
+            ("graph, no need", lambda: graph(nodes["graph"], zero))), reset)
         # the replay alone, on the card: its buffers restored on the card
         # before each launch (cuda_time_ms), live and with no need; and
         # the host's parts of a dispatch
@@ -3811,20 +4175,8 @@ def graph_phase(torch, report, smi):
             t0 = time.perf_counter()
             live_arrays = trip_arrays(bucket_pods, needs, shapes, U, K, Np)
             host_ms["table build"].append((time.perf_counter() - t0) * 1e3)
-        tables = {}
-        for kind, need in (("live", needs), ("dead", zero)):
-            entry.buf.fill(trip_arrays(bucket_pods, need, shapes, U, K, Np))
-            tables[kind] = entry.buf.dev.clone()
-        entry._digest = None  # filled by hand: the next dispatch rebuilds
-
-        def restore(kind):
-            entry.buf.dev.copy_(tables[kind])
-            for k in _ARG_ORDER:
-                entry.node[k].copy_(start[k])
-
-        replay_ms = {kind: cuda_time_ms(torch, replay,
-                                        prep=functools.partial(restore, kind))
-                     for kind in ("live", "dead")}
+        replay_ms, restore = replay_alone(torch, entry, bucket_pods, needs, zero,
+                                          U, K, start)
         for _ in range(GRAPH_TIMED):
             restore("live")
             torch.cuda.synchronize()

@@ -511,41 +511,41 @@ def _warm_ranked(spec: dict, device, mesh=None) -> None:
 def _warm_megaround(spec: dict, device, mesh=None) -> None:
     """One dispatch of the claim loop at the bucket set's shapes: one
     pending pod of the first type row, on zero node state, so every
-    solve and claim kernel launches and nothing is claimed. On one
-    device that is the graph path: the key's graph captured into the
-    process's cache (``speculate.GRAPHS``) and replayed once over the
-    zero state, for both busy rules (the daemon respects the GPU busy
-    window, a bare batch need not), so the first batch of the key
-    replays it."""
+    solve and claim kernel launches and nothing is claimed. Where every
+    shard sits on one device (one shard without a mesh) that is the
+    graph path: the key's graph captured into the process's cache
+    (``speculate.GRAPHS``) and replayed once over the zero state, for
+    both busy rules (the daemon respects the GPU busy window, a bare
+    batch need not), so the first batch of the key replays it. A mesh
+    over several devices warms its host loop."""
     import numpy as np
 
     from nhd_tpu_torch.solver.kernel import _ARG_ORDER, upload_pods
     from nhd_tpu_torch.solver.speculate import (
         GRAPHS,
+        graph_serves,
         run_megaround_shards,
         spec_iters,
     )
 
     devices, shards = _shard_zeros(spec["node"], device, mesh)
-    bucket_pods, tensors, needs = [], [], []
+    shards = [dict(zip(_ARG_ORDER, node, strict=True)) for node in shards]
+    bucket_pods, needs = [], []
     for b in spec["buckets"]:
         pods, Tp = _zero_pods(b["G"], b["pod"], device)
         bucket_pods.append(pods)
-        tensors.append([upload_pods(pods, Tp, spec["U"], spec["K"], d)
-                        for d in devices])
         need = np.zeros(Tp, np.int32)
         need[0] = 1
         needs.append(need)
-    if mesh is None:
+    if graph_serves(devices):
         for respect_busy in (False, True):
-            GRAPHS.run(dict(zip(_ARG_ORDER, shards[0], strict=True)),
-                       bucket_pods, needs, spec["U"], spec["K"], spec_iters(),
-                       respect_busy)
+            GRAPHS.run(shards, bucket_pods, needs, spec["U"], spec["K"],
+                       spec_iters(), respect_busy)
         return
-    run_megaround_shards(
-        [dict(zip(_ARG_ORDER, node, strict=True)) for node in shards],
-        bucket_pods, [[pt[s] for pt in tensors] for s in range(len(shards))],
-        needs, spec["U"], spec["K"], spec_iters(), False)
+    tensors = [[upload_pods(pods, pods.n_types, spec["U"], spec["K"], d)
+                for pods in bucket_pods] for d in devices]
+    run_megaround_shards(shards, bucket_pods, tensors, needs, spec["U"],
+                         spec["K"], spec_iters(), False)
 
 
 def _warm_scatter(spec: dict, device, mesh=None) -> None:

@@ -17,7 +17,8 @@ tensor on ``mesh.devices[s]``. A row update buckets its dirty global rows
 by owning shard and makes one ``index_copy_`` per shard with shard-local
 indices, so churn on a mesh pays O(changed rows) as on one device; the
 solve runs per shard (kernel.dispatch_ranked) and so does the megaround
-(solver/speculate.py), and only the merged rank tensor and the claim
+(solver/speculate.py: one graph over the shards where they share one
+device, else a host loop), and only the merged rank tensor and the claim
 planes leave the shards.
 
 Host ``ClusterArrays`` stay the source of truth: every upload copies
@@ -313,11 +314,14 @@ class DeviceClusterState:
         """Run the speculative multi-round (solver/speculate.py) against
         the resident tensors: up to spec_iters() claim rounds for every
         bucket jointly, the claim kernels updating the mutable tensors in
-        place (the reference donated them to its jitted loop). On one
-        device it is one replay of the key's graph (``speculate.GRAPHS``,
-        captured at the key's first dispatch in the process; the trip
-        launch by launch on the CPU); on a mesh each shard's host loop,
-        with the balanced fill over the gathered plan.
+        place (the reference donated them to its jitted loop). Where
+        every shard sits on one device (no mesh, or a mesh of one
+        device's shards) it is one replay of the key's graph
+        (``speculate.GRAPHS``, captured at the key's first dispatch in
+        the process; the loop launch by launch on the CPU), the shards'
+        plans joined inside it for the balanced fill; on a mesh over
+        several devices each shard's host loop, with the balanced fill
+        over the plans gathered on the lead device.
 
         ``bucket_pods``: PodTypeArrays per bucket, in bucket-dict order;
         ``needs``: per-bucket int32 [Tp] pending-pod counts. Returns the
@@ -328,6 +332,7 @@ class DeviceClusterState:
         propagates."""
         from nhd_tpu_torch.solver.speculate import (
             GRAPHS,
+            graph_serves,
             run_megaround_shards,
             spec_iters,
         )
@@ -351,12 +356,14 @@ class DeviceClusterState:
                 buckets=[dict(G=pods.G, pod=aot.arg_spec(self.pod_tensors(pods).args))
                          for pods in bucket_pods],
             ))
-            if self.mesh is None:
+            if graph_serves(self._devices):
                 # the graph takes the pods' host arrays in its staging
                 # copy: nothing is uploaded for it here
                 return GRAPHS.run(
-                    self._dev, bucket_pods, needs, self.cluster.U,
+                    self.shards, bucket_pods, needs, self.cluster.U,
                     self.cluster.K, spec_iters(), respect_busy)
+            # a WHILE node's body holds one CUDA context's work only: a
+            # mesh over several devices runs the host loop
             tensors = [self.shard_pod_tensors(pods) for pods in bucket_pods]
             return run_megaround_shards(
                 self.shards, bucket_pods,

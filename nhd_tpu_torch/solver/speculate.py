@@ -14,8 +14,9 @@ every claim through the native assignment, exactly like a classic round;
 what it rejects retries in the classic rounds that follow.
 
 The reference runs the loop as one ``lax.while_loop``. On one device
-the port runs it as one CUDA graph with the same loop inside: the
-resets and one ``spec_gate`` (``megaround_open``), then a WHILE node
+(and on a mesh whose shards all sit on one device, below) the port runs
+it as one CUDA graph with the same loop inside: the resets and one
+``spec_gate`` (``megaround_open``), then a WHILE node
 (kernels/graph_while.cu) whose body is one iteration
 (``megaround_iteration``: the three solve kernels of each bucket,
 ``spec_elect``, ``spec_fill``, ``spec_apply``, then ``spec_gate``).
@@ -45,18 +46,22 @@ of each live bucket and the claim kernels, then one small pull of the
 status vector to decide the next. ``run_megaround`` is its one-device
 case, kept as the yardstick the graph is held to.
 
-On a node mesh (parallel/sharding.py), the host loop's body is per node except
-the balanced fill, which takes each type's winner count and its
-exclusive scans over all nodes, and the need and progress flag, which
-are global: GSPMD placed those collectives for the reference. Here each
-iteration runs the three solve kernels and ``spec_elect`` on every shard
-(each reading its own copy of the status vector), joins the shards'
-plans into one [7, Np] plan on the lead device, runs ONE ``spec_fill``
-over it with the lead status, copies each shard's slice of the count row
-back and the status out to the shards, and runs ``spec_apply`` per
-shard: exact by construction, with ``spec_fill`` unchanged. The claim
-words and counts of the shards join in shard order into the [iters, Np]
-layout ``decode_claims*`` reads.
+On a node mesh (parallel/sharding.py) the body is per node except the
+balanced fill, which takes each type's winner count and its exclusive
+scans over all nodes, and the need and progress flag, which are global:
+GSPMD placed those collectives for the reference. Here an iteration runs
+the three solve kernels and ``spec_elect`` on every shard, joins the
+shards' plans into one [7, Np] plan, runs ONE ``spec_fill`` over it,
+copies each shard's slice of the count row back and runs ``spec_apply``
+per shard: exact by construction, with ``spec_fill`` unchanged. The
+claim words and counts of the shards join in shard order into the
+[iters, Np] layout ``decode_claims*`` reads. Where every shard sits on
+one device, ``megaround_iteration`` takes the shards and the join is
+slice copies into a held plan, so the mesh's dispatch is one graph
+replay as one device's is (``graph_serves``). A WHILE node's body holds
+the work of one CUDA context only, so a mesh over several devices keeps
+the host loop (``run_megaround_shards``: the plans gathered on the lead
+device, the status copied out to the shards).
 
 Claim word (one int32, -1 = no claim):
     word = t_global * 2^21 + (c * U + m) * A_bucket(t) + a
@@ -382,99 +387,135 @@ def run_megaround_shards(
     return Megaround((join(claims), join(counts), status[1:], it_t))
 
 
-#: a single-device megaround on CUDA is a graph replay; a check that
-#: copies every launch's inputs (chip_smoke.py) sets it False for the
-#: duration, and the fixed trip then launches one kernel at a time
+#: a megaround on one CUDA device (its shards, on a mesh) is a graph
+#: replay; a check that copies every launch's inputs (chip_smoke.py) sets
+#: it False for the duration, and the fixed trip then launches one kernel
+#: at a time
 REPLAY = True
 
 
+def graph_serves(devices: Sequence[torch.device]) -> bool:
+    """Whether one megaround graph serves node shards on *devices*: a
+    WHILE node's body may hold the work of one CUDA context only (no
+    kernel or copy on another device), so all of them must be one
+    device. A mesh over several devices keeps the host loop
+    (``run_megaround_shards``)."""
+    return len(set(devices)) == 1
+
+
 class BodyBuffers(NamedTuple):
-    """What one iteration writes besides the node state, the planes, the
-    claims and the control words: the NIC headroom planes, each bucket's
-    intermediate solve outputs and the plan, held so that the iteration
-    allocates nothing (the WHILE body's capture has no allocator pool)."""
+    """What one iteration writes on one shard besides the node state, the
+    planes, the claims and the control words: the NIC headroom planes,
+    each bucket's intermediate solve outputs, the plan and the joined
+    plan, held so that the iteration allocates nothing (the WHILE body's
+    capture has no allocator pool)."""
 
-    free: Tuple[Tensor, Tensor]   # [N, U*K] float32 rx, tx
+    free: Tuple[Tensor, Tensor]   # [Ns, U*K] float32 rx, tx
     solve: List[SolveBuffers]     # per bucket
-    plan: Tensor                  # [7, N] int32
+    plan: Tensor                  # [7, Ns] int32
+    joined: Tensor                # [7, Np] int32, one for every shard; the plan with one
 
 
-def body_buffers(node: Sequence[Tensor], pods: Sequence[PodTensors]) -> BodyBuffers:
-    """Empty ``BodyBuffers`` for the node tensors *node* (``_ARG_ORDER``)
-    and the buckets' uploads *pods*."""
-    n = dict(zip(_ARG_ORDER, node))
-    N, U, K = n["nic_free"].shape[:3]
-    dev = n["nic_free"].device
+def body_buffers(shards: Sequence[Sequence[Tensor]], pods: Sequence[PodTensors]
+                 ) -> List[BodyBuffers]:
+    """Empty ``BodyBuffers`` for each shard's node tensors (``_ARG_ORDER``)
+    and the buckets' uploads *pods*; the shards share one joined plan."""
     f32 = torch.float32
-    return BodyBuffers(
-        (torch.zeros((N, U * K), dtype=f32, device=dev),
-         torch.zeros((N, U * K), dtype=f32, device=dev)),
-        [solve_buffers(int(pt.dem_rx.shape[0]), N, pt) for pt in pods],
-        torch.zeros((7, N), dtype=torch.int32, device=dev),
-    )
+    parts = []
+    for node in shards:
+        n = dict(zip(_ARG_ORDER, node))
+        N, U, K = n["nic_free"].shape[:3]
+        dev = n["nic_free"].device
+        parts.append((
+            (torch.zeros((N, U * K), dtype=f32, device=dev),
+             torch.zeros((N, U * K), dtype=f32, device=dev)),
+            [solve_buffers(int(pt.dem_rx.shape[0]), N, pt) for pt in pods],
+            torch.zeros((7, N), dtype=torch.int32, device=dev),
+        ))
+    plan = parts[0][2]
+    joined = plan if len(parts) == 1 else plan.new_zeros((7, len(parts) * plan.shape[1]))
+    return [BodyBuffers(*part, joined) for part in parts]
 
 
 def megaround_open(status: Tensor, offsets: Tensor, ctl: Tensor, claims: Tensor,
                    counts: Tensor, handle: int = 0) -> Optional[bool]:
-    """Before the claim loop: the claim planes reset, then ``spec_gate``
-    for the first iteration (setting *handle*, the WHILE node's, where
-    it is not 0). ctl must start at (1, 0, ...) and status[0] at 1.
-    Returns the gate's alive flag on the CPU, None on the card."""
+    """Before the claim loop: the claim planes (each shard's [iters, Ns],
+    stacked) reset, then ``spec_gate`` for the first iteration (setting
+    *handle*, the WHILE node's, where it is not 0). ctl must start at
+    (1, 0, ...) and status[0] at 1. Returns the gate's alive flag on the
+    CPU, None on the card."""
     claims.fill_(-1)
     counts.zero_()
-    return kernels.spec_gate(status, offsets, ctl, iters=claims.shape[0],
+    return kernels.spec_gate(status, offsets, ctl, iters=claims.shape[-2],
                              handle=handle)
 
 
 def megaround_iteration(
-    node: Sequence[Tensor],
+    shards: Sequence[Sequence[Tensor]],
     bucket_G: Sequence[int],
     pods: Sequence[PodTensors],
-    tabs: SpecTables,
+    tabs: Sequence[SpecTables],
     status: Tensor,
     offsets: Tensor,
     ctl: Tensor,
-    claims: Tensor,
-    counts: Tensor,
-    body: BodyBuffers,
+    claims: Sequence[Tensor],
+    counts: Sequence[Tensor],
+    body: Sequence[BodyBuffers],
     U: int,
     K: int,
     respect_busy: bool,
     sharing: bool,
     handle: int = 0,
 ) -> Optional[bool]:
-    """One iteration of the claim loop, its control on the device: the
-    three solve kernels of every bucket, ``spec_elect``, ``spec_fill``
-    and ``spec_apply`` against the node tensors *node* (``_ARG_ORDER``;
-    the mutable ones updated in place), then ``spec_gate`` for the next
-    iteration (setting *handle* where it is not 0). The gate words of
-    *ctl* [B + 2], written by the gate before, hold each kernel: a bucket
-    with no need skips its solves, and where the loop is dead every
-    kernel returns at once; ``spec_apply`` writes claim row ctl[1] - 1.
-    Nothing here reads the device from the host or allocates (*body*
-    holds the outputs), so it is the WHILE node's body as it stands.
-    Returns the closing gate's alive flag on the CPU, None on the card."""
+    """One iteration of the claim loop over the node shards of one
+    device, its control on the device: on each shard s (``shards[s]``:
+    global rows [s*Ns, (s+1)*Ns) by ``_ARG_ORDER``; the mutable ones
+    updated in place) the three solve kernels of every bucket into its
+    planes (``tabs[s]``) and ``spec_elect``; the shards' plans copied
+    side by side into the joined plan, one ``spec_fill`` over it, then on
+    each shard its count row copied back and ``spec_apply`` into its
+    claims and counts; then ``spec_gate`` for the next iteration (setting
+    *handle* where it is not 0). One shard launches no copy. The shards
+    share *status*, *offsets* and the gate words of *ctl* [B + 2],
+    written by the gate before: a bucket with no need skips its solves,
+    and where the loop is dead every kernel returns at once;
+    ``spec_apply`` writes claim row ctl[1] - 1. Nothing here reads the
+    device from the host or allocates (*body* holds the outputs), so it
+    is the WHILE node's body as it stands. Returns the closing gate's
+    alive flag on the CPU, None on the card."""
     alive = ctl[0:1]
-    n = dict(zip(_ARG_ORDER, node))
-    free = free_planes(node, body.free)  # the iteration's headroom, for every bucket
-    for b, (G, pt) in enumerate(zip(bucket_G, pods)):
-        solve_planes(G, U, K, node, pt, out=tabs.views[b],
-                     gate=ctl[2 + b: 3 + b], free=free, bufs=body.solve[b])
-    plan = kernels.spec_elect(
-        tabs.planes, tabs.plane_off, tabs.trow, n["smt"], n["cpu_free"],
-        n["gpu_free"], n["hp_free"], n["nic_free"], tabs.cpu_g, tabs.cpu_m,
-        tabs.gpu_g, tabs.nic_occ, status, alive, sharing=sharing,
-        respect_busy=respect_busy, out=body.plan,
-    )
-    kernels.spec_fill(plan, status, alive)
-    kernels.spec_apply(
-        plan, tabs.trow, n["smt"], n["nic_sw"], tabs.cpu_g, tabs.cpu_m,
-        tabs.gpu_g, tabs.nic_occ, tabs.gpu_uk, tabs.nic_rx, tabs.nic_tx,
-        n["busy"], n["hp_free"], n["cpu_free"], n["gpu_free"],
-        n["nic_free"], n["gpu_free_sw"], claims, counts, ctl[1:2], alive,
-        sharing=sharing, respect_busy=respect_busy,
-    )
-    return kernels.spec_gate(status, offsets, ctl, iters=claims.shape[0],
+    S = len(shards)
+    Ns = int(body[0].plan.shape[1])
+    named = [dict(zip(_ARG_ORDER, node)) for node in shards]
+    plans = []
+    for s, (node, n, tb, bb) in enumerate(zip(shards, named, tabs, body)):
+        free = free_planes(node, bb.free)  # the iteration's headroom, for every bucket
+        for b, (G, pt) in enumerate(zip(bucket_G, pods)):
+            solve_planes(G, U, K, node, pt, out=tb.views[b],
+                         gate=ctl[2 + b: 3 + b], free=free, bufs=bb.solve[b],
+                         node_base=s * Ns, n_global=S * Ns)
+        plans.append(kernels.spec_elect(
+            tb.planes, tb.plane_off, tb.trow, n["smt"], n["cpu_free"],
+            n["gpu_free"], n["hp_free"], n["nic_free"], tb.cpu_g, tb.cpu_m,
+            tb.gpu_g, tb.nic_occ, status, alive, sharing=sharing,
+            respect_busy=respect_busy, out=bb.plan,
+        ))
+    joined = body[0].joined
+    if S > 1:
+        for s, plan in enumerate(plans):
+            joined[:, s * Ns: (s + 1) * Ns].copy_(plan)
+    kernels.spec_fill(joined, status, alive)
+    for s, (n, tb, plan) in enumerate(zip(named, tabs, plans)):
+        if S > 1:
+            plan[6].copy_(joined[6, s * Ns: (s + 1) * Ns])
+        kernels.spec_apply(
+            plan, tb.trow, n["smt"], n["nic_sw"], tb.cpu_g, tb.cpu_m,
+            tb.gpu_g, tb.nic_occ, tb.gpu_uk, tb.nic_rx, tb.nic_tx,
+            n["busy"], n["hp_free"], n["cpu_free"], n["gpu_free"],
+            n["nic_free"], n["gpu_free_sw"], claims[s], counts[s], ctl[1:2],
+            alive, sharing=sharing, respect_busy=respect_busy,
+        )
+    return kernels.spec_gate(status, offsets, ctl, iters=claims[0].shape[0],
                              handle=handle)
 
 
@@ -609,39 +650,48 @@ def _graph_error(what: str, exc: BaseException) -> BaseException:
 
 
 class MegaroundGraph:
-    """One single-device megaround at fixed shapes: its own copy of the
-    node tensors, the table buffer (pod arrays, hoisted tables, status,
-    offsets, control), the plane buffer and the claim planes, all held
-    here so their addresses never move, with the body's intermediate
-    outputs (``BodyBuffers``), and on CUDA the captured graph over them:
-    ``megaround_open``, then a WHILE node whose body is one
-    ``megaround_iteration``, both gates setting the node's condition. A
-    dispatch copies the caller's resident node tensors in, refills the
-    table buffer, replays (with ``REPLAY`` off, issues the fixed trip
-    launch by launch, ``trip``; on the CPU, ``loop``), copies the six
-    mutable node tensors back and returns copies of the results. The
-    graph bakes in no address of the caller's, so one capture serves
-    every resident state of the key: each batch's own, each tile's, a
-    rebuilt one's."""
+    """One megaround at fixed shapes over the S node shards of one device
+    (S = 1 without a mesh): its own copy of the node tensors (each
+    [Np, ...], shard s a view of rows [s*Ns, (s+1)*Ns)), the table buffer
+    (pod arrays, the hoisted tables at the shard width Ns, status,
+    offsets, control), a plane buffer per shard and the claim planes
+    ([S, iters, Ns]), all held here so their addresses never move, with
+    each shard's intermediate outputs (``BodyBuffers``), and on CUDA the
+    captured graph over them: ``megaround_open``, then a WHILE node whose
+    body is one ``megaround_iteration`` over the shards, both gates
+    setting the node's condition. A dispatch copies the caller's
+    resident node tensors in, refills the table buffer, replays (with
+    ``REPLAY`` off, issues the fixed trip launch by launch, ``trip``; on
+    the CPU, ``loop``), copies the six mutable node tensors back and
+    returns copies of the results. The graph bakes in no address of the
+    caller's, so one capture serves every resident state of the key:
+    each batch's own, each tile's, a rebuilt one's."""
 
-    def __init__(self, node: Dict[str, Tensor], bucket_G: Sequence[int],
+    def __init__(self, shards: Sequence[Dict[str, Tensor]], bucket_G: Sequence[int],
                  shapes: Sequence[Tuple[int, int]], U: int, K: int,
                  iters: int, respect_busy: bool, sharing: bool,
                  layout: Sequence[Tuple[str, str, Tuple[int, ...]]]):
-        self.device = node["hp_free"].device
-        Np = int(node["hp_free"].shape[0])
-        self.node = {name: torch.zeros_like(node[name]) for name in _ARG_ORDER}
+        first = shards[0]
+        self.device = first["hp_free"].device
+        S = len(shards)
+        Ns = int(first["hp_free"].shape[0])
+        self.node = {name: first[name].new_zeros((S * Ns, *first[name].shape[1:]))
+                     for name in _ARG_ORDER}
+        self.shards = [[self.node[name][s * Ns: (s + 1) * Ns] for name in _ARG_ORDER]
+                       for s in range(S)]
         self.bucket_G = list(bucket_G)
         self.U, self.K = U, K
         self.respect_busy, self.sharing = respect_busy, sharing
         self.buf = TableBuffer(layout, self.device)
         v = self.buf.views
-        planes, views = plane_buffer(shapes, Np, self.device)
-        self.tabs = SpecTables(
-            None, v["trow"], v["plane_off"], planes, views, v["cpu_g"],
-            v["cpu_m"], v["gpu_g"], v["nic_occ"], v["gpu_uk"], v["nic_rx"],
-            v["nic_tx"],
-        )
+        self.tabs = []
+        for _ in range(S):
+            planes, views = plane_buffer(shapes, Ns, self.device)
+            self.tabs.append(SpecTables(
+                None, v["trow"], v["plane_off"], planes, views, v["cpu_g"],
+                v["cpu_m"], v["gpu_g"], v["nic_occ"], v["gpu_uk"], v["nic_rx"],
+                v["nic_tx"],
+            ))
         self.pods = [
             PodTensors([v[f"{b}.{name}"] for name in _POD_ARG_ORDER],
                        v[f"{b}.dem_rx"], v[f"{b}.dem_tx"],
@@ -649,9 +699,9 @@ class MegaroundGraph:
             for b, G in enumerate(self.bucket_G)
         ]
         i32 = torch.int32
-        self.claims = torch.full((iters, Np), -1, dtype=i32, device=self.device)
-        self.counts = torch.zeros((iters, Np), dtype=i32, device=self.device)
-        self.body = body_buffers([self.node[name] for name in _ARG_ORDER], self.pods)
+        self.claims = torch.full((S, iters, Ns), -1, dtype=i32, device=self.device)
+        self.counts = torch.zeros((S, iters, Ns), dtype=i32, device=self.device)
+        self.body = body_buffers(self.shards, self.pods)
         self.lock = threading.Lock()
         self.graph = None
         #: the launches a replay makes before the WHILE node, and those of
@@ -675,10 +725,9 @@ class MegaroundGraph:
     def iteration(self, handle: int = 0) -> Optional[bool]:
         v = self.buf.views
         return megaround_iteration(
-            [self.node[name] for name in _ARG_ORDER], self.bucket_G, self.pods,
-            self.tabs, v["status"], v["offsets"], v["ctl"], self.claims,
-            self.counts, self.body, self.U, self.K, self.respect_busy,
-            self.sharing, handle)
+            self.shards, self.bucket_G, self.pods, self.tabs, v["status"],
+            v["offsets"], v["ctl"], self.claims, self.counts, self.body,
+            self.U, self.K, self.respect_busy, self.sharing, handle)
 
     def trip(self, passes: Optional[int] = None) -> None:
         """The fixed trip launch by launch: ``megaround_open`` and
@@ -686,7 +735,7 @@ class MegaroundGraph:
         that opens the next; after the exit every kernel returns at
         once."""
         self.open()
-        for _ in range(self.claims.shape[0] if passes is None else passes):
+        for _ in range(self.claims.shape[1] if passes is None else passes):
             self.iteration()
 
     def loop(self) -> None:
@@ -744,18 +793,19 @@ class MegaroundGraph:
         self.graph, self.tally, self.body_tally = graph, dict(tally), dict(body_tally)
         self.capture_s = time.perf_counter() - t0
 
-    def run(self, node: Dict[str, Tensor], control: Dict[str, np.ndarray],
+    def run(self, shards: Sequence[Dict[str, Tensor]], control: Dict[str, np.ndarray],
             digest: bytes, tables: Callable[[], Dict[str, np.ndarray]]
             ) -> Megaround:
-        """One dispatch against the resident tensors *node* (updated in
-        place), with the need in *control* (``control_arrays``) and the
-        buckets' type rows of *digest* (``pods_digest``), whose tables
-        *tables* builds: built and copied only when the digest differs
-        from the last dispatch's (no kernel writes them). Returns
-        (claims [iters, Np], counts [iters, Np], need left [TT],
-        iterations used as a scalar), device copies that the next
-        dispatch does not touch, with the WHILE body's launches still to
-        count (``Megaround.body``). Call under ``lock``."""
+        """One dispatch against the resident tensors of each shard
+        *shards[s]* (updated in place), with the need in *control*
+        (``control_arrays``) and the buckets' type rows of *digest*
+        (``pods_digest``), whose tables *tables* builds: built and copied
+        only when the digest differs from the last dispatch's (no kernel
+        writes them). Returns (claims [iters, Np], counts [iters, Np], the
+        shards' joined in shard order, need left [TT], iterations used as
+        a scalar), device copies that the next dispatch does not touch,
+        with the WHILE body's launches still to count
+        (``Megaround.body``). Call under ``lock``."""
         cuda = self.device.type == "cuda"
         graph = cuda and REPLAY
         if graph and self.graph is None:
@@ -779,8 +829,9 @@ class MegaroundGraph:
         else:
             self.buf.fill(control)
         lap("fill")
-        for name in _ARG_ORDER:
-            self.node[name].copy_(node[name])
+        for node, held in zip(shards, self.shards):
+            for name, t in zip(_ARG_ORDER, held):
+                t.copy_(node[name])
         lap("copy_in")
         if graph:
             try:
@@ -794,10 +845,12 @@ class MegaroundGraph:
         else:
             self.loop()
         lap("replay")
-        for name in _MUTABLE:
-            node[name].copy_(self.node[name])
+        for node, held in zip(shards, self.shards):
+            held = dict(zip(_ARG_ORDER, held))
+            for name in _MUTABLE:
+                node[name].copy_(held[name])
         v = self.buf.views
-        out = (self.claims.clone(), self.counts.clone(),
+        out = (torch.cat(tuple(self.claims), dim=1), torch.cat(tuple(self.counts), dim=1),
                v["status"][1:].clone(), v["ctl"][1].clone())
         if cuda:
             self._done = torch.cuda.Event()
@@ -809,9 +862,10 @@ class MegaroundGraph:
 
 class MegaroundCache:
     """The process's megaround graphs, keyed by the bucket shapes, U, K,
-    the node tensors' shapes and types (Np among them), the depth,
-    respect_busy, NIC sharing, the device and the layout of the table
-    buffer; the least recently used goes past ``MAX_ENTRIES``. The
+    the shard count and a shard's node tensors' shapes and types (Ns
+    among them), the depth, respect_busy, NIC sharing, the device and
+    the layout of the table buffer; the least recently used goes past
+    ``MAX_ENTRIES``. The
     threads that share a key (the streaming tiler's workers, each with
     its own tile's resident tensors) take its lock from filling its
     buffers to enqueuing its output copies."""
@@ -834,23 +888,30 @@ class MegaroundCache:
         with self._lock:
             self._entries.clear()
 
-    def run(self, node: Dict[str, Tensor], bucket_pods: Sequence,
+    def run(self, shards: Sequence[Dict[str, Tensor]], bucket_pods: Sequence,
             needs: Sequence[np.ndarray], U: int, K: int, iters: int,
             respect_busy: bool) -> Megaround:
-        """The megaround against *node* (one device's resident tensors by
-        ``_ARG_ORDER`` name, the mutable ones updated in place):
-        ``run_megaround``'s results, from one replay of the key's graph."""
+        """The megaround against *shards* (the resident tensors by
+        ``_ARG_ORDER`` name of each node shard of one device, in row
+        order: one without a mesh; the mutable ones updated in place):
+        ``run_megaround_shards``' results, from one replay of the key's
+        graph."""
         from nhd_tpu_torch.core.node import ENABLE_NIC_SHARING as sharing
 
         t0 = time.perf_counter()
-        Np = int(node["hp_free"].shape[0])
+        first = shards[0]
+        device = first["hp_free"].device
+        if not graph_serves([node["hp_free"].device for node in shards]):
+            raise ValueError("one megaround graph serves the shards of one device")
+        Ns = int(first["hp_free"].shape[0])
         shapes = _shapes(bucket_pods)
         control = control_arrays(needs, shapes)
         built: Dict[str, np.ndarray] = {}
 
         def tables() -> Dict[str, np.ndarray]:
+            # at the shard width: the plane offsets index a shard's planes
             if not built:
-                built.update(table_arrays(bucket_pods, shapes, U, K, Np)[1])
+                built.update(table_arrays(bucket_pods, shapes, U, K, Ns)[1])
             return built
 
         # the key decides the layout of the table buffer: the shapes, and
@@ -860,8 +921,8 @@ class MegaroundCache:
                    np.shape(getattr(pods, name))[1:]) for name in _POD_ARG_ORDER)
             for pods in bucket_pods)
         key = (tuple(shapes), U, K, iters, bool(respect_busy), bool(sharing),
-               node["hp_free"].device, pod_types,
-               tuple((name, node[name].dtype, tuple(node[name].shape))
+               device, pod_types, len(shards),
+               tuple((name, first[name].dtype, tuple(first[name].shape))
                      for name in _ARG_ORDER))
         with self._lock:
             entry = self._entries.get(key)
@@ -871,13 +932,13 @@ class MegaroundCache:
                 layout = tuple((name, a.dtype.str, a.shape)
                                for name, a in {**control, **tables()}.items())
                 entry = self._entries[key] = MegaroundGraph(
-                    node, [G for G, _ in shapes], shapes, U, K, iters,
+                    shards, [G for G, _ in shapes], shapes, U, K, iters,
                     respect_busy, bool(sharing), layout)
             self._entries.move_to_end(key)
         digest = pods_digest(bucket_pods)
         with entry.lock:
             entry.host_s["key"] += time.perf_counter() - t0
-            return entry.run(node, control, digest, tables)
+            return entry.run(shards, control, digest, tables)
 
 
 def graph_stats() -> Dict[str, float]:
@@ -896,7 +957,7 @@ def graph_stats() -> Dict[str, float]:
 
 
 #: the process's megaround graphs (``DeviceClusterState.megaround`` on
-#: one device, the prewarm)
+#: one device or a mesh of one device's shards, the prewarm)
 GRAPHS = MegaroundCache()
 
 

@@ -167,15 +167,18 @@ DIFFERS = {
                      "kernel libraries and the WHILE node's helper library "
                      "with toolchain metas and a manifest "
                      "of shape keys, warmed by launching the kernels on "
-                     "zeros; NHDC_AOT_DIR; the probe defaults to cuda",
+                     "zeros (a megaround key of one device's shards by "
+                     "capturing its graph); NHDC_AOT_DIR; the probe "
+                     "defaults to cuda",
     "solver/batch.py": "the round loop on torch tensors and HostPull; the "
                        "mesh is the port's Mesh and auto counts local GPUs; "
                        "no CPU routing",
     "solver/device_state.py": "resident torch tensors, updated in place, "
                               "sharded as row blocks over a mesh's devices "
-                              "with per-shard index_copy_ updates; new "
-                              "megaround and scatter shapes recorded to the "
-                              "kernel cache",
+                              "with per-shard index_copy_ updates; the "
+                              "megaround one graph replay where the shards "
+                              "share a device; new megaround and scatter "
+                              "shapes recorded to the kernel cache",
     "solver/guard.py": "CUDA fault classification, one-pull audit over "
                        "the shards; a "
                        "quarantined shape retires from the kernel cache's "
@@ -186,10 +189,11 @@ DIFFERS = {
                         "top-R; the dispatch records unquarantined shapes "
                         "to the kernel cache",
     "solver/speculate.py": "the megaround through the claim kernels: on "
-                           "one device one CUDA graph whose loop is a WHILE "
-                           "node that spec_gate ends on the card; on a mesh "
-                           "the host loop, the shards' plans joined for one "
-                           "balanced fill",
+                           "one device, and over a mesh's shards on one "
+                           "device, one CUDA graph whose loop is a WHILE "
+                           "node that spec_gate ends on the card, the "
+                           "shards' plans joined for one balanced fill; a "
+                           "mesh over several devices keeps a host loop",
     "solver/streaming.py": "no CPU mesh gate (the port's mesh has no "
                            "in-process collective); the default worker count "
                            "comes from the scheduler's device type, not a "

@@ -648,6 +648,112 @@ def test_mesh_megaround_and_rank_equal_one_device_on_card(respect_busy, monkeypa
     assert int(want[3]) > 1 and (want[1] > 0).any()
 
 
+def _mesh_host_loop(state, buckets, needs, iters):
+    """``run_megaround_shards`` against *state*'s resident shards."""
+    from nhd_tpu_torch.solver.speculate import run_megaround_shards
+
+    tensors = [state.shard_pod_tensors(p) for p in buckets]
+    return run_megaround_shards(
+        state.shards, buckets,
+        [[pt[s] for pt in tensors] for s in range(len(state.shards))], needs,
+        state.cluster.U, state.cluster.K, iters, False)
+
+
+@pytest.mark.parametrize("shards", [2, 4, 8])
+def test_mesh_graph_equals_fixed_trip_and_host_loop(shards, monkeypatch):
+    """A mesh of 2, 4 or 8 shards of cuda:0: its megaround as one graph
+    replay (a WHILE node whose body is every shard's solves and
+    elections, the join, one fill, every shard's apply), as the fixed
+    trip (``REPLAY`` off) and as the host loop, from the same encoded
+    state: claims, counts, need left, iterations and each shard's node
+    state. The replay's passes, counted on the card by a body with one
+    more op, equal the iterations; it counts one megaround_graph launch
+    and its body's tally once a pass: S of each claim kernel but
+    spec_fill, one spec_fill and 1 + iterations of spec_gate."""
+    _need_cuda()
+    from nhd_tpu_torch.parallel.sharding import make_mesh
+    from nhd_tpu_torch.solver import speculate
+    from nhd_tpu_torch.solver.device_state import DeviceClusterState
+    from nhd_tpu_torch.solver.kernel import _MUTABLE
+
+    monkeypatch.setenv("NHD_TPU_SPEC_ITERS", "8")
+    cluster, buckets, needs = _megaround_case(8)
+    passes = torch.zeros(1, dtype=torch.int32, device="cuda")
+    iteration = speculate.megaround_iteration
+
+    def counted(*a, **kw):
+        passes.add_(1)
+        return iteration(*a, **kw)
+
+    monkeypatch.setattr(speculate, "megaround_iteration", counted)
+    monkeypatch.setattr(speculate, "GRAPHS", speculate.MegaroundCache())
+    mesh = make_mesh(n_shards=shards, device="cuda")
+    outs = {}
+    for form in ("loop", "fixed", "graph"):
+        state = DeviceClusterState(cluster, "cuda", mesh)
+        if form == "loop":
+            res = _mesh_host_loop(state, buckets, needs, 8)
+        else:
+            monkeypatch.setattr(speculate, "REPLAY", form == "graph")
+            if form == "graph":
+                # the capture (its warm-up runs one pass eagerly) first
+                DeviceClusterState(cluster, "cuda", mesh).megaround(buckets, needs, False)
+                torch.cuda.synchronize()
+                passes.zero_()
+                before = dict(kernels.LAUNCHES)
+            res = state.megaround(buckets, needs, False)
+        torch.cuda.synchronize()
+        outs[form] = [t.cpu() for t in res] + [
+            sh[n].cpu() for sh in state.shards for n in _MUTABLE]
+        if form == "graph":
+            its = int(res[3])
+            assert int(passes) == its >= 1
+            kernels.count_passes(res.body, its)
+            moved = {n: kernels.LAUNCHES[n] - before[n] for n in kernels.COUNTED}
+    for form in ("fixed", "graph"):
+        assert all(torch.equal(g, w) for g, w in zip(outs[form], outs["loop"])), form
+    entries = speculate.GRAPHS.entries()
+    graphs = [e for e in entries if e.graph is not None]
+    assert len(graphs) == 1 and len(graphs[0].shards) == shards
+    B = len(buckets)
+    assert moved[kernels.GRAPH] == 1 and moved["spec_gate"] == 1 + its
+    assert moved["spec_fill"] == its
+    assert moved["spec_elect"] == moved["spec_apply"] == shards * its
+    assert all(moved[k] == shards * B * its for k in kernels.SOLVE_KERNELS)
+
+
+def test_mesh_capture_failure_raises(monkeypatch):
+    """A helper call that fails during a mesh graph's capture raises
+    KernelLaunchError with its CUDA code: the mesh does not fall back to
+    its host loop, and no graph is kept."""
+    _need_cuda()
+    from nhd_tpu_torch.kernels import build
+    from nhd_tpu_torch.kernels.build import KernelLaunchError
+    from nhd_tpu_torch.parallel.sharding import make_mesh
+    from nhd_tpu_torch.solver import speculate
+    from nhd_tpu_torch.solver.device_state import DeviceClusterState
+
+    cluster, buckets, needs = _megaround_case(8)
+    monkeypatch.setattr(speculate, "GRAPHS", speculate.MegaroundCache())
+    loops = []
+    monkeypatch.setattr(speculate, "run_megaround_shards",
+                        lambda *a, **kw: loops.append(1))
+    call = build.call_helper
+
+    def refused(source, entry, *args):
+        if entry == "nhd_graph_while_open":
+            raise KernelLaunchError(source, 801, "refused for the test")
+        return call(source, entry, *args)
+
+    monkeypatch.setattr(build, "call_helper", refused)
+    state = DeviceClusterState(cluster, "cuda", make_mesh(n_shards=4, device="cuda"))
+    with pytest.raises(KernelLaunchError) as info:
+        state.megaround(buckets, needs, False)
+    assert info.value.code == 801 and loops == []
+    assert [len(e.shards) for e in speculate.GRAPHS.entries()] == [4]
+    assert all(e.graph is None for e in speculate.GRAPHS.entries())
+
+
 @pytest.mark.parametrize("i", range(len(sweep.RANK_SWEEP)))
 def test_rank_kernels_equal_plain_on_the_sweep(i):
     """rank_top and rank_merge on the card against their plain versions,

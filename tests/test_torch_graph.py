@@ -98,6 +98,51 @@ def _encode(name):
     return cluster, pods, needs
 
 
+_REFERENCE = {}
+
+
+def _reference(name, cluster, pods, needs):
+    """The JAX reference's megaround of exit *name* (claims, counts, need
+    left, iterations, then the mutable node tensors), once per exit: the
+    caller has set the exit's depth and NIC sharing."""
+    if name not in _REFERENCE:
+        jx_spec._get_megaround.cache_clear()
+        try:
+            ref = JxState(cluster, None)
+            want = [np.asarray(x) for x in ref.megaround(pods, needs, False)]
+            want += [np.asarray(ref._dev[n]) for n in _MUTABLE]
+        finally:
+            jx_spec._get_megaround.cache_clear()
+        _REFERENCE[name] = want
+    return _REFERENCE[name]
+
+
+def _exit_env(name, monkeypatch):
+    """Exit *name*'s depth (2 at the cap, else 8) and NIC sharing, set for
+    both packages; returns the depth."""
+    iters = 2 if name == "iters_cap" else 8
+    monkeypatch.setenv("NHD_TPU_SPEC_ITERS", str(iters))
+    sharing = name == "nic_sharing"
+    monkeypatch.setattr(jx_node, "ENABLE_NIC_SHARING", sharing)
+    monkeypatch.setattr(pt_node, "ENABLE_NIC_SHARING", sharing)
+    return iters
+
+
+def _mesh(n):
+    """A mesh of *n* shards of the CPU: one device, so the graph path."""
+    from nhd_tpu_torch.parallel.sharding import make_mesh
+
+    return make_mesh(["cpu"] * n)
+
+
+def _host_loop(state, pods, needs, iters=8):
+    """``run_megaround_shards`` against *state*'s resident shards."""
+    tensors = [state.shard_pod_tensors(p) for p in pods]
+    return speculate.run_megaround_shards(
+        state.shards, pods, [[pt[s] for pt in tensors] for s in range(len(state.shards))],
+        needs, state.cluster.U, state.cluster.K, iters, False)
+
+
 def _gate_log(monkeypatch):
     """Record the control tensor after every spec_gate call."""
     seen = []
@@ -131,19 +176,9 @@ def test_fixed_trip_matches_host_loop_and_reference(name, form, monkeypatch):
     bucket whose need runs out while another claims, NIC sharing on, and
     no need at the start (no iteration runs, ctl[1] == 0). Claims,
     counts, need left, iterations and node state equal."""
-    iters = 2 if name == "iters_cap" else 8
-    monkeypatch.setenv("NHD_TPU_SPEC_ITERS", str(iters))
-    sharing = name == "nic_sharing"
-    monkeypatch.setattr(jx_node, "ENABLE_NIC_SHARING", sharing)
-    monkeypatch.setattr(pt_node, "ENABLE_NIC_SHARING", sharing)
+    iters = _exit_env(name, monkeypatch)
     cluster, pods, needs = _encode(name)
-    jx_spec._get_megaround.cache_clear()
-    try:
-        ref = JxState(cluster, None)
-        want = [np.asarray(x) for x in ref.megaround(pods, needs, False)]
-        want += [np.asarray(ref._dev[n]) for n in _MUTABLE]
-    finally:
-        jx_spec._get_megaround.cache_clear()
+    want = _reference(name, cluster, pods, needs)
     loop_state = PtState(cluster, "cpu")
     loop = speculate.run_megaround(
         loop_state._dev, pods, [loop_state.pod_tensors(p) for p in pods], needs,
@@ -182,17 +217,159 @@ def test_fixed_trip_matches_host_loop_and_reference(name, form, monkeypatch):
 
 
 @pytest.mark.parametrize("form", FORMS)
-def test_body_allocates_nothing(form, monkeypatch):
+@pytest.mark.parametrize("shards", [2, 3, 8])
+@pytest.mark.parametrize("name", sorted(EXITS))
+def test_mesh_graph_matches_host_loop_and_reference(name, shards, form, monkeypatch):
+    """A mesh of 2, 3 or 8 shards of the CPU is one device, so its
+    megaround is the key's graph (``DeviceClusterState.megaround`` to
+    ``GRAPHS``, one entry of that many shards), in each form: against
+    the mesh's host loop (``run_megaround_shards``) and the JAX
+    reference's one-device megaround, at each exit of
+    ``test_fixed_trip_matches_host_loop_and_reference``. Claims, counts,
+    need left, iterations and node state equal; the columns and rows a
+    shard count pads past the reference's claim nothing and stay the
+    host loop's."""
+    iters = _exit_env(name, monkeypatch)
+    cluster, pods, needs = _encode(name)
+    want = _reference(name, cluster, pods, needs)
+    loop_state = PtState(cluster, "cpu", _mesh(shards))
+    loop = [t.numpy() for t in _host_loop(loop_state, pods, needs, iters)]
+    loop += [loop_state.resident(n).numpy() for n in _MUTABLE]
+    _form(form, monkeypatch)
+    speculate.GRAPHS.clear()
+    state = PtState(cluster, "cpu", _mesh(shards))
+    got = [t.numpy() for t in state.megaround(pods, needs, False)]
+    got += [state.resident(n).numpy() for n in _MUTABLE]
+    (entry,) = speculate.GRAPHS.entries()
+    assert len(entry.shards) == shards and entry.claims.shape[0] == shards
+    for g, lp in zip(got, loop):
+        assert g.dtype == lp.dtype and np.array_equal(g, lp)
+    N = cluster.n_nodes
+    for g, w, pad in ((got[0], want[0], -1), (got[1], want[1], 0)):
+        assert g.shape[0] == w.shape[0] and np.array_equal(g[:, :N], w[:, :N])
+        assert (g[:, N:] == pad).all()
+    for g, w in zip(got[2:4], want[2:4]):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+    for g, w in zip(got[4:], want[4:]):
+        assert np.array_equal(g[:N], w[:N])
+    if name == "no_need_at_start":
+        assert int(got[3]) == 0
+    elif name == "iters_cap":
+        assert int(got[3]) == iters == 2
+
+
+def test_one_and_several_shard_keys_hold_separate_entries():
+    """At one Np, a one-device state and meshes of 2 and 4 shards of the
+    same device make three cache entries (the shard count is in the key),
+    each with its shards' own buffers; a second dispatch of each finds
+    its own. All three equal the host loop."""
+    speculate.GRAPHS.clear()
+    cluster, pods, needs = _encode("need_exhausted")
+    results = {}
+    for shards in (1, 2, 4, 1, 2, 4):
+        state = PtState(cluster, "cpu", _mesh(shards) if shards > 1 else None)
+        assert state.Np == 32
+        results.setdefault(shards, []).append(
+            [t.numpy() for t in state.megaround(pods, needs, False)])
+    entries = speculate.GRAPHS.entries()
+    assert sorted(len(e.shards) for e in entries) == [1, 2, 4]
+    assert {tuple(e.node["hp_free"].shape) for e in entries} == {(32,)}
+    assert {e.dispatches for e in entries} == {2}
+    want = [t.numpy() for t in _host_loop(PtState(cluster, "cpu"), pods, needs)]
+    for runs in results.values():
+        for got in runs:
+            assert all(np.array_equal(g, w) for g, w in zip(got, want))
+
+
+def test_mesh_body_counts_each_shard_and_one_fill():
+    """What a capture of a mesh's body records (each wrapper's launch
+    counted into the tally ``capturing`` yields, as on the card): per
+    pass S times each solve kernel per bucket, ``spec_elect`` and
+    ``spec_apply``, once ``spec_fill`` and ``spec_gate``; with one shard
+    the single device's body."""
+    cluster, pods, needs = _encode("need_exhausted")
+    B = len(pods)
+    for shards in (1, 3):
+        speculate.GRAPHS.clear()
+        state = PtState(cluster, "cpu", _mesh(shards) if shards > 1 else None)
+        state.megaround(pods, needs, False)
+        (entry,) = speculate.GRAPHS.entries()
+        entry.buf.fill(speculate.control_arrays(needs, speculate._shapes(pods)))
+        entry.open()
+        saved = {name: getattr(kernels, name) for name in kernels.KERNELS}
+
+        def counting(name):
+            def call(*a, **kw):
+                kernels._count(name)   # the card's wrapper counts its launch
+                return saved[name](*a, **kw)
+            return call
+
+        try:
+            for name in kernels.KERNELS:
+                setattr(kernels, name, counting(name))
+            with kernels.capturing() as body:
+                entry.iteration()
+        finally:
+            for name, fn in saved.items():
+                setattr(kernels, name, fn)
+        want = dict.fromkeys(kernels.KERNELS, 0)
+        want.update({k: shards * B for k in kernels.SOLVE_KERNELS})
+        want.update(spec_elect=shards, spec_apply=shards, spec_fill=1, spec_gate=1)
+        assert body == want
+
+
+def test_the_graph_serves_the_shards_of_one_device(monkeypatch):
+    """The routing rule: shards on one device (the CPU's, or one card's
+    under two spellings) are one graph's; shards on two devices are not,
+    and ``MegaroundCache.run`` refuses them. ``DeviceClusterState.
+    megaround`` follows the rule: a mesh the rule refuses runs the host
+    loop, with the same results and no cache entry."""
+    cpu, card0 = torch.device("cpu"), torch.device("cuda", 0)
+    assert speculate.graph_serves([cpu]) and speculate.graph_serves([cpu] * 8)
+    assert speculate.graph_serves([card0, torch.device("cuda:0")])
+    assert not speculate.graph_serves([card0, torch.device("cuda", 1)])
+    assert not speculate.graph_serves([cpu, torch.device("meta")])
+    two = [{"hp_free": torch.zeros(4)}, {"hp_free": torch.zeros(4, device="meta")}]
+    with pytest.raises(ValueError, match="one device"):
+        speculate.GRAPHS.run(two, [], [], 2, 7, 8, False)
+    cluster, pods, needs = _encode("need_exhausted")
+    speculate.GRAPHS.clear()
+    graph = PtState(cluster, "cpu", _mesh(4))
+    via_graph = [t.numpy() for t in graph.megaround(pods, needs, False)]
+    assert len(speculate.GRAPHS) == 1
+    loops = []
+    host_loop = speculate.run_megaround_shards
+
+    def spied(*a, **kw):
+        loops.append(1)
+        return host_loop(*a, **kw)
+
+    monkeypatch.setattr(speculate, "graph_serves", lambda devices: False)
+    monkeypatch.setattr(speculate, "run_megaround_shards", spied)
+    speculate.GRAPHS.clear()
+    spanning = PtState(cluster, "cpu", _mesh(4))
+    via_loop = [t.numpy() for t in spanning.megaround(pods, needs, False)]
+    assert loops == [1] and len(speculate.GRAPHS) == 0
+    assert all(np.array_equal(g, w) for g, w in zip(via_graph, via_loop))
+    for name in _MUTABLE:
+        assert torch.equal(graph.resident(name), spanning.resident(name))
+
+
+@pytest.mark.parametrize("shards", [1, 3])
+@pytest.mark.parametrize("form", FORMS)
+def test_body_allocates_nothing(form, shards, monkeypatch):
     """Every tensor an iteration's launches write (each wrapper's
-    outputs and in-place inputs, the headroom planes) is one the
-    ``MegaroundGraph`` holds: the same ``data_ptr`` in every iteration,
-    none of them new, so the WHILE body's capture needs no allocator."""
+    outputs and in-place inputs, the headroom planes, the joined plan of
+    a mesh) is one the ``MegaroundGraph`` holds: the same ``data_ptr`` in
+    every iteration, none of them new, so the WHILE body's capture needs
+    no allocator. On one device or on 3 shards of it."""
     _form(form, monkeypatch)
     cluster, pods, needs = _encode("need_exhausted")
     speculate.GRAPHS.clear()
-    state = PtState(cluster, "cpu")
+    state = PtState(cluster, "cpu", _mesh(shards) if shards > 1 else None)
     state.megaround(pods, needs, False)
     (entry,) = speculate.GRAPHS.entries()
+    assert len(entry.shards) == shards
     written = {"nic_node_masks": (), "nic_any_first": (), "solve_planes": (),
                "spec_elect": ("status",), "spec_fill": ("plan", "status"),
                "spec_apply": ("busy", "hp_free", "cpu_free", "gpu_free",
@@ -233,18 +410,24 @@ def test_body_allocates_nothing(form, monkeypatch):
     else:
         entry.loop()
     held = {t.data_ptr() for t in (
-        *entry.node.values(), *entry.buf.views.values(), entry.claims,
-        entry.counts, *entry.tabs.views, *entry.body.free, entry.body.plan,
-        *(b for s in entry.body.solve for b in s))}
+        *entry.node.values(), *(t for shard in entry.shards for t in shard),
+        *entry.buf.views.values(), *entry.claims, *entry.counts,
+        *(v for tabs in entry.tabs for v in tabs.views),
+        *(t for body in entry.body
+          for t in (*body.free, body.plan, body.joined, *(b for s in body.solve for b in s))))}
     first, second = per_iteration[1:3]   # after the opening gate
     assert [n for n, _ in first] == [n for n, _ in second]
-    assert len(first) == 1 + 3 * len(pods) + 4 and first == second
+    # per shard its headroom, 3 solve kernels a bucket, spec_elect and
+    # spec_apply; one spec_fill and one spec_gate
+    assert len(first) == shards * (1 + 3 * len(pods) + 2) + 2 and first == second
     assert {p for _, ptrs in first for p in ptrs} <= held
 
 
-def test_no_host_pull_inside_the_trip(monkeypatch):
+@pytest.mark.parametrize("shards", [1, 3])
+def test_no_host_pull_inside_the_trip(shards, monkeypatch):
     """The trip reads nothing of the device from the host: no HostPull
-    while it runs, where the host loop makes one an iteration."""
+    while it runs, where the host loop makes one an iteration. On one
+    device or on 3 shards of it."""
     pulls = []
     init = device_state.HostPull.__init__
 
@@ -254,13 +437,11 @@ def test_no_host_pull_inside_the_trip(monkeypatch):
 
     monkeypatch.setattr(device_state.HostPull, "__init__", counted)
     cluster, pods, needs = _encode("need_exhausted")
-    state = PtState(cluster, "cpu")
+    mesh = (lambda: _mesh(shards)) if shards > 1 else (lambda: None)
+    state = PtState(cluster, "cpu", mesh())
     _claims, _counts, _need, it = state.megaround(pods, needs, False)
-    assert pulls == []
-    loop_state = PtState(cluster, "cpu")
-    speculate.run_megaround(loop_state._dev, pods,
-                            [loop_state.pod_tensors(p) for p in pods], needs,
-                            cluster.U, cluster.K, 8, False)
+    assert pulls == [] and int(it) > 0
+    _host_loop(PtState(cluster, "cpu", mesh()), pods, needs)
     assert len(pulls) == int(it)
 
 
@@ -444,22 +625,27 @@ def test_graph_fault_is_a_kernel_launch_error(code, transient):
     assert classify_device_fault(err) is transient
 
 
-def test_prewarm_warms_the_key_a_batch_dispatches():
+@pytest.mark.parametrize("shards", [1, 3])
+def test_prewarm_warms_the_key_a_batch_dispatches(shards):
     """The prewarm's megaround (``aot._warm_megaround`` on a recorded
     spec) fills the process's cache with the keys of both busy rules,
-    and the batch's first dispatch of the key makes no new entry."""
+    and the batch's first dispatch of the key makes no new entry: on one
+    device, and on a mesh of 3 shards of it (one graph, not its host
+    loop)."""
     from nhd_tpu_torch.solver import aot
+    from nhd_tpu_torch.solver.kernel import mesh_desc
 
     cluster, pods, needs = _encode("need_exhausted")
-    state = PtState(cluster, "cpu")
-    spec = dict(U=cluster.U, K=cluster.K, mesh="",
+    mesh = _mesh(shards) if shards > 1 else None
+    state = PtState(cluster, "cpu", mesh)
+    spec = dict(U=cluster.U, K=cluster.K, mesh=mesh_desc(state.mesh),
                 node=aot.arg_spec(state.shard_tensors()[0]),
                 buckets=[dict(G=p.G, pod=aot.arg_spec(state.pod_tensors(p).args))
                          for p in pods])
     speculate.GRAPHS.clear()
-    aot._warm_megaround(spec, torch.device("cpu"))
+    aot._warm_megaround(spec, torch.device("cpu"), mesh)
     warmed = speculate.GRAPHS.entries()
-    assert len(warmed) == 2
+    assert len(warmed) == 2 and {len(e.shards) for e in warmed} == {shards}
     state.megaround(pods, needs, False)
     assert set(map(id, speculate.GRAPHS.entries())) == set(map(id, warmed))
 

@@ -447,12 +447,16 @@ def _reference_megaround(name):
     return _REF_MEGAROUND[name]
 
 
-@pytest.mark.parametrize("name,shards", [
+#: (instance, shard count) of the mesh cases
+MESH_CASES = [
     (name, shards)
     for name in ("capacity", "random11", "pci_numa", "respect_busy", "wrap_ties",
                  "seed3", "seed4")
     for shards in ((8,) if name in ("capacity", "random11") else (2, 3, 8))
-])
+]
+
+
+@pytest.mark.parametrize("name,shards", MESH_CASES)
 def test_megaround_on_a_mesh_matches_reference(name, shards):
     (cluster, pods, needs, respect_busy), want, want_state = _reference_megaround(name)
     port = PtState(cluster, "cpu", _mesh(shards))
@@ -468,6 +472,29 @@ def test_megaround_on_a_mesh_matches_reference(name, shards):
     _assert_identical(got[2:], want[2:], ("need_left", "iterations"))
     got_state = [port.resident(n).numpy()[:N] for n in _MUTABLE]
     _assert_identical(got_state, [w[:N] for w in want_state], _MUTABLE)
+
+
+@pytest.mark.parametrize("name,shards", MESH_CASES)
+def test_mesh_graph_equals_its_host_loop(name, shards):
+    """The mesh's megaround (CPU shards: one device, so one graph over
+    the shards, ``pt_spec.GRAPHS``) against the mesh's host loop
+    (``run_megaround_shards``) from the same state: claims and counts at
+    every column, padding included, need left, iterations and every
+    shard's node state, bit for bit."""
+    (cluster, pods, needs, respect_busy), _want, _state = _reference_megaround(name)
+    pt_spec.GRAPHS.clear()
+    graph, loop = PtState(cluster, "cpu", _mesh(shards)), PtState(cluster, "cpu", _mesh(shards))
+    got = [t.numpy() for t in graph.megaround(pods, needs, respect_busy)]
+    (entry,) = pt_spec.GRAPHS.entries()
+    assert len(entry.shards) == shards
+    uploads = [loop.shard_pod_tensors(p) for p in pods]
+    want = [t.numpy() for t in pt_spec.run_megaround_shards(
+        loop.shards, pods, [[pt[s] for pt in uploads] for s in range(shards)], needs,
+        cluster.U, cluster.K, pt_spec.spec_iters(), respect_busy)]
+    _assert_identical(got, want, ("claims", "counts", "need_left", "iterations"))
+    for s in range(shards):
+        _assert_identical([graph.shards[s][n].numpy() for n in _MUTABLE],
+                          [loop.shards[s][n].numpy() for n in _MUTABLE], _MUTABLE)
 
 
 def test_speculative_mesh_equals_single_device():
