@@ -218,12 +218,36 @@ Phases (one line each; the last line is the contract line):
    say (``replay_kernels``), in this process and in a fresh one
    (``replay_profile_child``, full cfg4 width), where no more
    ``spec_gate`` launches than 1 + the iterations may show;
-16. the kernels JSON line: per kernel its launches in phases 4-7 and
+16. the operator gates on the card (nhd_tpu_torch/sim/soak.py,
+   trace_demo.py, trace_replay.py, fleet_demo.py, obs/fleet_top.py;
+   each part in this process, on cuda, then on the CPU with speculation
+   on where it says so; each part's wall printed): (a) phase 7's run,
+   cfg4's pending set of 10,000 pods on 1,000 nodes, with the flight
+   recorder on, its ring sized from the pods
+   (``trace_demo.ring_capacity``: 131,072): 0 spans dropped, the trace
+   valid, every bound pod carrying solve/select/assign/bind and a
+   scheduled decision on its node (a pod the scan found never waited in
+   the watch queue: no queue_wait), placements equal to phase 7's run
+   with the recorder off, the first batch's round-0 span carrying the
+   megaround's claims, every solve kernel, the claim kernels and
+   ``spec_gate`` launched; binds/s and wall beside phase 7's; (b) the
+   trace demo at its defaults: each pod's span names (all five), the
+   decisions and the round spans equal to the CPU run's; (c) the replay
+   demo's four acts, then its card-recorded journal replayed on the CPU
+   with 0 divergences; (d) the fleet demo: the same seed, cross-replica
+   journeys by pod and fleet payload (times masked) as the CPU run;
+   (e) the soak, 4 seeds x 60 steps at 4 nodes: every seed clean, the
+   totals equal to the CPU's; (f) during phase 10's mid-run scrape,
+   ``obs.fleet_top`` over the CLI's metrics port: exit 0 and its fleet
+   artifact valid;
+17. the kernels JSON line: per kernel its launches in phases 4-7 and
    9-14 (counts set to 0 just before each counted run and read just
    after; a megaround graph replay adds what its capture recorded;
    phase 10's and the subprocesses of 12 and 13 are those processes'
    own, from start to exit; 13's (a), (b) and (g) are comparisons, not
-   counted; 14's are its child's (a) and (b) runs), its time, its plain
+   counted; 14's are its child's (a) and (b) runs; phase 16 keeps its
+   parts' launches in its own report, each part's required there), its
+   time, its plain
    version's time and its bound — the solve kernels and rank_top at the
    cfg4 G=2 bucket, rank_merge over its 4 shards, the claim kernels and
    ``spec_gate`` at cfg4's first megaround iteration; ``library_ms`` is
@@ -246,6 +270,7 @@ import contextlib
 import functools
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -338,6 +363,17 @@ SNAPS = {}
 PLAIN_REPLAYS = {}
 #: phase 15: replays timed per cell, and the dead-iteration probe's
 GRAPH_TIMED = 20
+#: phase 16 (a): each pod's (node, solved config, NAD) as phase 7's
+#: counted run on the card left it
+DAEMON_OUTCOME = {}
+#: phase 16: each part's figures, for the report
+OPS = {}
+#: phase 16 (e): the soak's seeds, steps and nodes on each device
+SOAK_SEEDS, SOAK_STEPS, SOAK_NODES = 4, 60, 4
+#: phase 16: the span names every pod bound by a scan batch carries (a
+#: pod found by the scan never waited in the watch queue, so it has no
+#: queue_wait span; (b) drives the watch path and holds all five)
+SCAN_SPANS = frozenset({"solve", "select", "assign", "bind"})
 #: the kernels of a speculative batch on one device, and on a mesh of
 #: one device's shards (one graph replay of the same body over the
 #: shards): the solve kernels, the claim kernels and spec_gate (the rank
@@ -1614,6 +1650,7 @@ def daemon_phase(torch, report, launches_total, smi):
     got, _wall, launches = counted(
         torch, lambda: _daemon_run(card(torch), DAEMON_PODS))
     got, outcome = got
+    DAEMON_OUTCOME.update(outcome)
     cum, _sum, _count = bind_h.snapshot()
     edges = list(zip((*bind_h.buckets, float("inf")), cum))
     bind_ms = {f"p{int(q * 100)}": histo.quantile_from_buckets(edges, q) * 1e3
@@ -2254,17 +2291,43 @@ def jit_shapes(lines):
     return out
 
 
-def scrape_until_answered(port, done, out):
+def fleet_top(port, top_dir):
+    """Phase 16 (f): one pass of the port's fleet top
+    (``nhd_tpu_torch.obs.fleet_top``, as an operator runs it) over the
+    CLI's metrics port, writing its fleet artifact into *top_dir*.
+    Returns its exit code, printed lines and artifact path."""
+    import io
+
+    from nhd_tpu_torch.obs import fleet_top as top
+
+    path = os.path.join(top_dir, "fleet-top.json")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = top.main([f"http://127.0.0.1:{port}", "--timeout", "10",
+                       "--json-out", path])
+    return {"rc": rc, "lines": buf.getvalue().splitlines(), "path": path,
+            "wall_s": time.perf_counter() - t0}
+
+
+def scrape_until_answered(port, done, out, top_dir=None):
     """The mid-run scrape, on its own thread: /metrics goes through the
     scheduler thread's RPC queue, which answers 503 after 5 s while that
     thread is committing a batch; try once a second until it answers or
-    the run is over, and keep the answer or the last error."""
+    the run is over, and keep the answer or the last error. With
+    *top_dir*, fleet top scrapes the same port too, until it reaches it
+    (``out["top"]``)."""
     tries = 0
     while not done.is_set():
         tries += 1
         try:
-            out["text"] = scrape(port)
-            break
+            if "text" not in out:
+                out["text"] = scrape(port)
+            if top_dir is None:
+                break
+            out["top"] = fleet_top(port, top_dir)
+            if out["top"]["rc"] == 0:
+                break
         except OSError as exc:
             out["error"] = f"{exc}"
         done.wait(1.0)
@@ -2285,14 +2348,15 @@ def cli_ready(stub, port):
 
 
 def run_cli(device, n_nodes, n_pods, workdir, label, log_dir="chiprun_out",
-            extra_args=(), extra_env=None):
+            extra_args=(), extra_env=None, top_dir=None):
     """Phase 10 (b)/(c): ``python -m nhd_tpu_torch.cli`` on *device*
     against a fresh stub holding the nodes. Once the CLI is up, the
     pods are created through the stub, each announced on the pod watch,
     at most CLI_BACKLOG created and not yet bound at a time; until every
     pod is bound (and a short settle) or binds stop for CLI_QUIET_S.
-    /metrics is scraped from the first bind on (until answered) and at
-    the end, then SIGINT, the CLI's clean exit. Returns what the run
+    /metrics is scraped from the first bind on (until answered; with
+    *top_dir*, by fleet top too) and at the end, then SIGINT, the CLI's
+    clean exit. Returns what the run
     showed, the kernels' launches the CLI printed at its exit, and each
     pod's (node, solved config, NAD) as the stub holds them."""
     import signal
@@ -2358,7 +2422,8 @@ def run_cli(device, n_nodes, n_pods, workdir, label, log_dir="chiprun_out",
                 time.sleep(0.1)
             out["metrics_rebinds"] = rebinds
             scraper = threading.Thread(target=scrape_until_answered,
-                                       args=(port, done, mid), daemon=True)
+                                       args=(port, done, mid, top_dir),
+                                       daemon=True)
             feed0 = time.perf_counter()
             created, bound_at = {}, {}
             seen = fed = 0
@@ -2439,6 +2504,7 @@ def run_cli(device, n_nodes, n_pods, workdir, label, log_dir="chiprun_out",
         f"{bind_quantiles_ms(mid['text'])[1]} binds counted"
         if "text" in mid else f"unanswered ({mid.get('error')})"
     ) + f", {mid.get('tries', 0)} tries"
+    out["top"] = mid.get("top")
     out["requests"] = request_kinds(stub.requests)
     out["admission"] = families(end, "nhd_admission_")
     out["guard"] = families(end, "nhd_guard_")
@@ -2596,7 +2662,9 @@ def cli_phase(torch, report, launches_total, smi):
     from nhd_tpu_torch import kernels
 
     with tempfile.TemporaryDirectory(prefix="nhd-cli-") as work:
-        got, outcome = run_cli("cuda", CLI_NODES, CLI_PODS, work, "cuda")
+        got, outcome = run_cli("cuda", CLI_NODES, CLI_PODS, work, "cuda",
+                               top_dir=work)
+        fleet_top_check(got.get("top"), smi)
         log(f"cli cuda: {CLI_NODES} nodes, {CLI_PODS} pods created over HTTP "
             f"as watch events, at most {CLI_BACKLOG} unbound at a time (cut: "
             f"{CLI_CUT}); up {got['ready_s']:.2f}s after start; bound "
@@ -2666,6 +2734,30 @@ def cli_phase(torch, report, launches_total, smi):
         "golden_replay_s": gold_wall,
         "replay_launches": launches, "smi": smi,
     }
+
+
+def fleet_top_check(top, smi):
+    """Phase 16 (f), read after phase 10's card run: fleet top reached
+    the CLI's metrics port during the mid-run scrape, and the fleet
+    artifact it wrote validates."""
+    from nhd_tpu_torch.obs.fleet import validate_fleet_artifact
+
+    if top is None or top["rc"] != 0:
+        fail(f"fleet top: never reached the CLI's metrics port during the "
+             f"run ({top and top['lines']})")
+    with open(top["path"]) as fh:
+        art = json.load(fh)
+    errs = validate_fleet_artifact(art)
+    if errs:
+        fail(f"fleet top: its artifact is invalid: {errs}")
+    payload = art["payload"]
+    OPS["f"] = {"wall_s": top["wall_s"], "lines": top["lines"],
+                "replicas": [r["replica"] for r in payload["replicas"]]}
+    log(f"ops (f) fleet top over the CLI's metrics port mid-run: exit 0 in "
+        f"{top['wall_s']:.3f}s, artifact valid ({len(payload['replicas'])} "
+        f"replica(s), worst burn {payload['slo']['worst_burn_rates']}, "
+        f"{payload['device_state']['deltas_total']} state deltas); "
+        f"{' | '.join(line.strip() for line in top['lines'][1:])}; {smi}")
 
 
 def storm_matrix(device, seeds, nodes, steps, path):
@@ -4253,6 +4345,411 @@ def graph_phase(torch, report, smi):
     log(f"graph: phase 15 in {out['seconds']:.1f}s of command time")
 
 
+#: a correlation ID's process counter (``c000019``, after any scope)
+CORR_SEQ = re.compile(r"c\d{6}")
+
+
+def pod_span_names(spans):
+    """Each pod's span names (``ns/name`` -> names), over every
+    correlation ID a span naming the pod was recorded under."""
+    spans = list(spans)
+    pod_of = {}
+    for s in spans:
+        pod = (s.attrs or {}).get("pod")
+        if pod is not None and s.corr is not None:
+            pod_of.setdefault(s.corr, pod)
+    out = {}
+    for s in spans:
+        pod = pod_of.get(s.corr)
+        if pod is not None:
+            out.setdefault(pod, set()).add(s.name)
+    return out
+
+
+def decision_view(d):
+    """A decision record as two runs of one drive share it on any
+    device: (ns, pod, outcome, node, the names of its phases, its
+    explain reasons); its stamp, corr and phase times left out."""
+    return (d["ns"], d["pod"], d["outcome"], d["node"],
+            tuple(sorted(d["phases"])),
+            tuple(sorted((d.get("reasons") or {}).items())))
+
+
+def cross_journeys(merged):
+    """The cross-replica journeys of a merged trace, keyed by pod
+    (``ns/name``, from the spans' ``pod`` arg; corr IDs are process
+    counters, a pod's name is not): (replicas, span names in order,
+    shards)."""
+    from nhd_tpu_torch.obs.chrome import (
+        journey_replicas,
+        pod_journeys,
+        scheduled_journeys,
+    )
+
+    journeys = scheduled_journeys(pod_journeys(merged))
+    out = {}
+    for corr, events in sorted(journeys.items()):
+        reps = journey_replicas(merged, corr, journeys)
+        if len(reps) < 2:
+            continue
+        args = [ev.get("args") or {} for ev in events]
+        pod = next((a["pod"] for a in args if a.get("pod")),
+                   CORR_SEQ.sub("c*", corr))
+        out[pod] = (sorted(reps), [ev["name"] for ev in events],
+                    sorted({a["shard"] for a in args
+                            if a.get("shard") is not None}))
+    return out
+
+
+def masked(obj):
+    """*obj* (an artifact, a payload, a report) as two runs of one seed
+    share it on any device and in any process: every float (a time, or
+    a rate of times) and bucket table, the wall stamp and the revision
+    masked, correlation counters replaced by ``c*``."""
+    if isinstance(obj, dict):
+        return {CORR_SEQ.sub("c*", str(k)): (
+            None if k in ("buckets", "created_unix", "git_rev")
+            else masked(v)) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [masked(v) for v in obj]
+    if isinstance(obj, float):
+        return None
+    if isinstance(obj, str):
+        return CORR_SEQ.sub("c*", obj)
+    return obj
+
+
+def round_claims(spans):
+    """The round spans' (name, claims, rejects) in order (batch.py)."""
+    return [(s.name, s.attrs.get("claims"), s.attrs.get("rejects"))
+            for s in spans if s.name.startswith("round")]
+
+
+def latest_decisions(decisions):
+    """Each pod's newest decision (``ns/name`` -> record), from a
+    newest-first list."""
+    out = {}
+    for d in decisions:
+        out.setdefault(f"{d['ns']}/{d['pod']}", d)
+    return out
+
+
+def gc_paused(fn):
+    """(fn(), seconds the cyclic garbage collector paused it, its
+    collections), from ``gc.callbacks``."""
+    import gc
+
+    acc, start = {"s": 0.0, "n": 0}, []
+
+    def watch(phase, _info):
+        if phase == "start":
+            start.append(time.perf_counter())
+        elif start:
+            acc["s"] += time.perf_counter() - start.pop()
+            acc["n"] += 1
+
+    gc.callbacks.append(watch)
+    try:
+        out = fn()
+    finally:
+        gc.callbacks.remove(watch)
+    return out, acc["s"], acc["n"]
+
+
+def recorder_part(torch, report, smi):
+    """Phase 16 (a): phase 7's run (cfg4's pending set, 10,000 pods on
+    1,000 nodes, through ``Scheduler(device="cuda")``) with the flight
+    recorder on, its ring sized from the pods; counts set to 0 just
+    before and read just after. Then the same run with the recorder off
+    once more, so on and off stand in turns (phase 7, on, off), each
+    with the collector's pauses."""
+    from nhd_tpu_torch import obs
+    from nhd_tpu_torch.sim.trace_demo import ring_capacity
+
+    capacity = ring_capacity(DAEMON_PODS)
+    rec = obs.enable(capacity=capacity, decision_capacity=capacity)
+    try:
+        ((got, outcome), _wall, launches), gc_s, gc_n = gc_paused(
+            lambda: counted(torch, lambda: _daemon_run(card(torch),
+                                                       DAEMON_PODS)))
+        spans = rec.spans()
+        decisions = rec.recent_decisions(capacity)
+        dropped = rec.dropped()
+        n_spans, n_decisions = len(spans), len(decisions)
+        t0 = time.perf_counter()
+        schema = obs.validate_chrome_trace(obs.chrome_trace(rec))
+        export_s = time.perf_counter() - t0
+    finally:
+        obs.disable()
+    require_launched("recorder", launches, SPEC_PATH)
+    if dropped:
+        fail(f"recorder: the ring (capacity {capacity}) dropped {dropped} "
+             f"of {len(spans) + dropped} spans")
+    if schema:
+        fail(f"recorder: trace invalid: {schema[:5]}")
+    if len(decisions) >= capacity:
+        fail(f"recorder: the decision ring ({capacity}) filled up")
+    diff = [k for k in outcome if outcome[k] != DAEMON_OUTCOME.get(k)]
+    if diff or len(outcome) != len(DAEMON_OUTCOME):
+        fail(f"recorder: {len(diff)} pods bound differently from phase 7's "
+             f"run with the recorder off (first: {diff[:1]})")
+    names = pod_span_names(spans)
+    newest = latest_decisions(decisions)
+    bound = {f"{ns}/{pod}": v[0] for (ns, pod), v in outcome.items()
+             if v[0] is not None}
+    short = [p for p in bound if not SCAN_SPANS <= names.get(p, set())]
+    if short:
+        fail(f"recorder: {len(short)} bound pods lack one of "
+             f"{sorted(SCAN_SPANS)} (first: {short[0]}: "
+             f"{sorted(names.get(short[0], ()))})")
+    wrong = [p for p, node in bound.items()
+             if p not in newest or newest[p]["outcome"] != "scheduled"
+             or newest[p]["node"] != node
+             or not SCAN_SPANS <= set(newest[p]["phases"])]
+    if wrong:
+        fail(f"recorder: {len(wrong)} bound pods' decisions disagree with "
+             f"their bind (first: {wrong[0]}: {newest.get(wrong[0])})")
+    rounds = round_claims(spans)
+    r0 = [c for n, c, _r in rounds if n == "round0"]
+    if not r0 or not r0[0]:
+        fail(f"recorder: the first batch's round-0 span carries no claims "
+             f"from the megaround ({rounds[:4]})")
+    waited = sum(1 for p in bound if "queue_wait" in names.get(p, ()))
+    del spans, decisions, names, newest, rec  # the ring, out of the off run
+    (after, after_outcome), gc_off_s, gc_off_n = gc_paused(
+        lambda: _daemon_run(card(torch), DAEMON_PODS))
+    if after_outcome != outcome:
+        fail("recorder: the run with the recorder off again placed "
+             "differently")
+    rate = got["bound"] / got["wall"]
+    off = report["daemon"]
+    OPS["a"] = {
+        "pods": DAEMON_PODS, "nodes": DAEMON_NODES, "capacity": capacity,
+        "spans": n_spans, "decisions": n_decisions, "dropped": dropped,
+        "bound": got["bound"], "wall_s": got["wall"], "binds_per_s": rate,
+        "off_wall_s": off["wall_s"], "off_binds_per_s": off["binds_per_s"],
+        "off_after_wall_s": after["wall"], "gc_s": gc_s, "gc_n": gc_n,
+        "off_after_gc_s": gc_off_s, "off_after_gc_n": gc_off_n,
+        "export_validate_s": export_s, "round0_claims": r0,
+        "queue_wait_pods": waited, "launches": launches,
+    }
+    log(f"ops (a) recorder on at cfg4's width: {DAEMON_PODS} pods on "
+        f"{DAEMON_NODES} nodes, bound {got['bound']} (placements equal to "
+        f"phase 7's), ring {capacity} holding {n_spans} spans "
+        f"({n_spans / DAEMON_PODS:.2f} a pod), 0 dropped, "
+        f"{n_decisions} decisions, trace valid (export and check "
+        f"{export_s:.3f}s); every bound pod carries "
+        f"{'/'.join(sorted(SCAN_SPANS))} and a scheduled decision on its "
+        f"node ({waited} a queue_wait: scan batches have none); round-0 "
+        f"claims by batch {r0}; wall={got['wall']:.4f}s "
+        f"({rate:.0f} binds/s; collector pauses {gc_s:.3f}s in {gc_n}) "
+        f"against the recorder off in phase 7 {off['wall_s']:.4f}s "
+        f"({off['binds_per_s']:.0f} binds/s) and right after "
+        f"{after['wall']:.4f}s ({after['bound'] / after['wall']:.0f} "
+        f"binds/s; collector pauses {gc_off_s:.3f}s in {gc_off_n}), on/off "
+        f"{got['wall'] / off['wall_s']:.3f}x and "
+        f"{got['wall'] / after['wall']:.3f}x; launches={launches}; {smi}")
+
+
+def trace_view(torch, device, work):
+    """The trace demo (``sim/trace_demo.py``) at its defaults on
+    *device*: its exit code, printed lines, each pod's span names, the
+    decisions, the round spans and the binds; the counts set to 0 just
+    before and read just after."""
+    import io
+
+    from nhd_tpu_torch import obs
+    from nhd_tpu_torch.sim import trace_demo as td
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            (code, rec, backend), wall, launches = counted(
+                torch, lambda: td.demo(pods=6, nodes=4, device=device,
+                                       out=work, capacity=td.ring_capacity(6)))
+        view = {
+            "code": code,
+            "pods": {p: sorted(n) for p, n in pod_span_names(rec.spans()).items()},
+            "decisions": [decision_view(d) for d in rec.recent_decisions(256)],
+            "rounds": round_claims(rec.spans()),
+            "binds": {f"{k[0]}/{k[1]}": p.node for k, p in backend.pods.items()},
+        }
+    finally:
+        obs.disable()
+    return view, buf.getvalue().splitlines(), wall, launches
+
+
+def trace_part(torch, smi):
+    """Phase 16 (b): the trace demo on the card, then on the CPU with
+    speculation on (the card's default): each pod's span names, the
+    decisions and the round spans' claims equal."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="nhd-trace-") as work:
+        got, lines, wall, launches = trace_view(torch, card(torch), work)
+        with env(NHD_TPU_SPECULATE="1"):
+            cpu, _cpu_lines, cpu_wall, _ = trace_view(torch, "cpu", work)
+    if got["code"] != 0:
+        fail(f"trace demo on cuda: exit {got['code']}: {lines}")
+    require_launched("trace demo", launches, SPEC_PATH)
+    for key in ("code", "binds", "pods", "decisions", "rounds"):
+        if got[key] != cpu[key]:
+            fail(f"trace demo: {key} differ between cuda and cpu: "
+                 f"{got[key]} / {cpu[key]}")
+    OPS["b"] = {"wall_s": wall, "cpu_wall_s": cpu_wall, "lines": lines,
+                "rounds": got["rounds"], "launches": launches}
+    log(f"ops (b) trace demo on cuda: {lines[0]}; {lines[2]}; span names "
+        f"and decisions of all {len(got['pods'])} pods and the round spans "
+        f"{got['rounds']} equal to the CPU run with speculation on; "
+        f"wall={wall:.3f}s (cpu {cpu_wall:.3f}s); launches={launches}; {smi}")
+
+
+def replay_part(torch, smi):
+    """Phase 16 (c): the replay demo's four acts on the card (recorded
+    with speculation on, the card's default made explicit so the
+    journal's knobs name it), then its journal replayed on the CPU."""
+    import io
+    import tempfile
+
+    from nhd_tpu_torch.sim import trace_replay as tr
+
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory(prefix="nhd-replay-") as work:
+        with env(NHD_TPU_SPECULATE="1"), contextlib.redirect_stdout(buf):
+            code, wall, launches = counted(
+                torch, lambda: tr.demo(card(torch), workdir=work))
+        lines = buf.getvalue().splitlines()
+        if code != 0:
+            fail(f"replay demo on cuda: exit {code}: {lines}")
+        require_launched("replay demo", launches, SPEC_PATH)
+        path = os.path.join(work, "churn.journal.jsonl")
+        sig, cpu_wall, _ = replay(torch, "replay demo's cuda journal", path,
+                                  "cpu")
+    OPS["c"] = {"wall_s": wall, "cpu_replay_s": cpu_wall, "lines": lines,
+                "decisions": len(sig), "launches": launches}
+    acts = [line.split(": ", 1)[1] for line in lines
+            if line.startswith("trace-replay: act")]
+    log(f"ops (c) replay demo on cuda: {' | '.join(acts)}; demo PASS in "
+        f"{wall:.3f}s; its journal replayed on the CPU: {len(sig)} decisions, "
+        f"0 divergences ({cpu_wall:.3f}s); launches={launches}; {smi}")
+
+
+def fleet_run(torch, device, out):
+    """The fleet demo (``sim/fleet_demo.py``) at its defaults on
+    *device*, its artifacts into *out*: exit code, printed lines, the
+    chosen seed, the cross-replica journeys by pod and the masked fleet
+    payload, with the process-wide tallies the payload folds in set to
+    0 first."""
+    import glob
+    import io
+
+    from nhd_tpu_torch.k8s.retry import API_COUNTERS
+    from nhd_tpu_torch.sim import fleet_demo as fd
+    from nhd_tpu_torch.solver.guard import GUARD
+
+    API_COUNTERS.reset()
+    GUARD.reset()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code, wall, launches = counted(
+            torch, lambda: fd.main(["--out-dir", out, "--device", str(device)]))
+    view = {"code": code, "seed": None, "journeys": None, "payload": None}
+    for path in glob.glob(os.path.join(out, "*.json")):
+        with open(path) as fh:
+            obj = json.load(fh)
+        name = os.path.basename(path)
+        if name.startswith("journey-seed"):
+            view["seed"] = int(name[len("journey-seed"):-len(".json")])
+            view["journeys"] = cross_journeys(obj)
+        else:
+            view["payload"] = masked(obj["payload"])
+    return view, buf.getvalue().splitlines(), wall, launches
+
+
+def fleet_part(torch, smi):
+    """Phase 16 (d): the fleet demo on the card, then on the CPU with
+    speculation on: the same seed, cross-replica journeys by pod and
+    fleet payload (times masked)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="nhd-fleet-") as work:
+        got, lines, wall, launches = fleet_run(
+            torch, card(torch), os.path.join(work, "cuda"))
+        with env(NHD_TPU_SPECULATE="1"):
+            cpu, _, cpu_wall, _ = fleet_run(torch, "cpu",
+                                            os.path.join(work, "cpu"))
+    if got["code"] != 0 or got["seed"] is None:
+        fail(f"fleet demo on cuda: exit {got['code']}: {lines}")
+    require_launched("fleet demo", launches, SPEC_PATH)
+    for key in ("code", "seed", "journeys", "payload"):
+        if got[key] != cpu[key]:
+            fail(f"fleet demo: {key} differ between cuda and cpu: "
+                 f"{got[key]} / {cpu[key]}")
+    OPS["d"] = {"wall_s": wall, "cpu_wall_s": cpu_wall, "seed": got["seed"],
+                "cross_replica": len(got["journeys"]), "lines": lines,
+                "launches": launches}
+    log(f"ops (d) fleet demo on cuda: seed {got['seed']}, "
+        f"{len(got['journeys'])} cross-replica journeys "
+        f"({sorted(got['journeys'])}); seed, journeys by pod and payload "
+        f"(times masked) equal to the CPU run; {' | '.join(lines[1:4])}; "
+        f"wall={wall:.3f}s (cpu {cpu_wall:.3f}s); launches={launches}; {smi}")
+
+
+def soak_part(torch, smi):
+    """Phase 16 (e): the soak, SOAK_SEEDS x SOAK_STEPS at SOAK_NODES
+    nodes, on the card and then on the CPU with speculation on: every
+    seed clean, the totals equal."""
+    import io
+
+    from nhd_tpu_torch.sim import soak
+
+    argv = ["--seeds", str(SOAK_SEEDS), "--steps", str(SOAK_STEPS),
+            "--nodes", str(SOAK_NODES), "--device"]
+    runs = {}
+    for side, device in (("cuda", str(card(torch))), ("cpu", "cpu")):
+        buf = io.StringIO()
+        with env(NHD_TPU_SPECULATE="1"), contextlib.redirect_stdout(buf):
+            code, wall, launches = counted(
+                torch, lambda: soak.main(argv + [device]))
+        lines = buf.getvalue().splitlines()
+        if code != 0 or not lines or not lines[-1].startswith("SOAK OK"):
+            fail(f"soak on {side}: exit {code}: {lines}")
+        runs[side] = (lines[-1].split(" — ", 1)[1], wall, launches)
+    totals, wall, launches = runs["cuda"]
+    require_launched("soak", launches, SPEC_PATH)
+    if totals != runs["cpu"][0]:
+        fail(f"soak: totals differ between cuda and cpu: {totals} / "
+             f"{runs['cpu'][0]}")
+    OPS["e"] = {"seeds": SOAK_SEEDS, "steps": SOAK_STEPS, "nodes": SOAK_NODES,
+                "totals": totals, "wall_s": wall, "cpu_wall_s": runs["cpu"][1],
+                "launches": launches}
+    log(f"ops (e) soak on cuda: {SOAK_SEEDS} seeds x {SOAK_STEPS} steps at "
+        f"{SOAK_NODES} nodes, all clean, {totals} (equal to the CPU's); "
+        f"wall={wall:.3f}s (cpu {runs['cpu'][1]:.3f}s); launches={launches}; "
+        f"{smi}")
+
+
+def ops_phase(torch, report, smi):
+    """Phase 16: the operator gates on the card (module docstring, parts
+    a-e; (f) ran inside phase 10)."""
+    walls = {}
+    for part, fn in (("a", lambda: recorder_part(torch, report, smi)),
+                     ("b", lambda: trace_part(torch, smi)),
+                     ("c", lambda: replay_part(torch, smi)),
+                     ("d", lambda: fleet_part(torch, smi)),
+                     ("e", lambda: soak_part(torch, smi))):
+        t0 = time.perf_counter()
+        fn()
+        walls[part] = time.perf_counter() - t0
+    if "f" not in OPS:
+        fail("fleet top: phase 10's mid-run scrape did not run it")
+    report["ops"] = dict(OPS, part_s=walls, smi=smi)
+    log(f"ops: phase 16's parts (a)-(e) took "
+        + " / ".join(f"{walls[p]:.1f}" for p in sorted(walls))
+        + f" s of command time ({sum(walls.values()):.1f} s; (f) "
+        f"{OPS['f']['wall_s']:.3f} s inside phase 10); {smi}")
+
+
 def main():
     try:
         import torch
@@ -4385,13 +4882,17 @@ def main():
     t4 = time.perf_counter()
     # 15. the megaround as one graph replay against the host loop
     graph_phase(torch, report, smi)
+    t5 = time.perf_counter()
+    # 16. the operator gates: recorder at full width, demos, soak
+    ops_phase(torch, report, smi)
     report["phase_s"] = {"11": t1 - t0, "12": t2 - t1, "13": t3 - t2,
-                         "14": t4 - t3, "15": time.perf_counter() - t4}
-    log("phases 11 / 12 / 13 / 14 / 15: " + " / ".join(
-        f"{report['phase_s'][p]:.1f}" for p in ("11", "12", "13", "14", "15"))
+                         "14": t4 - t3, "15": t5 - t4,
+                         "16": time.perf_counter() - t5}
+    log("phases 11 / 12 / 13 / 14 / 15 / 16: " + " / ".join(
+        f"{report['phase_s'][p]:.1f}" for p in ("11", "12", "13", "14", "15", "16"))
         + " s of command time")
 
-    # 16. kernels line
+    # 17. kernels line
     meta = {
         "nic_node_masks": ("nhd_tpu_torch/kernels/nic_node_masks.cu",
                            "nhd_tpu/solver/kernel.py:136"),

@@ -39,3 +39,17 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     torch.backends.cudnn.allow_tf32 = False
     return dev
 
+
+
+def resolve_for_tool(device: DeviceLike, prog: str):
+    """``resolve_device`` for a command-line gate: the device, or None
+    with the refusal printed to stderr under *prog*'s name, so the gate
+    exits non-zero before any work (a CUDA request without a GPU names
+    cuda and never continues on the CPU)."""
+    import sys
+
+    try:
+        return resolve_device(device)
+    except (RuntimeError, ValueError) as exc:
+        print(f"{prog}: {exc}", file=sys.stderr)
+        return None

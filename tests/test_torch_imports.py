@@ -126,14 +126,17 @@ def test_lint_sanitizer_and_perf_import_without_jax():
       "--steps", "2"]),
     ("nhd_tpu_torch.solver.aot",
      ["--first-bind-probe", "--device", "cpu"]),
+    ("nhd_tpu_torch.sim.soak",
+     ["--device", "cpu", "--seeds", "1", "--steps", "2"]),
+    ("nhd_tpu_torch.sim.trace_replay", ["--device", "cpu", "--demo"]),
     ("nhd_tpu_torch.parallel.spmd_bench",
      ["--device", "cpu", "--devices", "8", "--pods", "64", "--nodes", "32",
       "--churn-rounds", "1"]),
 ])
 def test_module_entry_points_run_without_jax(module, args, tmp_path):
-    """The storm matrix, the first-bind probe and the cfg6 mesh probe,
-    each run as by ``python -m`` on the CPU in a fresh interpreter,
-    finish with nothing of jax or nhd_tpu imported."""
+    """The storm matrix, the first-bind probe, the soak, the replay demo
+    and the cfg6 mesh probe, each run as by ``python -m`` on the CPU in a
+    fresh interpreter, finish with nothing of jax or nhd_tpu imported."""
     code = (
         "import runpy, sys\n"
         f"sys.argv = [{module!r}] + {args!r}\n"
