@@ -240,13 +240,56 @@ Phases (one line each; the last line is the contract line):
    totals equal to the CPU's; (f) during phase 10's mid-run scrape,
    ``obs.fleet_top`` over the CLI's metrics port: exit 0 and its fleet
    artifact valid;
-17. the kernels JSON line: per kernel its launches in phases 4-7 and
+17. the policy engine, tiered preemption, churn past the stream
+   threshold and the other storm modes on the card, each part on cuda
+   and then on the CPU with the card's defaults made explicit
+   (speculation, round pipelining, the rank cap; ``CARD_DEFAULTS``),
+   each part's wall printed: (a) phase 7's cell with its nodes in
+   cfg8:hetero's two generations (sim/pending.py ``hetero_class``: gen-b
+   on the first half) under ``NHD_POLICY=1`` and cfg8's throughput
+   matrix: every pod's node, solved config and NAD and the bound count
+   equal to the CPU's, every scored batch without a megaround or a claim
+   kernel, the solve kernels and rank_top launched; the aggregate placed
+   throughput (bench.py:738-744), wall and binds/s beside the
+   ``NHD_POLICY=0`` control on the card, which must place as phase 7;
+   every solve and rank_top call of one scored cfg4 schedule through
+   ``BatchScheduler`` copied and held to its plain version on the card,
+   and of one over ``POLICY_WIDE_NODES`` nodes, whose rows take
+   rank_select.cuh's wide path (64-bit words; no whole row of 1,024 keys
+   or fewer needs them at any score: ``sweep.rank_words``); (b) after
+   (a), ``PREEMPTORS`` tier-2 pods of the largest shape into the filled
+   fleet: the fenced evictions, the victims, every pod's outcome (the
+   preemptors' and the requeued victims') and the evictions of each
+   batch equal to the CPU's, each batch within its eviction budget; and
+   bench.py's micro-cell (2 nodes, 5 tier-0 then 2 tier-2 pods): its
+   evictions above 0 and equal to the CPU's; (c) phase 9 (d)'s 10,000
+   cfg4 nodes and 2,000 pods through the daemon past NHD_STREAM_NODES
+   in three 4,096-node tiles (routed, persistent contexts under
+   NHD_DELTA_STATE), then ``CHURN_TURNS`` turns of a seeded cfg7-mix
+   script (creates, deletes of bound pods, cordon and maintenance
+   toggles, group moves) applied through the fake backend and met by
+   the daemon's inventory and watch path: after every turn every pod's
+   node, solved config and NAD, the binds and the device-state counters
+   equal to the CPU daemon's run of the same script, each turn's rows
+   uploaded within bench.py:382-396's changed-row budget, the turn
+   before's binds charged to it beside its own (a batch's claimed rows
+   upload at the next batch's first solve), no full rebuild after the
+   first turn, the megaround graph, the claim kernels, spec_gate and
+   the solve kernels launched; the tile sub-calls launching from two
+   threads or more; (d) the storm matrices of ``STORM_MODES`` (policy,
+   tenant, HA, federation) through nhd_tpu_torch/sim/storm.py in this
+   process: every cell's invariants held on cuda, each matrix equal to
+   the CPU's with ``STORM_MASKED`` masked, the policy cells' scored
+   batches without a megaround, the solve kernels launched in each
+   mode. ``--only=17[:PARTS]`` runs phases 1-2 and this phase alone;
+18. the kernels JSON line: per kernel its launches in phases 4-7 and
    9-14 (counts set to 0 just before each counted run and read just
    after; a megaround graph replay adds what its capture recorded;
    phase 10's and the subprocesses of 12 and 13 are those processes'
    own, from start to exit; 13's (a), (b) and (g) are comparisons, not
-   counted; 14's are its child's (a) and (b) runs; phase 16 keeps its
-   parts' launches in its own report, each part's required there), its
+   counted; 14's are its child's (a) and (b) runs; phases 16 and 17 keep
+   their parts' launches in their own reports, each part's required
+   there), its
    time, its plain
    version's time and its bound — the solve kernels and rank_top at the
    cfg4 G=2 bucket, rank_merge over its 4 shards, the claim kernels and
@@ -370,6 +413,42 @@ DAEMON_OUTCOME = {}
 OPS = {}
 #: phase 16 (e): the soak's seeds, steps and nodes on each device
 SOAK_SEEDS, SOAK_STEPS, SOAK_NODES = 4, 60, 4
+#: phase 17: each part's figures, for the report
+POLICY = {}
+#: phase 17: the card's defaults made explicit for every CPU run (the
+#: speculative round 0, round pipelining, the rank cap), so both sides
+#: take the same rounds
+CARD_DEFAULTS = dict(NHD_TPU_SPECULATE="1", NHD_PIPELINE="1",
+                     NHD_TPU_RANK_CAP="512")
+#: phase 17 (a): the nodes of the second scored schedule copied, whose
+#: rank rows (Np = 4,096) pass rank_select.cuh's whole-row limit of 1,024
+#: keys, and (b) the tier-2 preemptors sent into the filled fleet
+POLICY_WIDE_NODES, PREEMPTORS = 4096, 4
+#: phase 17 (c): the churn script's seed, turns and events a turn
+#: (bench.py cfg7's mix), and what was cut
+CHURN_SEED, CHURN_TURNS, CHURN_EVENTS = 7, 4, 200
+CHURN_CUT = ("cfg7's stream (10,000 events a second for 60 simulated s, "
+             "bench.py:1300-1305) cut to 4 turns of 200 events: the part "
+             "holds every turn to the CPU daemon's run of the same script, "
+             "and the CPU side must fit the smoke's time limit")
+#: phase 17 (d): the storm matrices of the other modes (Makefile:19-22,
+#: :167-185) at the Makefile's sizes, each (mode, arguments), the knobs
+#: both sides run under (the card's defaults made explicit) and the
+#: summary fields masked in the comparison: ``wall_seconds``, the
+#: matrix's wall clock (``time.time``), the one field no run can repeat
+STORM_MODES = (
+    ("policy", ["--policy", "--profiles", "mixed-gen,quota-storm,maint-wave",
+                "--seeds", "3", "--steps", "40"]),
+    ("tenant", ["--tenant", "--profiles", "tenant-storm", "--seeds", "2",
+                "--steps", "40"]),
+    ("ha", ["--ha", "--profiles", "ha-light,ha-storm", "--seeds", "6",
+            "--steps", "50"]),
+    ("federation", ["--federation", "3", "--replicas", "3", "--profiles",
+                    "fed-light,fed-storm", "--nodes", "6", "--seeds", "6",
+                    "--steps", "50"]),
+)
+STORM_ENV = dict(CARD_DEFAULTS, NHD_MESH="off")
+STORM_MASKED = frozenset({"wall_seconds"})
 #: phase 16: the span names every pod bound by a scan batch carries (a
 #: pod found by the scan never waited in the watch queue, so it has no
 #: queue_wait span; (b) drives the watch path and holds all five)
@@ -1595,25 +1674,42 @@ def run_cell(torch, name, cluster_fn, report, launches_total, *, speculative):
     return placed
 
 
-def _daemon_run(device, n_pods, n_nodes=DAEMON_NODES, tile=None):
-    """cfg4's pending set (sim/pending.py) on a fresh fake backend, driven
-    through the port's Scheduler on *device* by its normal turn (with
-    *tile*, the streaming tile the daemon uses past NHD_STREAM_NODES).
-    Returns the drive's numbers and each pod's (node, solved config,
-    NAD)."""
+def pod_outcome(backend):
+    """Each pod's (node, solved config, NAD) on a fake backend."""
+    from nhd_tpu_torch.k8s.interface import CFG_ANNOTATION, NAD_ANNOTATION
+
+    return {key: (p.node, p.annotations.get(CFG_ANNOTATION),
+                  p.annotations.get(NAD_ANNOTATION))
+            for key, p in sorted(backend.pods.items())}
+
+
+def cfg4_daemon(device, n_pods, n_nodes, node_class=None):
+    """cfg4's pending set (sim/pending.py; with *node_class*, each node in
+    its class) on a fresh fake backend, and the port's Scheduler on
+    *device* over it. Returns (backend, scheduler)."""
     import queue
 
     import nhd_tpu_torch.sim as sim
     from nhd_tpu_torch.k8s.fake import FakeClusterBackend
-    from nhd_tpu_torch.k8s.interface import CFG_ANNOTATION, NAD_ANNOTATION
     from nhd_tpu_torch.scheduler import core
     from nhd_tpu_torch.scheduler.events import WatchQueue
     from nhd_tpu_torch.sim import pending
 
     backend = FakeClusterBackend()
-    pending.fill_cfg4(backend, sim, n_nodes, n_pods)
-    sched = core.Scheduler(backend, WatchQueue(), queue.Queue(),
-                           respect_busy=False, device=device)
+    pending.fill_cfg4(backend, sim, n_nodes, n_pods, node_class=node_class)
+    return backend, core.Scheduler(backend, WatchQueue(), queue.Queue(),
+                                   respect_busy=False, device=device)
+
+
+def _daemon_run(device, n_pods, n_nodes=DAEMON_NODES, tile=None):
+    """cfg4's pending set driven through the port's Scheduler on *device*
+    by its normal turn (``cfg4_daemon``; with *tile*, the streaming tile
+    the daemon uses past NHD_STREAM_NODES). Returns the drive's numbers
+    and each pod's (node, solved config, NAD)."""
+    from nhd_tpu_torch.scheduler import core
+    from nhd_tpu_torch.sim import pending
+
+    backend, sched = cfg4_daemon(device, n_pods, n_nodes)
     saved = core.STREAM_TILE_NODES
     core.STREAM_TILE_NODES = tile or saved
     try:
@@ -1624,12 +1720,7 @@ def _daemon_run(device, n_pods, n_nodes=DAEMON_NODES, tile=None):
     got["tile_nodes"] = (sched._stream.tile_nodes if got["streamed"] else None)
     got["batch_s"] = sum(sched.perf[k] for k in (
         "solve_seconds_total", "select_seconds_total", "assign_seconds_total"))
-    outcome = {
-        key: (p.node, p.annotations.get(CFG_ANNOTATION),
-              p.annotations.get(NAD_ANNOTATION))
-        for key, p in sorted(backend.pods.items())
-    }
-    return got, outcome
+    return got, pod_outcome(backend)
 
 
 def daemon_phase(torch, report, launches_total, smi):
@@ -4750,7 +4841,544 @@ def ops_phase(torch, report, smi):
         f"{OPS['f']['wall_s']:.3f} s inside phase 10); {smi}")
 
 
-def main():
+# ---------------------------------------------------------------------------
+# phase 17: the policy engine, tiered preemption, churn past the stream
+# threshold, and the tenant, HA and federation storms on the card
+# ---------------------------------------------------------------------------
+
+
+def policy_env():
+    """The policy engine on, with cfg8:hetero's throughput matrix
+    (bench.py:716-719) as the operator sets it (``NHD_POLICY_TPUT``)."""
+    from nhd_tpu_torch.sim import pending
+
+    return dict(NHD_POLICY="1",
+                NHD_POLICY_TPUT=json.dumps(pending.HETERO_MATRIX))
+
+
+@contextlib.contextmanager
+def batch_calls():
+    """While inside, every ``BatchScheduler.schedule`` call (the daemon's
+    batches, each tile sub-call of the tiler) appends (its thread, whether
+    a live scoring matrix was on, what that thread launched during the
+    call) to the yielded list."""
+    import threading
+
+    from nhd_tpu_torch import kernels
+    from nhd_tpu_torch.policy.scoring import scoring_active
+    from nhd_tpu_torch.solver.batch import BatchScheduler
+
+    calls = []
+    inner = BatchScheduler.schedule
+
+    def spy(self, *args, **kw):
+        scored = scoring_active()
+        before = kernels.thread_launches()
+        try:
+            return inner(self, *args, **kw)
+        finally:
+            after = kernels.thread_launches()
+            calls.append((threading.get_ident(), scored,
+                          {n: after[n] - before[n] for n in kernels.COUNTED}))
+
+    BatchScheduler.schedule = spy
+    try:
+        yield calls
+    finally:
+        BatchScheduler.schedule = inner
+
+
+def scored_without_megaround(label, calls):
+    """Fail unless some batch of *calls* (``batch_calls``) ran under a live
+    scoring matrix, and no scored batch replayed a megaround or launched a
+    claim kernel or spec_gate. Returns the scored batches' count."""
+    from nhd_tpu_torch import kernels
+
+    scored = [c for _t, s, c in calls if s]
+    if not scored:
+        fail(f"{label}: no batch ran under the scoring matrix")
+    spec = (kernels.GRAPH, kernels.GATE_KERNEL, *kernels.CLAIM_KERNELS)
+    bad = [c for c in scored if any(c[k] for k in spec)]
+    if bad:
+        fail(f"{label}: {len(bad)} scored batches launched the megaround "
+             f"(first: {bad[0]})")
+    return len(scored)
+
+
+def timed_run(fn):
+    """(fn(), wall seconds, {}): ``counted``'s shape for a CPU run."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0, {}
+
+
+def placed_tput(outcome, n_nodes):
+    """cfg8:hetero's aggregate placed throughput (bench.py:738-744): over
+    the bound pods of ``fill_cfg4``, the matrix's throughput of the pod's
+    workload kind (its shape: the second is CPU-only) on its node's
+    generation."""
+    from nhd_tpu_torch.sim import pending
+
+    total = 0.0
+    for (_ns, name), (node, _cfg, _nad) in outcome.items():
+        if node is None or not name.startswith("pod-"):
+            continue
+        kind = "cpu" if int(name[4:]) % 3 == 1 else "gpu"
+        total += pending.HETERO_MATRIX[kind][
+            pending.hetero_class(int(node[4:]), n_nodes)]
+    return total
+
+
+def policy_daemon(device, count, *, preempt=True):
+    """Phase 7's cell split into cfg8:hetero's two generations
+    (``pending.fill_cfg4(node_class=hetero_class)``) through the port's
+    daemon on *device* by its normal turn; then, with *preempt*, tier-2
+    preemptors into the filled fleet (``pending.create_preemptors``,
+    ``preempt_batch``). *count* runs a thunk as ``counted`` does. Returns
+    the drive's figures and outcome, and the preemption's."""
+    import nhd_tpu_torch.sim as sim
+    from nhd_tpu_torch.sim import pending
+
+    backend, sched = cfg4_daemon(device, DAEMON_PODS, DAEMON_NODES,
+                                 node_class=pending.hetero_class)
+    with batch_calls() as calls:
+        got, wall, launches = count(lambda: pending.drive(sched))
+    a = {"got": got, "wall": wall, "launches": launches, "calls": calls,
+         "outcome": pod_outcome(backend)}
+    if not preempt:
+        return a, None
+    pods = pending.create_preemptors(backend, sim, PREEMPTORS)
+    with batch_calls() as calls_b:
+        per_batch, wall_b, launches_b = count(
+            lambda: pending.preempt_batch(sched, pods))
+    b = {"per_batch": per_batch, "wall": wall_b, "launches": launches_b,
+         "calls": calls_b, "evictions": [e[:4] for e in backend.evict_log],
+         "outcome": pod_outcome(backend),
+         "preemptors": [(ns, p) for p, ns, _uid in pods]}
+    return a, b
+
+
+def micro_cell(device):
+    """bench.py:667-692's preemption micro-cell on *device*: the fenced
+    evictions and each pod's outcome."""
+    import queue
+
+    import nhd_tpu_torch.sim as sim
+    from nhd_tpu_torch.k8s.fake import FakeClusterBackend
+    from nhd_tpu_torch.scheduler import core
+    from nhd_tpu_torch.scheduler.events import WatchQueue
+    from nhd_tpu_torch.sim import pending
+
+    backend = FakeClusterBackend()
+    n = pending.preempt_micro_cell(
+        backend, sim, lambda b: core.Scheduler(
+            b, WatchQueue(), queue.Queue(), respect_busy=False, device=device))
+    return n, [e[:4] for e in backend.evict_log], pod_outcome(backend)
+
+
+def rank_rows_by_words(torch, node, pod, real):
+    """The real type rows of one solve's sel plane (its plain version's,
+    on the card) by the words rank_select.cuh sorts them in: "whole 32",
+    "whole 64" or "wide 64" (``sweep.rank_words``)."""
+    from nhd_tpu_torch.kernels import reference, sweep
+    from nhd_tpu_torch.solver import kernel as kernel_mod
+
+    planes = reference.solve_planes(
+        *stage(kernel_mod, reference, node, pod)["solve_planes"][0])
+    keys = planes[0][:real["T"]]
+    n = keys.shape[1]
+    span = (keys.max(1).values.long() - keys.min(1).values.long()).tolist()
+    got = collections.Counter()
+    for s in span:
+        got[f"{'whole' if n <= sweep.RANK_WHOLE_MAX else 'wide'} "
+            f"{sweep.rank_words(n, s)}"] += 1
+    return got, max(span)
+
+
+def scored_copies(torch, label, n_nodes):
+    """One scored classic schedule of cfg4's batch over *n_nodes*
+    cap_cluster nodes in cfg8:hetero's two generations, through
+    ``BatchScheduler`` on the card, every solve and rank_top call copied
+    and held to its plain version (``capture_schedule``,
+    ``check_kernels``). Returns the solves, the rows by word width and the
+    widest key span."""
+    from nhd_tpu_torch.sim import pending
+    from nhd_tpu_torch.sim.workloads import cap_cluster, workload_mix
+    from nhd_tpu_torch.solver import BatchItem, BatchScheduler
+
+    nodes = cap_cluster(n_nodes, GROUPS)
+    for i, n in enumerate(nodes.values()):
+        n.node_class = pending.hetero_class(i, n_nodes)
+    items = [BatchItem(("ns", f"p{i}"), r)
+             for i, r in enumerate(workload_mix(CELL_PODS, GROUPS))]
+    sched = BatchScheduler(device=card(torch), respect_busy=False,
+                           register_pods=False)
+    _res, stats, cap = capture_schedule(torch, sched, nodes, items)
+    if cap.megarounds or cap.claims or stats.counters.get("spec_iterations"):
+        fail(f"{label}: a scored schedule ran the megaround")
+    words, widest = collections.Counter(), 0
+    for i, (G, real, node, pod, R) in enumerate(cap.solves):
+        if R is None:
+            fail(f"{label}: solve {i} was not a classic round's")
+        check_kernels(torch, f"{label} solve {i} G={G} T={real['T']}",
+                      node, pod, {"kernels": {}}, real, timed=False, R=R)
+        got, span = rank_rows_by_words(torch, node, pod, real)
+        words.update(got)
+        widest = max(widest, span)
+    return {"solves": len(cap.solves), "rounds": stats.rounds,
+            "words": dict(words), "widest_span": widest}
+
+
+def policy_part(torch, smi):
+    """Phase 17 (a) and (b): the policy engine at cfg4's width and tiered
+    preemption on the card, each against the CPU."""
+    from nhd_tpu_torch import kernels
+    from nhd_tpu_torch.policy import preempt
+
+    penv = policy_env()
+    dev = card(torch)
+    with env(**penv):
+        a, b = policy_daemon(dev, lambda fn: counted(torch, fn))
+    with env(**penv, **CARD_DEFAULTS):
+        cpu_a, cpu_b = policy_daemon("cpu", timed_run)
+    # (a) the scored run against the CPU
+    diff = [k for k in a["outcome"] if a["outcome"][k] != cpu_a["outcome"].get(k)]
+    if diff or a["got"]["bound"] != cpu_a["got"]["bound"] or not a["got"]["bound"]:
+        fail(f"policy (a): {len(diff)} pods bound differently on cuda and cpu "
+             f"(first: {diff[:1]}), bound {a['got']['bound']} vs "
+             f"{cpu_a['got']['bound']}")
+    scored = scored_without_megaround("policy (a)", a["calls"])
+    la = a["launches"]
+    require_launched("policy (a)", la, kernels.SOLVE_KERNELS + ("rank_top",))
+    spec = (kernels.GRAPH, kernels.GATE_KERNEL, *kernels.CLAIM_KERNELS)
+    if any(la[k] for k in spec):
+        fail(f"policy (a): the scored daemon run launched the megaround: {la}")
+    # the control: the same fleet with the policy off places as phase 7
+    with env(NHD_POLICY="0", NHD_POLICY_TPUT=None):
+        ctl, _ = policy_daemon(dev, lambda fn: counted(torch, fn),
+                               preempt=False)
+    require_launched("policy control", ctl["launches"], SPEC_PATH)
+    diff = [k for k in ctl["outcome"] if ctl["outcome"][k] != DAEMON_OUTCOME.get(k)]
+    if diff or len(ctl["outcome"]) != len(DAEMON_OUTCOME):
+        fail(f"policy control (NHD_POLICY=0): {len(diff)} pods bound "
+             f"differently from phase 7's run (first: {diff[:1]})")
+    tput = placed_tput(a["outcome"], DAEMON_NODES)
+    tput_off = placed_tput(ctl["outcome"], DAEMON_NODES)
+    # every solve and rank_top call of one scored schedule, at cfg4's
+    # width and at POLICY_WIDE_NODES (rows past rank_select.cuh's whole-row
+    # limit: its wide regime, 64-bit words)
+    copies = {}
+    with env(**penv):
+        for n_nodes in (CELL_NODES, POLICY_WIDE_NODES):
+            copies[n_nodes] = scored_copies(
+                torch, f"policy scored schedule N={n_nodes}", n_nodes)
+    words = collections.Counter()
+    for c in copies.values():
+        words.update(c["words"])
+    if not words.get("wide 64"):
+        fail(f"policy (a): no scored rank_top row took rank_select.cuh's "
+             f"wide path: {dict(words)}")
+    rate = a["got"]["bound"] / a["got"]["wall"]
+    rate_off = ctl["got"]["bound"] / ctl["got"]["wall"]
+    log(f"policy (a) cuda: {DAEMON_NODES} cfg4 nodes in two generations "
+        f"(gen-b on the first half), {DAEMON_PODS} pods, NHD_POLICY=1 with "
+        f"{penv['NHD_POLICY_TPUT']}: bound {a['got']['bound']} in "
+        f"{a['got']['turns']} turns, {scored} scored batches, none with a "
+        f"megaround; placed throughput {tput:.1f} against {tput_off:.1f} "
+        f"with the policy off ({tput / tput_off - 1:+.2%}); wall="
+        f"{a['got']['wall']:.4f}s ({rate:.0f} binds/s; policy off "
+        f"{ctl['got']['wall']:.4f}s, {rate_off:.0f} binds/s); every pod's "
+        f"node, solved config and NAD identical to the CPU run (wall "
+        f"{cpu_a['got']['wall']:.4f}s); the policy-off control placed as "
+        f"phase 7; launches={la}; control launches={ctl['launches']}; {smi}")
+    log(f"policy (a) scored schedules copied: "
+        + "; ".join(f"N={n}: {c['solves']} solves in {c['rounds']} rounds, "
+                    f"rank rows by words {c['words']}, widest key span "
+                    f"{c['widest_span']}" for n, c in copies.items())
+        + "; every solve kernel and rank_top call exact against its plain "
+        "version on the card")
+    # (b) tiered preemption into the filled fleet
+    for key in ("evictions", "outcome"):
+        if b[key] != cpu_b[key]:
+            fail(f"policy (b): {key} differ between cuda and cpu")
+    if b["per_batch"] != cpu_b["per_batch"]:
+        fail(f"policy (b): evictions by batch differ: {b['per_batch']} / "
+             f"{cpu_b['per_batch']}")
+    if not b["evictions"]:
+        fail("policy (b): the tier-2 preemptors evicted nothing")
+    over = [n for n in b["per_batch"]
+            if sum(n.values()) > preempt.round_budget()
+            or any(v > preempt.tenant_budget() for v in n.values())]
+    if over:
+        fail(f"policy (b): a batch broke its eviction budget "
+             f"({preempt.round_budget()} a batch, "
+             f"{preempt.tenant_budget()} a tenant): {over}")
+    lb = b["launches"]
+    require_launched("policy (b)", lb, kernels.SOLVE_KERNELS + ("rank_top",))
+    scored_b = scored_without_megaround("policy (b)", b["calls"])
+    victims = sorted({(ns, pod) for ns, pod, _uid, _node in b["evictions"]})
+    placed_pre = [b["outcome"][k][0] for k in b["preemptors"]]
+    rebound = sum(1 for v in victims if b["outcome"][v][0] is not None)
+    with env(**penv):
+        n_micro, ev_micro, out_micro = micro_cell(dev)
+    with env(**penv, **CARD_DEFAULTS):
+        cpu_micro = micro_cell("cpu")
+    if (n_micro, ev_micro, out_micro) != cpu_micro or not n_micro:
+        fail(f"policy (b) micro-cell: {n_micro} evictions on cuda, "
+             f"{cpu_micro[0]} on the CPU (or outcomes differ)")
+    log(f"policy (b) cuda: {PREEMPTORS} tier-2 pods of the largest shape into "
+        f"the filled fleet: {len(b['evictions'])} fenced evictions over "
+        f"{len(b['per_batch'])} batches ({b['per_batch']}; budget "
+        f"{preempt.round_budget()} a batch, {preempt.tenant_budget()} a "
+        f"tenant, held), victims {victims}, {rebound} of them bound again, "
+        f"preemptors on {placed_pre}; {scored_b} scored batches, none with a "
+        f"megaround; evictions, victims and every pod's node, config and NAD "
+        f"identical to the CPU run; wall={b['wall']:.4f}s (cpu "
+        f"{cpu_b['wall']:.4f}s); launches={lb}; micro-cell (bench.py:667-692) "
+        f"{n_micro} evictions, as on the CPU; {smi}")
+    POLICY["a"] = {
+        "bound": a["got"]["bound"], "turns": a["got"]["turns"],
+        "wall_s": a["got"]["wall"], "binds_per_s": rate,
+        "cpu_wall_s": cpu_a["got"]["wall"], "placed_tput": tput,
+        "placed_tput_off": tput_off, "off_wall_s": ctl["got"]["wall"],
+        "off_binds_per_s": rate_off, "scored_batches": scored,
+        "launches": la, "control_launches": ctl["launches"],
+        "copies": copies, "rank_words": dict(words),
+    }
+    POLICY["b"] = {
+        "preemptors": PREEMPTORS, "evictions": len(b["evictions"]),
+        "per_batch": b["per_batch"], "victims": victims, "rebound": rebound,
+        "wall_s": b["wall"], "cpu_wall_s": cpu_b["wall"], "launches": lb,
+        "micro_evictions": n_micro,
+    }
+
+
+#: phase 17 (c): the device-state counters held to the CPU each turn
+DEVICE_STATE_COUNTERS = ("device_state_rows_uploaded_total",
+                         "device_state_deltas_total",
+                         "device_state_full_rebuilds_total")
+
+
+def turn_budgets(turns, n_nodes):
+    """bench.py:382-396's changed-row budget for each turn of *turns*
+    (dicts of binds, batches and the ``DEVICE_STATE_COUNTERS`` moves):
+    2·(row patches + binds) + full rebuilds·*n_nodes* + 64 a batch, where
+    a turn's binds are its own and the turn before's, since a batch's
+    claimed rows upload at the next batch's first solve."""
+    budgets, before = [], 0
+    for t in turns:
+        budgets.append(2 * (t["device_state_deltas_total"] + before
+                            + t["binds"])
+                       + t["device_state_full_rebuilds_total"] * n_nodes
+                       + 64 * t["batches"])
+        before = t["binds"]
+    return budgets
+
+
+def churn_daemon(device, count, script):
+    """Phase 9 (d)'s 10,000 cfg4 nodes and 2,000 pods through the port's
+    daemon on *device*, past NHD_STREAM_NODES in FED_SPLIT_TILE tiles with
+    routed placement (bench.py cfg7's tiler) and persistent tile contexts
+    (NHD_DELTA_STATE), then each turn of *script* (``pending.churn_script``)
+    applied through the backend and one ``pending.churn_turn``. *count*
+    runs a thunk as ``counted`` does. Returns each turn's figures: the
+    events, binds, batches, the device-state counters' moves, launches,
+    the batch calls (``batch_calls``) and every pod's outcome."""
+    import nhd_tpu_torch.sim as sim
+    from nhd_tpu_torch.k8s.retry import API_COUNTERS
+    from nhd_tpu_torch.scheduler import core
+    from nhd_tpu_torch.scheduler.controller import Controller
+    from nhd_tpu_torch.sim import pending
+
+    if not core.DELTA_STATE:
+        fail("churn: NHD_DELTA_STATE is off; the persistent tiles need it")
+    backend, sched = cfg4_daemon(device, STREAM_DAEMON_PODS,
+                                 STREAM_DAEMON_NODES)
+    ctrl = Controller(backend, sched.nqueue)
+    saved = core.STREAM_TILE_NODES, core.STREAM_PLACEMENT
+    core.STREAM_TILE_NODES, core.STREAM_PLACEMENT = FED_SPLIT_TILE, "routed"
+    turns = []
+
+    def turn(fn, events):
+        c0 = API_COUNTERS.snapshot()
+        b0 = sched.perf["batches_total"]
+        with batch_calls() as calls:
+            binds, wall, launches = count(fn)
+        c1 = API_COUNTERS.snapshot()
+        turns.append({
+            "events": events, "binds": binds, "wall": wall,
+            "launches": launches, "calls": calls,
+            "batches": int(sched.perf["batches_total"] - b0),
+            **{k: c1[k] - c0[k] for k in DEVICE_STATE_COUNTERS},
+            "outcome": pod_outcome(backend),
+        })
+
+    try:
+        turn(lambda: pending.drive(sched)["bound"], {"create": STREAM_DAEMON_PODS})
+        if sched._stream is None or not sched._stream.persistent:
+            fail("churn: the daemon did not build a persistent streaming tiler")
+        for i, events in enumerate(script):
+            done = pending.apply_events(backend, sim, events)
+            turn(lambda i=i: pending.churn_turn(sched, ctrl, float(i + 1)),
+                 done)
+    finally:
+        core.STREAM_TILE_NODES, core.STREAM_PLACEMENT = saved
+    return turns
+
+
+def churn_part(torch, smi):
+    """Phase 17 (c): churn past the stream threshold through the daemon,
+    on the card against the CPU after every turn."""
+    from nhd_tpu_torch import kernels
+    from nhd_tpu_torch.sim import pending
+
+    script = pending.churn_script(CHURN_SEED, CHURN_TURNS, CHURN_EVENTS,
+                                  STREAM_DAEMON_NODES)
+    got = churn_daemon(card(torch), lambda fn: counted(torch, fn), script)
+    with env(**CARD_DEFAULTS):
+        cpu = churn_daemon("cpu", timed_run, script)
+    threads = []
+    rows = []
+    budgets = {side: turn_budgets(turns, STREAM_DAEMON_NODES)
+               for side, turns in (("cuda", got), ("cpu", cpu))}
+    for i, (t, c) in enumerate(zip(got, cpu, strict=True)):
+        label = f"churn turn {i}"
+        diff = [k for k in t["outcome"] if t["outcome"][k] != c["outcome"].get(k)]
+        if diff or len(t["outcome"]) != len(c["outcome"]) or t["binds"] != c["binds"]:
+            fail(f"{label}: {len(diff)} pods differ between cuda and cpu "
+                 f"(first: {diff[:1]}), binds {t['binds']} vs {c['binds']}")
+        for side, turn in (("cuda", t), ("cpu", c)):
+            if turn["device_state_rows_uploaded_total"] > budgets[side][i]:
+                fail(f"{label} on {side}: "
+                     f"{turn['device_state_rows_uploaded_total']} rows "
+                     f"uploaded against a changed-row budget of "
+                     f"{budgets[side][i]}")
+        budget = budgets["cuda"][i]
+        if i and t["device_state_full_rebuilds_total"]:
+            fail(f"{label}: {t['device_state_full_rebuilds_total']} full "
+                 "rebuilds with no node added or removed")
+        counters = [k for k in DEVICE_STATE_COUNTERS if t[k] != c[k]]
+        if counters:
+            fail(f"{label}: device-state counters differ from the CPU's: "
+                 f"{[(k, t[k], c[k]) for k in counters]}")
+        require_launched(label, t["launches"], SPEC_PATH + (kernels.GRAPH,))
+        launching = {th for th, _s, n in t["calls"]
+                     if any(n[k] for k in kernels.SOLVE_KERNELS)}
+        threads.append(len(launching))
+        rows.append({k: t[k] for k in (
+            "events", "binds", "batches", "wall", "launches",
+            *DEVICE_STATE_COUNTERS)})
+        rows[-1].update(budget=budget, cpu_wall=c["wall"],
+                        threads=threads[-1])
+        log(f"{label}: events {t['events']}, bound {t['binds']} in "
+            f"{t['batches']} batches, rows uploaded "
+            f"{t['device_state_rows_uploaded_total']} ("
+            f"{t['device_state_deltas_total']} patches, "
+            f"{t['device_state_full_rebuilds_total']} rebuilds), wall "
+            f"{t['wall']:.4f}s (cpu {c['wall']:.4f}s); every pod's node, "
+            f"solved config and NAD and the counters identical to the CPU; "
+            f"a changed-row budget of {budget} (this turn's and the last "
+            f"turn's binds); "
+            f"tile sub-calls launching from {threads[-1]} threads; "
+            f"launches={t['launches']}")
+    if max(threads) < 2:
+        fail(f"churn: the tiles of a turn launched from {max(threads)} "
+             "thread at most")
+    log(f"churn: {STREAM_DAEMON_NODES} cfg4 nodes in {FED_SPLIT_TILE}-node "
+        f"tiles (routed, persistent), {STREAM_DAEMON_PODS} pods then "
+        f"{CHURN_TURNS} turns of {CHURN_EVENTS} cfg7-mix events ({CHURN_CUT}); "
+        f"tile sub-calls launching from {threads} threads by turn; {smi}")
+    POLICY["c"] = {"turns": rows, "threads": threads,
+                   "cut": CHURN_CUT}
+
+
+def storm_run(device, argv, path):
+    """One storm matrix (sim/storm.py) in this process on *device* under
+    ``STORM_ENV``: its summary, wall, launches (the card's; counts set to
+    0 just before) and its batch calls (``batch_calls``)."""
+    import torch
+
+    from nhd_tpu_torch.sim import storm
+
+    count = (lambda fn: counted(torch, fn)) if device != "cpu" else timed_run
+    with env(**STORM_ENV), batch_calls() as calls:
+        rc, wall, launches = count(lambda: storm.main(
+            argv + ["--device", device, "--json-out", path]))
+    with open(path) as fh:
+        summary = json.load(fh)
+    if rc != 0 or not summary["ok"]:
+        bad = [(c["profile"], c["seed"], c["violations"][:3])
+               for c in summary["cells"] if not c["ok"]]
+        fail(f"storm {argv} on {device}: failed cells {bad}")
+    return summary, wall, launches, calls
+
+
+def storm_part(torch, smi):
+    """Phase 17 (d): the storm matrices of the policy, tenant, HA and
+    federation modes, each on the card and on the CPU."""
+    import tempfile
+
+    from nhd_tpu_torch import kernels
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="nhd-storms-") as work:
+        for mode, argv in STORM_MODES:
+            got, wall, launches, calls = storm_run(
+                str(card(torch)), argv, os.path.join(work, mode + ".json"))
+            cpu, cpu_wall, _, _ = storm_run(
+                "cpu", argv, os.path.join(work, mode + "-cpu.json"))
+            masked_got = {k: v for k, v in got.items() if k not in STORM_MASKED}
+            masked_cpu = {k: v for k, v in cpu.items() if k not in STORM_MASKED}
+            if masked_got != masked_cpu:
+                bad = [i for i, (x, y) in enumerate(zip(got["cells"], cpu["cells"]))
+                       if x != y]
+                fail(f"storm {mode}: the matrix differs from the CPU's "
+                     f"(cells {bad[:4]}; {got['cells'][bad[0]] if bad else ''})")
+            require_launched(f"storm {mode}", launches, kernels.SOLVE_KERNELS)
+            scored = (scored_without_megaround(f"storm {mode}", calls)
+                      if mode == "policy" else 0)
+            out[mode] = {"cells": got["cells_total"], "wall_s": wall,
+                         "cpu_wall_s": cpu_wall, "launches": launches,
+                         "scored_batches": scored}
+            log(f"storm {mode} ({' '.join(argv)}): {got['cells_total']} cells, "
+                f"every one's invariants held on cuda; the matrix equal to the "
+                f"CPU's with {sorted(STORM_MASKED)} masked"
+                + (f"; {scored} scored batches, none with a megaround"
+                   if mode == "policy" else "")
+                + f"; wall {wall:.2f}s (cpu {cpu_wall:.2f}s)"
+                + f"; launches={launches}; {smi}")
+    POLICY["d"] = out
+
+
+def policy_phase(torch, report, smi, parts="abcd"):
+    """Phase 17 (module docstring): (a) and (b) together, (c), (d); each
+    part's wall printed, its launches kept in ``report["policy"]``."""
+    walls = {}
+    for part, fn in (("ab", lambda: policy_part(torch, smi)),
+                     ("c", lambda: churn_part(torch, smi)),
+                     ("d", lambda: storm_part(torch, smi))):
+        if not set(part) & set(parts):
+            continue
+        t0 = time.perf_counter()
+        fn()
+        walls[part] = time.perf_counter() - t0
+    report["policy"] = dict(POLICY, part_s=walls, smi=smi)
+    log("policy: phase 17's parts " + " / ".join(
+        f"({p}) {walls[p]:.1f}" for p in walls)
+        + f" s of command time ({sum(walls.values()):.1f} s); {smi}")
+
+
+def main(argv=None):
+    # --only=17[:PARTS] runs phases 1-2 and then phase 17 alone (its parts
+    # among a, b, c, d; a and b run together), preceded for (a) by phase
+    # 7's card run, whose placements its control is held to; it prints
+    # neither the kernels line nor the contract line
+    only = None
+    for arg in sys.argv[1:] if argv is None else argv:
+        if arg == "--only=17" or arg.startswith("--only=17:"):
+            only = arg.partition(":")[2] or "abcd"
+        else:
+            fail(f"unknown argument {arg!r} (known: --only=17[:PARTS])")
     try:
         import torch
     except ImportError:
@@ -4789,6 +5417,20 @@ def main():
     if not have_native:
         fail("native assignment core did not build")
     report["build_s"] = build_s
+    if only is not None:
+        t0 = time.perf_counter()
+        if set("ab") & set(only):
+            _got, outcome = _daemon_run(card(torch), DAEMON_PODS)
+            DAEMON_OUTCOME.update(outcome)
+        t1 = time.perf_counter()
+        policy_phase(torch, report, smi, only)
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", "chip_smoke_policy.json"), "w") as fh:
+            json.dump(report, fh, indent=1, default=str)
+        log(f"phase 17 alone, parts {only}: passed in "
+            f"{time.perf_counter() - t1:.1f} s (phase 7's card run first: "
+            f"{t1 - t0:.1f} s); {smi}")
+        return 0
 
     # 3. kernels vs plain on the card
     from nhd_tpu_torch.sim.workloads import bench_cluster, cap_cluster, workload_mix
@@ -4885,14 +5527,19 @@ def main():
     t5 = time.perf_counter()
     # 16. the operator gates: recorder at full width, demos, soak
     ops_phase(torch, report, smi)
+    t6 = time.perf_counter()
+    # 17. the policy engine, preemption, churn past the stream threshold,
+    # the other storm modes
+    policy_phase(torch, report, smi)
     report["phase_s"] = {"11": t1 - t0, "12": t2 - t1, "13": t3 - t2,
-                         "14": t4 - t3, "15": t5 - t4,
-                         "16": time.perf_counter() - t5}
-    log("phases 11 / 12 / 13 / 14 / 15 / 16: " + " / ".join(
-        f"{report['phase_s'][p]:.1f}" for p in ("11", "12", "13", "14", "15", "16"))
+                         "14": t4 - t3, "15": t5 - t4, "16": t6 - t5,
+                         "17": time.perf_counter() - t6}
+    log("phases 11 / 12 / 13 / 14 / 15 / 16 / 17: " + " / ".join(
+        f"{report['phase_s'][p]:.1f}" for p in (
+            "11", "12", "13", "14", "15", "16", "17"))
         + " s of command time")
 
-    # 17. kernels line
+    # 18. kernels line
     meta = {
         "nic_node_masks": ("nhd_tpu_torch/kernels/nic_node_masks.cu",
                            "nhd_tpu/solver/kernel.py:136"),

@@ -548,6 +548,18 @@ def rank_path(n: int, R: int, above: int) -> str:
     return ("wide rows " if rows else "wide ") + sort
 
 
+def rank_words(n: int, span: int) -> int:
+    """The word width rank_select.cuh sorts a row of *n* keys in, *span*
+    being its largest key less its smallest: 32 bits where a whole row
+    (n <= 1,024) leaves log2(P) bits below the key for the position (P,
+    the block's words: the power of two at or above n, 64 at least), 64
+    otherwise and in every wide row."""
+    if n > RANK_WHOLE_MAX:
+        return 64
+    pbits = max(6, max(n - 1, 0).bit_length())
+    return 32 if span >> (32 - pbits) == 0 else 64
+
+
 def rank_case(seed: int, T: int, N: int, U: int, R: int, S: int,
               node_base: int = 0, fill: str = "sparse") -> dict:
     """``rank_top``'s inputs (planes [8, T, N], gpu_free and cpu_free

@@ -136,11 +136,15 @@ def rank_cap(accelerator: bool) -> int:
 
 def rank_budget(max_need: int, n_padded: int, *, accelerator: bool = False) -> int:
     """The R for a batch (the reference's rule): a pure function of the
-    cluster size on the CPU, need-proportional on an accelerator."""
+    cluster size on the CPU, need-proportional on an accelerator. At
+    least one slot: over no node (a federation member whose shards hold
+    none) the reference's accelerator rule gives 0, a zero-width top_k,
+    but the rank kernels take 1 to N slots; one slot of the padded rows
+    holds val 0 and places nothing, as the empty rank does."""
     cap = rank_cap(accelerator)
     if not accelerator:
         return min(_pad_pow2(max(n_padded, 1), floor=8), cap)
-    return min(n_padded, _pad_pow2(min(max(max_need, 1), cap), floor=64))
+    return min(max(n_padded, 1), _pad_pow2(min(max(max_need, 1), cap), floor=64))
 
 
 def mesh_desc(mesh) -> str:

@@ -771,3 +771,117 @@ def test_rank_kernels_equal_plain_on_the_sweep(i):
                                                node_base=c["node_base"]))
     assert torch.equal(merged, reference.rank_merge(cand, R=c["merge_R"]))
     assert all(kernels.LAUNCHES[n] == before[n] + 1 for n in kernels.RANK_KERNELS)
+
+
+# ---------------------------------------------------------------------------
+# the policy engine, tiered preemption and churn past the stream threshold
+# through the daemon on the card, each against the same script on the CPU
+# (chip_smoke.py phase 17 (a)-(c), at a small size)
+# ---------------------------------------------------------------------------
+
+
+def _daemon_outcome(device, n_nodes, n_pods, *, preemptors=0):
+    import nhd_tpu_torch.sim as sim
+    from chip_smoke import cfg4_daemon, pod_outcome
+    from nhd_tpu_torch.sim import pending
+
+    backend, sched = cfg4_daemon(device, n_pods, n_nodes,
+                                 node_class=pending.hetero_class)
+    pending.drive(sched)
+    per_batch = None
+    if preemptors:
+        pods = pending.create_preemptors(backend, sim, preemptors)
+        per_batch = pending.preempt_batch(sched, pods)
+    return pod_outcome(backend), list(backend.evict_log), per_batch
+
+
+def _card_defaults(monkeypatch):
+    for k, v in (("NHD_TPU_SPECULATE", "1"), ("NHD_PIPELINE", "1"),
+                 ("NHD_TPU_RANK_CAP", "512")):
+        monkeypatch.setenv(k, v)
+
+
+def _policy_on(monkeypatch):
+    import json
+
+    from nhd_tpu_torch.sim import pending
+
+    monkeypatch.setenv("NHD_POLICY", "1")
+    monkeypatch.setenv("NHD_POLICY_TPUT", json.dumps(pending.HETERO_MATRIX))
+
+
+def test_policy_daemon_on_card_equals_cpu(monkeypatch):
+    """cfg8:hetero's two generations under the matrix: the scored daemon
+    run on the card places every pod as on the CPU, launching the solve
+    kernels and rank_top and no megaround."""
+    _need_cuda()
+    _policy_on(monkeypatch)
+    _card_defaults(monkeypatch)
+    kernels.reset_launches()
+    card = _daemon_outcome("cuda", 32, 300)
+    moved = dict(kernels.LAUNCHES)
+    assert card == _daemon_outcome("cpu", 32, 300)
+    assert all(moved[k] for k in kernels.SOLVE_KERNELS + ("rank_top",))
+    assert moved[kernels.GRAPH] == 0 and not any(
+        moved[k] for k in kernels.CLAIM_KERNELS + (kernels.GATE_KERNEL,))
+
+
+def test_preemption_on_card_equals_cpu(monkeypatch):
+    """Tier-2 preemptors into a filled 16-node fleet on the card: the
+    same evictions batch by batch and the same outcomes as the CPU."""
+    _need_cuda()
+    _policy_on(monkeypatch)
+    _card_defaults(monkeypatch)
+    card = _daemon_outcome("cuda", 16, 200, preemptors=4)
+    assert card[1], "no eviction"
+    assert card == _daemon_outcome("cpu", 16, 200, preemptors=4)
+
+
+def test_churn_daemon_on_card_equals_cpu(monkeypatch):
+    """The daemon past NHD_STREAM_NODES (48 nodes in tiles of 16, routed,
+    persistent) through four turns of the cfg7-mix script: after every
+    turn every pod's outcome on the card equals the CPU's."""
+    _need_cuda()
+    import nhd_tpu_torch.sim as sim
+    from chip_smoke import cfg4_daemon
+    from nhd_tpu_torch.scheduler import core
+    from nhd_tpu_torch.scheduler.controller import Controller
+    from nhd_tpu_torch.sim import pending
+
+    _card_defaults(monkeypatch)
+    monkeypatch.setattr(core, "STREAM_NODE_THRESH", 32)
+    monkeypatch.setattr(core, "STREAM_TILE_NODES", 16)
+    monkeypatch.setattr(core, "STREAM_PLACEMENT", "routed")
+    script = pending.churn_script(7, 4, 40, 48)
+
+    def run(device):
+        backend, sched = cfg4_daemon(device, 120, 48)
+        ctrl = Controller(backend, sched.nqueue)
+        pending.drive(sched)
+        seen = []
+        for i, events in enumerate(script):
+            pending.apply_events(backend, sim, events)
+            pending.churn_turn(sched, ctrl, float(i + 1))
+            seen.append({k: p.node for k, p in sorted(backend.pods.items())})
+        return seen
+
+    kernels.reset_launches()
+    card = run("cuda")
+    moved = dict(kernels.LAUNCHES)
+    assert card == run("cpu")
+    assert moved[kernels.GRAPH] and all(moved[k] for k in kernels.SOLVE_KERNELS)
+
+
+def test_batch_over_no_node_on_card_places_nothing():
+    """A batch over no node on the card (a federation member whose shards
+    hold none) ranks one slot and places nothing, as on the CPU; it
+    raised "rank width 0 outside 1..8" before the rank budget's floor."""
+    _need_cuda()
+    from nhd_tpu_torch.sim.workloads import workload_mix
+    from nhd_tpu_torch.solver import BatchItem, BatchScheduler
+
+    items = [BatchItem(("ns", f"p{i}"), r)
+             for i, r in enumerate(workload_mix(3, ["default"]))]
+    results, _stats = BatchScheduler(device="cuda", respect_busy=False).schedule(
+        {}, items, now=0.0)
+    assert [r.node for r in results] == [None] * 3

@@ -365,3 +365,45 @@ def test_solver_kernel_has_no_eager_rank():
         if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
     }
     assert not called & {"topk", "sort", "gather", "argsort"}
+
+
+@pytest.mark.parametrize("need", [1, 3, 700])
+def test_accelerator_rank_budget_over_no_node_ranks_one_slot(need):
+    """A batch over no node (a federation member whose shards hold none)
+    on an accelerator: the reference's rule gives R = 0, a zero-width
+    top_k; the port's gives one slot, which the rank kernels take (they
+    refuse 0), and which holds val 0 on the padded rows, so both place
+    nothing. Before the floor the card's batch raised "rank width 0
+    outside 1..8" where the CPU's placed nothing."""
+    assert jk.rank_budget(need, 0, accelerator=True) == 0
+    R = pk.rank_budget(need, 0, accelerator=True)
+    assert R == 1
+    # every padded row of an empty cluster: no candidate anywhere
+    port, ref = _rank_inputs(need, 4, pk.pad_nodes(0), 2, 0.5, real=0)
+    got = kernels.rank_top(*port, R=R).numpy()
+    assert got.shape == (9, 4, 1) and (got[0] == 0).all()
+    want = np.asarray(jk._rank_body(0, *(jnp.asarray(a) for a in ref)))
+    assert want.shape == (9, 4, 0)
+    # the rest of the accelerator rule is the reference's
+    for n in (1, 8, 1000, 4096):
+        assert pk.rank_budget(need, n, accelerator=True) == jk.rank_budget(
+            need, n, accelerator=True)
+
+
+def test_batch_over_no_node_with_the_accelerator_rank_places_nothing(monkeypatch):
+    """``BatchScheduler.schedule`` over an empty node set with the
+    accelerator's rank rule (the card's; forced here on the CPU): the
+    batch completes and places nothing, as on the CPU's rule."""
+    from nhd_tpu_torch.sim.workloads import workload_mix
+    from nhd_tpu_torch.solver import BatchItem, BatchScheduler
+    from nhd_tpu_torch.solver import batch as batch_mod
+
+    budget = batch_mod.rank_budget
+    monkeypatch.setattr(batch_mod, "rank_budget",
+                        lambda need, n, *, accelerator=False:
+                        budget(need, n, accelerator=True))
+    items = [BatchItem(("ns", f"p{i}"), r)
+             for i, r in enumerate(workload_mix(3, ["default"]))]
+    results, stats = BatchScheduler(device="cpu", respect_busy=False).schedule(
+        {}, items, now=0.0)
+    assert [r.node for r in results] == [None] * 3
