@@ -25,6 +25,7 @@ from nhd_tpu_torch.core.topology import (
     PodTopology,
     SmtMode,
 )
+from nhd_tpu_torch.obs.recorder import get_recorder
 from nhd_tpu_torch.utils import get_logger
 
 import os as _os
@@ -818,7 +819,18 @@ class HostNode:
         return True
 
     def release_from_topology(self, top: PodTopology) -> None:
-        """Inverse of claim_from_topology (reference: Node.py:587-636)."""
+        """Inverse of claim_from_topology (reference: Node.py:587-636).
+        While the flight recorder is on, each call adds to its
+        ``release_from_topology`` tally (count and seconds)."""
+        rec = get_recorder()
+        if rec is None:
+            self._release(top)
+            return
+        t0 = time.perf_counter()
+        self._release(top)
+        rec.tally("release_from_topology", time.perf_counter() - t0)
+
+    def _release(self, top: PodTopology) -> None:
         for pg in top.proc_groups:
             for core in pg.misc_cores + pg.proc_cores:
                 self.cores[core.core].used = False

@@ -11,6 +11,12 @@ The export is deterministic for deterministic input: events sort by
 (ts, tid, name), timestamps are relative to the earliest span, and thread
 IDs are assigned in first-seen-sorted order — golden-file tests diff the
 serialized form directly.
+
+``lay_on_profile`` puts the same spans on a ``torch.profiler`` trace's
+own clock instead, beside the device's work: two ``clock_anchor`` marks,
+as the profiled window opens and as it closes, tie the recorder's
+``time.monotonic`` to the profiler's timestamps. torch is imported only
+there, so this package stays importable without it.
 """
 
 from __future__ import annotations
@@ -18,7 +24,8 @@ from __future__ import annotations
 import itertools
 import json
 import os
-from typing import Dict, List, Optional
+import time
+from typing import Dict, List, Optional, Sequence, Union
 
 from nhd_tpu_torch.obs.recorder import FlightRecorder, Span
 
@@ -30,13 +37,17 @@ def chrome_trace(recorder: FlightRecorder) -> dict:
     export carries an ``nhdMeta`` block (replica identity + the
     monotonic→wall anchor) so N replicas' dumps can be merged onto one
     timeline (merge_chrome_traces)."""
-    return chrome_trace_of(
-        recorder.spans(),
-        meta={
-            "replica": recorder.identity,
-            "epochOffset": recorder.epoch_offset,
-        },
-    )
+    meta = {
+        "replica": recorder.identity,
+        "epochOffset": recorder.epoch_offset,
+    }
+    tallies = recorder.tallies()
+    if tallies:
+        meta["tallies"] = {
+            name: {"count": n, "seconds": s}
+            for name, (n, s) in sorted(tallies.items())
+        }
+    return chrome_trace_of(recorder.spans(), meta=meta)
 
 
 def chrome_trace_of(spans: List[Span], *, meta: Optional[dict] = None) -> dict:
@@ -81,6 +92,92 @@ def chrome_trace_of(spans: List[Span], *, meta: Optional[dict] = None) -> dict:
     if meta is not None:
         out["nhdMeta"] = {**meta, "originMono": origin}
     return out
+
+
+# ---------------------------------------------------------------------------
+# the recorder's spans on a torch.profiler trace's clock
+# ---------------------------------------------------------------------------
+
+#: the profiler event that marks one instant on both clocks, and the one
+#: before it that takes the profiler's first-event cost off the anchor
+CLOCK_ANCHOR = "nhd_clock_anchor"
+CLOCK_WARM = "nhd_clock_warm"
+#: the category of the recorder's spans once laid on a profiler trace
+PROFILE_CAT = "nhd"
+
+
+def clock_anchor() -> float:
+    """Mark one instant on both clocks: a ``torch.profiler``
+    ``record_function`` named CLOCK_ANCHOR with a ``time.monotonic()``
+    read inside it, after a CLOCK_WARM one (a window's first recorded
+    event takes a millisecond or more, most of it on one side of the
+    read). Returns the read; take one as the profiled window opens and
+    one as it closes, and hand both to ``lay_on_profile``."""
+    from torch.profiler import record_function
+
+    with record_function(CLOCK_WARM):
+        pass
+    with record_function(CLOCK_ANCHOR):
+        return time.monotonic()
+
+
+def lay_on_profile(
+    trace: Union[dict, List[dict]], spans: Sequence[Span],
+    anchors: Sequence[float],
+) -> Dict[str, float]:
+    """Append *spans* (the recorder's, on ``time.monotonic``) to *trace*,
+    a ``torch.profiler`` Chrome export (the dict or its event list), as
+    complete events of category PROFILE_CAT on the profiler's clock.
+
+    *anchors* are the reads ``clock_anchor`` returned, in order; the
+    trace holds one CLOCK_ANCHOR event for each. The instant of a read is
+    its event's midpoint; the first and the last anchor fix the map
+    ``ts = a + b * t`` (the profiler's clock need not tick at the host's
+    rate, nor sit at a fixed offset from it). Each producing thread gets
+    a row of its own in the anchors' process. Returns the spans laid,
+    the slope (us a second) and the worst distance, in us, of a middle
+    anchor from where the map puts its read (0 with two)."""
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    marks = sorted((
+        (float(e["ts"]) + float(e.get("dur", 0.0)) / 2.0, e)
+        for e in events
+        if e.get("ph") == "X" and e.get("name") == CLOCK_ANCHOR
+    ), key=lambda m: m[0])
+    if len(marks) != len(anchors) or len(marks) < 2:
+        raise ValueError(
+            f"{len(anchors)} anchor reads against {len(marks)} "
+            f"{CLOCK_ANCHOR} events in the trace (need two or more, one each)"
+        )
+    (ts0, first), (ts1, _) = marks[0], marks[-1]
+    t0, t1 = anchors[0], anchors[-1]
+    if t1 <= t0:
+        raise ValueError("the anchors' reads do not advance")
+    slope = (ts1 - ts0) / (t1 - t0)
+    residual = max(
+        (abs(ts0 + slope * (t - t0) - ts) for (ts, _), t in
+         zip(marks[1:-1], anchors[1:-1])),
+        default=0.0,
+    )
+    pid = first.get("pid", _PID)
+    used = [e.get("tid") for e in events if isinstance(e.get("tid"), int)]
+    base = max(used, default=0) + 1
+    tids: Dict[str, int] = {}
+    for name in sorted({s.thread for s in spans}):
+        tids[name] = base + len(tids)
+        events.append({
+            "ph": "M", "name": "thread_name", "pid": pid, "tid": tids[name],
+            "args": {"name": f"flight recorder: {name}"},
+        })
+    for s in spans:
+        args: dict = {"corr": s.corr, "cat": s.cat}
+        if s.attrs:
+            args.update(s.attrs)
+        events.append({
+            "ph": "X", "name": s.name, "cat": PROFILE_CAT, "pid": pid,
+            "tid": tids[s.thread], "ts": ts0 + slope * (s.t0 - t0),
+            "dur": slope * s.dur, "args": args,
+        })
+    return {"spans": len(spans), "us_per_s": slope, "residual_us": residual}
 
 
 # ---------------------------------------------------------------------------

@@ -23,6 +23,12 @@ Design constraints, in order:
   (the ``nhd_trace_ring_dropped_total`` metric), so tracing can stay on
   in production without growing the heap.
 
+Work too frequent for the ring (a call made once per pod) adds to the
+recorder's per-name tallies instead: a (count, seconds) pair, exported
+beside the spans and cleared with them. While the process-global
+recorder is on, a ``gc.callbacks`` hook records each collection as a
+``gc`` span with its generation.
+
 Correlation IDs are a process-wide monotonic counter, not random tokens:
 deterministic runs produce deterministic traces (golden-file tests), and
 the IDs only need to be unique within one process's ring lifetime.
@@ -31,11 +37,12 @@ the IDs only need to be unique within one process's ring lifetime.
 from __future__ import annotations
 
 import contextlib
+import gc
 import itertools
 import threading
 import time
 from collections import deque
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 try:  # contextvars: per-thread in threads, carried across awaits in async
     from contextvars import ContextVar
@@ -162,6 +169,26 @@ class FlightRecorder:
         self._spans: "deque[Span]" = deque(maxlen=capacity)
         self._decisions: "deque[dict]" = deque(maxlen=decision_capacity)
         self._dropped = 0
+        # name -> [count, seconds] (tally)
+        self._tallies: Dict[str, List[float]] = {}
+        # the collector's spans (_on_gc): a collection may start at any
+        # bytecode boundary, inside this recorder's own locked sections
+        # too, so the hook only appends here (no lock) and the ring
+        # takes them in at its next record or read (_absorb)
+        self._pending: "deque[Span]" = deque()
+
+    def _absorb(self) -> None:
+        """Move the collector's pending spans into the ring (under the
+        lock, so one caller at a time consumes ``_pending``)."""
+        pending = self._pending
+        if not pending:
+            return
+        with self._lock:
+            while pending:
+                span = pending.popleft()
+                if len(self._spans) == self.capacity:
+                    self._dropped += 1
+                self._spans.append(span)
 
     # -- producers ------------------------------------------------------
 
@@ -185,10 +212,22 @@ class FlightRecorder:
             thread=thread, attrs=attrs,
             replica=self.identity or None, shard=shard, epoch=epoch,
         )
+        self._absorb()
         with self._lock:
             if len(self._spans) == self.capacity:
                 self._dropped += 1
             self._spans.append(span)
+
+    def tally(self, name: str, seconds: float, count: int = 1) -> None:
+        """Add *count* calls and their *seconds* to *name*'s tally: the
+        aggregate form of a span, for work too frequent for the ring."""
+        with self._lock:
+            t = self._tallies.get(name)
+            if t is None:
+                self._tallies[name] = [count, seconds]
+            else:
+                t[0] += count
+                t[1] += seconds
 
     def realias_corr(self, old: str, new: str) -> int:
         """Rewrite ring spans recorded under *old* to carry *new* —
@@ -230,8 +269,14 @@ class FlightRecorder:
 
     def spans(self) -> List[Span]:
         """Snapshot of the ring, oldest first."""
+        self._absorb()
         with self._lock:
             return list(self._spans)
+
+    def tallies(self) -> Dict[str, Tuple[int, float]]:
+        """Snapshot of the tallies: name -> (count, seconds)."""
+        with self._lock:
+            return {k: (int(v[0]), v[1]) for k, v in self._tallies.items()}
 
     def recent_decisions(self, n: int = 50) -> List[dict]:
         """The last *n* per-pod decisions, newest first."""
@@ -241,10 +286,12 @@ class FlightRecorder:
         return [dict(d) for d in out[: max(n, 0)]]
 
     def occupancy(self) -> int:
+        self._absorb()
         with self._lock:
             return len(self._spans)
 
     def dropped(self) -> int:
+        self._absorb()
         with self._lock:
             return self._dropped
 
@@ -256,8 +303,10 @@ class FlightRecorder:
             # Prometheus counter and must never move backwards
             if _RECORDER is self:
                 _DROPPED_BANKED += self._dropped
+            self._pending.clear()
             self._spans.clear()
             self._decisions.clear()
+            self._tallies.clear()
             self._dropped = 0
 
 
@@ -297,14 +346,42 @@ def enable(
     _RECORDER = FlightRecorder(
         capacity, decision_capacity, identity=identity
     )
+    if _on_gc not in gc.callbacks:
+        gc.callbacks.append(_on_gc)
     return _RECORDER
 
 
 def disable() -> None:
     global _RECORDER, _DROPPED_BANKED
+    if _on_gc in gc.callbacks:
+        gc.callbacks.remove(_on_gc)
     if _RECORDER is not None:
         _DROPPED_BANKED += _RECORDER.dropped()
     _RECORDER = None
+
+
+# the running collection's start (collections never nest)
+_GC_T0: Optional[float] = None
+
+
+def _on_gc(phase: str, info: dict) -> None:
+    """The ``gc.callbacks`` hook ``enable`` installs: each collection as
+    a ``gc`` span (``attrs``: its generation and what it collected),
+    bound to no correlation ID, handed to the ring through its pending
+    queue (FlightRecorder._absorb)."""
+    global _GC_T0
+    if phase == "start":
+        _GC_T0 = time.monotonic()
+        return
+    rec, t0 = _RECORDER, _GC_T0
+    _GC_T0 = None
+    if rec is not None and t0 is not None:
+        rec._pending.append(Span(
+            "gc", t0, time.monotonic() - t0, cat="gc",
+            attrs={"generation": info.get("generation"),
+                   "collected": info.get("collected")},
+            replica=rec.identity or None,
+        ))
 
 
 def dropped_total() -> int:

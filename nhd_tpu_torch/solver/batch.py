@@ -61,7 +61,12 @@ from nhd_tpu_torch.core.node import AssignmentError, HostNode
 from nhd_tpu_torch.core.request import PodRequest
 from nhd_tpu_torch.core.topology import MapMode, NicDir, PodTopology
 from nhd_tpu_torch.device import DeviceLike, resolve_device
-from nhd_tpu_torch.obs.recorder import get_recorder
+from nhd_tpu_torch.obs.recorder import (
+    FlightRecorder,
+    current_corr_id,
+    get_recorder,
+    new_corr_id,
+)
 from nhd_tpu_torch.policy.scoring import scoring_active
 from nhd_tpu_torch.solver.device_state import DeviceClusterState, HostPull
 from nhd_tpu_torch.solver.encode import (
@@ -134,12 +139,28 @@ RankHost = namedtuple(
 # tensors on their way to the host (HostPulls started at dispatch);
 # ``certifiable`` records the saturation-certificate preconditions
 # evaluated at dispatch time; ``body`` the launches of one pass of the
-# graph's WHILE node, counted once per iteration when iters_used is read
+# graph's WHILE node, counted once per iteration when iters_used is read;
+# ``timing`` the replay's CUDA events and host stamp while the recorder
+# is on (Megaround.timing), else None
 SpecDispatch = namedtuple(
     "SpecDispatch",
     "bucket_keys bucket_pods claims counts need_left iters_used certifiable "
-    "body",
+    "body timing",
 )
+
+#: time.perf_counter() to the recorder's time.monotonic(): 0 where both
+#: read one clock (CLOCK_MONOTONIC on Linux), so a phase's span and its
+#: BatchStats seconds come from the same two reads
+_PERF_TO_MONO = (
+    0.0 if time.get_clock_info("perf_counter").implementation
+    == time.get_clock_info("monotonic").implementation
+    else time.monotonic() - time.perf_counter()
+)
+
+
+def _span(rec: FlightRecorder, name: str, t0: float, **kw) -> None:
+    """Record the interval from *t0* (a perf_counter read) to now."""
+    rec.record(name, t0 + _PERF_TO_MONO, time.perf_counter() - t0, **kw)
 
 
 @dataclass
@@ -301,13 +322,23 @@ class BatchStats:
     # cluster shape bucket ("U{U}_K{K}_N{n}"); while set, phases are also
     # attributed per shape in the process jit-stats table
     shape_hint: str = ""
+    # the flight recorder the call records into (None: tracing off) and
+    # the one correlation ID of all of the call's spans
+    rec: Optional[FlightRecorder] = field(default=None, repr=False, compare=False)
+    corr: Optional[str] = None
 
-    def phase_add(self, name: str, dt: float) -> None:
+    def phase_add(self, name: str, dt: float, t0: Optional[float] = None) -> None:
+        """Add *dt* seconds to phase *name*; given the phase's start *t0*
+        (the perf_counter read *dt* was taken from) and a recorder, the
+        phase is also a span of exactly *dt*."""
         self.phases[name] = self.phases.get(name, 0.0) + dt
         if self.shape_hint:
             from nhd_tpu_torch.obs.jitstats import JIT_STATS
 
             JIT_STATS.record_phase(name, self.shape_hint, dt)
+        if t0 is not None and self.rec is not None:
+            self.rec.record(name, t0 + _PERF_TO_MONO, dt, cat="phase",
+                            corr=self.corr)
 
     def count_add(self, name: str, k: int) -> None:
         self.counters[name] = self.counters.get(name, 0) + int(k)
@@ -541,6 +572,7 @@ class BatchScheduler:
         return SpecDispatch(
             bucket_keys, bucket_pods, HostPull(claims), HostPull(counts),
             HostPull(need_left), HostPull(it), certifiable, res.body,
+            res.timing,
         )
 
     def _expand_speculative(self, spec, claims_np, counts_np, cluster):
@@ -824,7 +856,7 @@ class BatchScheduler:
                 raise
             return self._guard_recover(dev, cluster, context)
         finally:
-            stats.phase_add("guard_audit", time.perf_counter() - t0)
+            stats.phase_add("guard_audit", time.perf_counter() - t0, t0)
 
     def refresh_context(
         self, ctx: ScheduleContext, *, now: Optional[float] = None,
@@ -837,6 +869,18 @@ class BatchScheduler:
         delta = ctx.delta
         if delta is None:
             raise ValueError("refresh_context needs a delta-built context")
+        rec = get_recorder()
+        if rec is None:
+            return self._refresh(ctx, delta, now, None)
+        t0 = time.perf_counter()
+        try:
+            return self._refresh(ctx, delta, now, rec)
+        finally:
+            _span(rec, "refresh_context", t0, cat="refresh")
+
+    def _refresh(self, ctx, delta, now, rec) -> ScheduleContext:
+        """refresh_context's body; with a recorder, its three parts are
+        spans: ``delta_refresh``, ``fast_refresh``, ``row_scatter``."""
         if now is None:
             now = time.monotonic()
         if GUARD.active():
@@ -844,10 +888,14 @@ class BatchScheduler:
             # clean probe rounds) between batches rebuilds the resident
             # plane at the allowed rung before this batch's rows land
             self._reposture_dev(ctx)
+        t0 = time.perf_counter()
         delta.refresh(now)
+        if rec is not None:
+            _span(rec, "delta_refresh", t0, cat="refresh")
         ctx.now = now
         if delta.consume_full():
             delta.drain_dirty()
+            t0 = time.perf_counter()
             ctx.fast = (
                 FastCluster(
                     ctx.nodes, ctx.cluster.U, ctx.cluster.K,
@@ -855,12 +903,18 @@ class BatchScheduler:
                 )
                 if self.use_fast else None
             )
+            if rec is not None:
+                _span(rec, "fast_refresh", t0, cat="refresh")
             if ctx.dev is not None:
+                t0 = time.perf_counter()
                 ctx.dev = self._build_dev(
                     ctx.cluster, ctx.dev.mesh, delta.capacity
                 )
+                if rec is not None:
+                    _span(rec, "row_scatter", t0, cat="refresh")
             return ctx
         rows = delta.drain_dirty()
+        t0 = time.perf_counter()
         if rows.size and ctx.fast is not None:
             if len(ctx.fast.names) != delta.n_rows:
                 # rows appended into padded-capacity slots: FastCluster's
@@ -872,8 +926,13 @@ class BatchScheduler:
             else:
                 for i in rows.tolist():
                     ctx.fast.refresh_node(i)
+        if rec is not None:
+            _span(rec, "fast_refresh", t0, cat="refresh")
         if ctx.dev is not None:
+            t0 = time.perf_counter()
             ctx.dev.scatter_rows(rows)  # also syncs row-count growth
+            if rec is not None:
+                _span(rec, "row_scatter", t0, cat="refresh")
         return ctx
 
     @_gc_pinned
@@ -907,7 +966,12 @@ class BatchScheduler:
         caller reads only the offered indices."""
         from nhd_tpu_torch.sim.requests import request_to_topology
 
+        t_call = time.perf_counter()
         stats = BatchStats()
+        trace = get_recorder()
+        if trace is not None:
+            stats.rec = trace
+            stats.corr = current_corr_id() or new_corr_id(trace.identity)
         results: List[Optional[BatchAssignment]] = [None] * len(items)
         if now is None:
             now = context.now if context is not None else time.monotonic()
@@ -951,7 +1015,7 @@ class BatchScheduler:
                 oversized.append(i)
         pending = np.asarray(pending_l, np.int64)
         del pending_l
-        stats.phase_add("prepass", time.perf_counter() - t_pre)
+        stats.phase_add("prepass", time.perf_counter() - t_pre, t_pre)
         if oversized and context is not None and context.delta is None:
             raise ValueError(
                 "combo-oversized pods cannot be scheduled through a "
@@ -1084,11 +1148,10 @@ class BatchScheduler:
                 spec_ok = False
                 dev = self._guard_recover(dev, cluster, context)
             dt = time.perf_counter() - t_pl
-            stats.phase_add("prelaunch", dt)
+            stats.phase_add("prelaunch", dt, t_pl)
             return dt
 
         t_batch = time.perf_counter()
-        t_batch_mono = time.monotonic()
         for round_no in range(self.max_rounds):
             if not len(pending):
                 break
@@ -1107,7 +1170,7 @@ class BatchScheduler:
                     cluster.interner,
                     indices=pend_list,
                 )
-                stats.phase_add("encode", time.perf_counter() - t0)
+                stats.phase_add("encode", time.perf_counter() - t0, t0)
                 # R >= the largest per-type pod count: every ranked
                 # candidate carries capacity >= 1
                 max_need = max(
@@ -1152,7 +1215,8 @@ class BatchScheduler:
                                 dev, all_buckets, is_pending
                             )
                             stats.phase_add(
-                                "spec_dispatch", time.perf_counter() - t_sp
+                                "spec_dispatch", time.perf_counter() - t_sp,
+                                t_sp,
                             )
                             launched = []
                         if spec is None:
@@ -1169,7 +1233,9 @@ class BatchScheduler:
                         t_j = time.perf_counter()
                         fast = fast_future.result()
                         fast_future = None
-                        stats.phase_add("fast_join", time.perf_counter() - t_j)
+                        stats.phase_add(
+                            "fast_join", time.perf_counter() - t_j, t_j
+                        )
                     if spec_round:
                         # the megaround's results, copied since dispatch
                         t_pull = time.perf_counter()
@@ -1181,8 +1247,19 @@ class BatchScheduler:
                         # the passes the graph's WHILE node ran, as the
                         # card ran them
                         kernels.count_passes(spec.body, spec_it)
+                        if spec.timing is not None and stats.rec is not None:
+                            # the replay's events: complete, the copies
+                            # queued after them pulled just above
+                            ev0, ev1, t_replay = spec.timing
+                            device_s = ev0.elapsed_time(ev1) * 1e-3
+                            stats.rec.record(
+                                "megaround_replay", t_replay, device_s,
+                                cat="device", corr=stats.corr,
+                                attrs={"device_s": device_s,
+                                       "passes": spec_it},
+                            )
                         stats.phase_add(
-                            "spec_pull", time.perf_counter() - t_pull
+                            "spec_pull", time.perf_counter() - t_pull, t_pull
                         )
                         stats.count_add("spec_iterations", spec_it)
                     for G, pods, pull in launched:
@@ -1337,7 +1414,9 @@ class BatchScheduler:
                     native_out.append(
                         (G, pods, w_pod, w_node, w_type, buffers, w_c, w_m)
                     )
-                stats.phase_add("native_assign", time.perf_counter() - t_na)
+                stats.phase_add(
+                    "native_assign", time.perf_counter() - t_na, t_na
+                )
                 # bind stamp = native-verify completion
                 stats.round_end_seconds.append(time.perf_counter() - t_batch)
                 if dev is not None:
@@ -1524,7 +1603,9 @@ class BatchScheduler:
                             item.key, nm, mp, nl, round_no, False,
                         ))
                     stats.scheduled += n_ok
-                stats.phase_add("materialize", time.perf_counter() - t_mat)
+                stats.phase_add(
+                    "materialize", time.perf_counter() - t_mat, t_mat
+                )
                 stats.assign_seconds += time.perf_counter() - t0
                 continue
 
@@ -1664,6 +1745,7 @@ class BatchScheduler:
             fast.sync_to_nodes()
             for n in busy_nodes:
                 node_list[n].set_busy(now)
+            t_fill = time.perf_counter()
             for pod_i, rec in records.items():
                 item = items[pod_i]
                 node = node_list[rec.node_index]
@@ -1685,34 +1767,35 @@ class BatchScheduler:
                         continue
                     apply_record_to_topology(rec, top)
                     node.add_scheduled_pod(item.key[1], item.key[0], top)
-            stats.phase_add("final_sync", time.perf_counter() - t0)
+            if trace is not None:
+                # final_sync's child: the per-pod topology fill
+                _span(trace, "topology_fill", t_fill, cat="phase",
+                      corr=stats.corr)
+            stats.phase_add("final_sync", time.perf_counter() - t0, t0)
             stats.assign_seconds += time.perf_counter() - t0
 
-        # flight-recorder spans: per-round intervals plus one whole-schedule
-        # span (one module-global read when the recorder is off)
-        rec = get_recorder()
-        if rec is not None:
+        t_bf = time.perf_counter()
+        for i in range(len(items)) if offer is None else offer:
+            if results[i] is None:
+                results[i] = BatchAssignment(items[i].key, None)
+        stats.phase_add("backfill", time.perf_counter() - t_bf, t_bf)
+
+        # flight-recorder spans: per-round intervals from the first
+        # round's start, and one span of the whole call around every phase
+        if trace is not None:
             prev = 0.0
             for r, end in enumerate(stats.round_end_seconds):
-                rec.record(
-                    f"round{r}", t_batch_mono + prev, max(end - prev, 0.0),
-                    cat="solver",
+                trace.record(
+                    f"round{r}", t_batch + _PERF_TO_MONO + prev,
+                    max(end - prev, 0.0), cat="solver", corr=stats.corr,
                     attrs={
                         "claims": stats.counters.get(f"claims_r{r}"),
                         "rejects": stats.counters.get(f"rejects_r{r}"),
                     },
                 )
                 prev = end
-            rec.record(
-                "schedule", t_batch_mono, time.perf_counter() - t_batch,
-                cat="solver",
-                attrs={"pods": len(items), "rounds": stats.rounds,
-                       "scheduled": stats.scheduled, "failed": stats.failed},
-            )
-
-        t_bf = time.perf_counter()
-        for i in range(len(items)) if offer is None else offer:
-            if results[i] is None:
-                results[i] = BatchAssignment(items[i].key, None)
-        stats.phase_add("backfill", time.perf_counter() - t_bf)
+            _span(trace, "schedule", t_call, cat="solver", corr=stats.corr,
+                  attrs={"pods": len(items), "rounds": stats.rounds,
+                         "scheduled": stats.scheduled,
+                         "failed": stats.failed})
         return results, stats

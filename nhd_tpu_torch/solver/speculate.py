@@ -87,6 +87,7 @@ from nhd_tpu_torch.kernels.reference import (
     FLAG_MAP_PCI,
     FLAG_NEEDS_GPU,
 )
+from nhd_tpu_torch.obs.recorder import get_recorder
 from nhd_tpu_torch.solver.combos import get_tables
 from nhd_tpu_torch.solver.device_state import HostPull
 from nhd_tpu_torch.solver.kernel import (
@@ -525,13 +526,19 @@ class Megaround(tuple):
     pass of its graph's WHILE node, which the replay could not count, to
     be counted once per iteration by whoever reads the iteration word
     (``kernels.count_passes``); empty where every launch was counted as
-    it was made."""
+    it was made. ``timing``: where a graph replayed while the flight
+    recorder was on, the CUDA events around the replay and the host's
+    ``time.monotonic`` at its enqueue, for the reader of the results to
+    time once they are pulled; else None."""
 
     body: Dict[str, int]
+    timing: Optional[Tuple["torch.cuda.Event", "torch.cuda.Event", float]]
 
-    def __new__(cls, results: Sequence[Tensor], body: Optional[Dict[str, int]] = None):
+    def __new__(cls, results: Sequence[Tensor], body: Optional[Dict[str, int]] = None,
+                timing=None):
         self = super().__new__(cls, results)
         self.body = dict(body or {})
+        self.timing = timing
         return self
 
 
@@ -833,11 +840,19 @@ class MegaroundGraph:
             for name, t in zip(_ARG_ORDER, held):
                 t.copy_(node[name])
         lap("copy_in")
+        timing = None
         if graph:
+            if get_recorder() is not None:
+                stream = torch.cuda.current_stream(self.device)
+                timing = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True), time.monotonic())
+                timing[0].record(stream)
             try:
                 self.graph.replay()
             except Exception as exc:
                 raise _graph_error("megaround replay", exc) from exc
+            if timing is not None:
+                timing[1].record(stream)
             count_replay(self.tally)
             self.replays += 1
         elif cuda:
@@ -857,7 +872,7 @@ class MegaroundGraph:
             self._done.record(torch.cuda.current_stream(self.device))
         lap("copy_out")
         self.dispatches += 1
-        return Megaround(out, self.body_tally if graph else None)
+        return Megaround(out, self.body_tally if graph else None, timing)
 
 
 class MegaroundCache:

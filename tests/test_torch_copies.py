@@ -35,7 +35,6 @@ VERBATIM = (
     "config/paths.py",
     "config/triad.py",
     "core/__init__.py",
-    "core/node.py",
     "core/request.py",
     "core/topology.py",
     "ingress/__init__.py",
@@ -50,13 +49,10 @@ VERBATIM = (
     "k8s/retry.py",
     "obs/__init__.py",
     "obs/artifact.py",
-    "obs/chrome.py",
     "obs/fleet.py",
     "obs/histo.py",
     "obs/jitstats.py",
     "obs/journal.py",
-    "obs/perf.py",
-    "obs/recorder.py",
     "obs/slo.py",
     "policy/__init__.py",
     "policy/classes.py",
@@ -149,6 +145,14 @@ DIFFERS = {
                          "resolved by the port's parallel.sharding (imported "
                          "at the top), the stream tile size, and the "
                          "streaming tiler built on the scheduler's device",
+    "core/node.py": "release_from_topology adds each call to the flight "
+                    "recorder's release tally while it is on",
+    "obs/chrome.py": "the export carries the recorder's tallies; "
+                     "clock_anchor and lay_on_profile lay the spans on a "
+                     "torch.profiler trace's clock",
+    "obs/recorder.py": "per-name (count, seconds) tallies beside the ring, "
+                       "and the collector's gc spans while the "
+                       "process-global recorder is on",
     "sim/chaos.py": "device seams: ChaosSim(device=) builds every "
                     "Scheduler on that device (default cuda); the posture "
                     "check refuses a device profile only under "

@@ -97,8 +97,8 @@ def test_daemon_planes_import_without_jax():
 
 def test_lint_sanitizer_and_perf_import_without_jax():
     """nhdlint for the port (every module of analysis/), the sanitizer's
-    pytest plugin, obs/perf.py and the port's knob registry import in a
-    fresh interpreter with nothing of jax or nhd_tpu behind them."""
+    pytest plugin and the port's knob registry import in a fresh
+    interpreter with nothing of jax or nhd_tpu behind them."""
     analysis = sorted(p.stem for p in (PORT / "analysis").glob("*.py")
                       if p.stem not in ("__init__", "__main__"))
     assert len(analysis) == 13
@@ -107,7 +107,7 @@ def test_lint_sanitizer_and_perf_import_without_jax():
         f"for name in {analysis!r}:\n"
         "    importlib.import_module('nhd_tpu_torch.analysis.' + name)\n"
         "import nhd_tpu_torch.sanitizer.pytest_plugin\n"
-        "import nhd_tpu_torch.obs.perf, nhd_tpu_torch.config.port_knobs\n"
+        "import nhd_tpu_torch.config.port_knobs\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'nhd_tpu'))\n"
         "print(bad)\n"

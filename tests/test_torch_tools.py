@@ -105,6 +105,12 @@ def test_soak_matches_the_reference_tool(knobs, capsys):
     assert port[0] == 0 and port[1][-1].startswith("SOAK OK: 3 seeds x 30")
 
 
+#: the trace demo's event count: the port's trace holds the reference's
+#: spans and, besides, the batch's phases, the refresh's parts and the
+#: collector's spans (docs/OBSERVABILITY.md), so the counts differ
+EVENTS = re.compile(r"schema OK, (\d+) events")
+
+
 def test_trace_demo_matches_the_reference_tool(knobs, capsys, tmp_path):
     import nhd_tpu.obs as jx_obs
 
@@ -114,11 +120,20 @@ def test_trace_demo_matches_the_reference_tool(knobs, capsys, tmp_path):
             capsys, knobs)
     finally:
         jx_obs.disable()  # the reference's tool leaves its recorder on
+    counts = [int(EVENTS.search(got[1][1]).group(1)) for got in (ref, port)]
+    for got in (ref, port):
+        got[1][1] = EVENTS.sub("schema OK, <n> events", got[1][1])
     assert port == ref
+    assert counts[1] > counts[0]
     assert port[0] == 0 and "6/6 pods bound" in port[1][0]
+    names = {}
     for side in ("jax", "port"):
         trace = json.loads((tmp_path / side / "trace_demo.json").read_text())
         assert trace["traceEvents"]
+        names[side] = {e["name"] for e in trace["traceEvents"] if e["ph"] == "X"}
+    assert names["jax"] <= names["port"]
+    assert {"prepass", "encode", "final_sync", "backfill"} <= (
+        names["port"] - names["jax"])
 
 
 def test_replay_demo_matches_the_reference_tool(knobs, capsys):
