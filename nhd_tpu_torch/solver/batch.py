@@ -76,7 +76,6 @@ from nhd_tpu_torch.solver.encode import (
     refresh_node_row,
 )
 from nhd_tpu_torch.solver.fast_assign import (
-    AssignRecord,
     FastAssignError,
     FastCluster,
     apply_record_to_topology,
@@ -104,6 +103,11 @@ from nhd_tpu_torch.solver.speculate import (
     decode_claims_grouped,
     spec_iters,
     speculate_enabled,
+)
+from nhd_tpu_torch.solver.topology_plan import (
+    TopologyPlan,
+    fill_given,
+    plan_for,
 )
 from nhd_tpu_torch.utils import get_logger
 
@@ -1059,7 +1063,11 @@ class BatchScheduler:
             # row repairs from host truth here, so the batch's binds are
             # identical to a fault-free run
             dev = self._guard_audit(dev, cluster, context, stats)
-        records: Dict[int, AssignRecord] = {}
+        # pod index → its AssignRecord (per-pod path) or, from the round
+        # path, (plan or None, node row, its row lists): the final sync
+        # fills and registers each pod's topology from it
+        records: Dict[int, object] = {}
+        plans_built = 0
         busy_nodes: set = set()
         all_buckets = None
         is_pending = None
@@ -1491,7 +1499,7 @@ class BatchScheduler:
                 t_mat = time.perf_counter()
                 U_, K_ = cluster.U, cluster.K
                 names = cluster.names
-                want_record = self.register_pods
+                register = self.register_pods
                 BA_make = BatchAssignment._make
                 for bi, (G, pods, w_pod, w_node, w_type, buffers, w_c, w_m) in (
                     enumerate(native_out)
@@ -1547,22 +1555,6 @@ class BatchScheduler:
                     maps_sel = [mappings[i] for i in inv.ravel().tolist()]
                     names_sel = [names[n] for n in nodes_sel]
                     types_l = types_sel.tolist()
-                    if want_record:
-                        for w, pod_i, nm, n, t, mp in zip(
-                            widx_l, pods_sel, names_sel, nodes_sel,
-                            types_l, maps_sel,
-                        ):
-                            item = items[pod_i]
-                            rec = fast.record_from_round(
-                                pods, w, n, t, buffers
-                            )
-                            records[pod_i] = rec
-                            results[pod_i] = BA_make((
-                                item.key, nm, mp, rec.nic_list,
-                                round_no, False,
-                            ))
-                        stats.scheduled += n_ok
-                        continue
                     # consumed-NIC tuples, built once per distinct
                     # (type, per-group NIC row) key
                     rows2d = np.asarray(rows_sel).reshape(n_ok, -1)
@@ -1588,20 +1580,41 @@ class BatchScheduler:
                         for t, *row in uqk.tolist()
                     ]
                     nic_sel = [nics[i] for i in ninv.ravel().tolist()]
+                    # the rows a topology fill reads (final sync), each
+                    # buffer converted once; the plan of a type at its
+                    # first pod
+                    rows = None
+                    plan_of: Dict[int, TopologyPlan] = {}
                     for w, pod_i, nm, n, t, mp, nl in zip(
                         widx_l, pods_sel, names_sel, nodes_sel, types_l,
                         maps_sel, nic_sel,
                     ):
                         item = items[pod_i]
-                        if item.topology is not None:
-                            rec = fast.record_from_round(
-                                pods, w, n, t, buffers
-                            )
-                            records[pod_i] = rec
-                            nl = rec.nic_list
                         results[pod_i] = BA_make((
                             item.key, nm, mp, nl, round_no, False,
                         ))
+                        if item.topology is None:
+                            if not register:
+                                continue
+                            plan = plan_of.get(t)
+                            if plan is None:
+                                plan, built = plan_for(pods.requests[t])
+                                plan_of[t] = plan
+                                plans_built += built
+                        else:
+                            plan = None
+                        if rows is None:
+                            rows = (
+                                buffers[1].tolist(), buffers[2].tolist(),
+                                buffers[3].tolist(),
+                                fast.gpu_devid[
+                                    w_node[:, None], buffers[4]
+                                ].tolist(),
+                            )
+                        records[pod_i] = (
+                            plan, n, rows[0][w], rows[1][w], rows[2][w],
+                            rows[3][w],
+                        )
                     stats.scheduled += n_ok
                 stats.phase_add(
                     "materialize", time.perf_counter() - t_mat, t_mat
@@ -1746,8 +1759,33 @@ class BatchScheduler:
             for n in busy_nodes:
                 node_list[n].set_busy(now)
             t_fill = time.perf_counter()
+            register = self.register_pods
+            planned = given = 0
             for pod_i, rec in records.items():
                 item = items[pod_i]
+                if type(rec) is tuple:
+                    # the round path's rows (topology_plan.py)
+                    plan, n, cores, counts, nics, gpu_ids = rec
+                    node = node_list[n]
+                    if plan is None:
+                        fill_given(item.topology, item.request, cores,
+                                   counts, nics, gpu_ids, node)
+                        given += 1
+                        top = item.topology
+                        if not register:
+                            continue
+                    else:
+                        try:
+                            top = plan.build(cores, nics, gpu_ids, node)
+                        except ValueError as exc:
+                            self.logger.warning(
+                                f"skipping pod registration for "
+                                f"{item.key}: {exc}"
+                            )
+                            continue
+                        planned += 1
+                    node.add_scheduled_pod(item.key[1], item.key[0], top)
+                    continue
                 node = node_list[rec.node_index]
                 if item.topology is not None:
                     apply_record_to_topology(rec, item.topology)
@@ -1767,6 +1805,9 @@ class BatchScheduler:
                         continue
                     apply_record_to_topology(rec, top)
                     node.add_scheduled_pod(item.key[1], item.key[0], top)
+            stats.count_add("fill_planned", planned)
+            stats.count_add("fill_given", given)
+            stats.count_add("topology_plans_built", plans_built)
             if trace is not None:
                 # final_sync's child: the per-pod topology fill
                 _span(trace, "topology_fill", t_fill, cat="phase",
