@@ -1,9 +1,15 @@
-"""The control of the comparison that decides ``correct``: the plain
+"""The controls of the comparison that decides ``correct``: the plain
 reference put in the program's place, first fit in pod order, with one
-guarantee the configuration states broken: it treats a NIC that already
-serves a pod as free wherever its bandwidth still fits (NIC sharing on,
-where the configuration has it off). The reference that judges a run
-must find its answers not correct.
+guarantee the configuration states broken. The reference that judges a
+run must find its answers not correct.
+
+- ``nic_sharing`` (the default): it treats a NIC that already serves a
+  pod as free wherever its bandwidth still fits (NIC sharing on, where
+  the configuration has it off);
+- ``pci_switch``: it places a PCI pod as a NUMA one, its GPUs the first
+  free on its group's NUMA node whatever their PCIe switch, and admits
+  it without upstream's switch rule. A cell with no PCI pod type cannot
+  break it.
 
 Run on the card at a cell's own size, one process a seed:
 
@@ -34,10 +40,16 @@ from bench_port.fleet import Hardware  # noqa: E402
 from bench_port.reference import Answers, Reference, empty_answers  # noqa: E402
 
 
+#: each control's broken guarantee, as the reference's placer takes it
+BROKEN = {"nic_sharing": {"nic_pods_ignored": True},
+          "pci_switch": {"switch_ignored": True}}
+
+
 class Control:
     """The reference as a placer, with the interface ``run.Loop`` drives."""
 
-    def __init__(self, cfg: dict, mix: dict):
+    def __init__(self, cfg: dict, mix: dict, broken: str = "nic_sharing"):
+        self.broken = BROKEN[broken]
         g = cfg["guarantees"]
         self.state = Reference(Hardware.of(cfg["fleet"], g["nic_bw_avail"]),
                                mix["pod_types"], nic_sharing=g["nic_sharing"])
@@ -54,7 +66,7 @@ class Control:
     def _fit(self, ti, gi):
         key = (ti, gi)
         if key not in self._fits:
-            self._fits[key] = self.state.fits_anywhere(ti, gi, nic_pods_ignored=True)
+            self._fits[key] = self.state.fits_anywhere(ti, gi, **self.broken)
         return self._fits[key]
 
     def schedule(self, items):
@@ -69,7 +81,7 @@ class Control:
             if not len(cand):
                 continue
             n = int(cand[0])
-            got = self.state.place(ti, gi, n, p, nic_pods_ignored=True)
+            got = self.state.place(ti, gi, n, p, **self.broken)
             if got is None:
                 continue
             node[p] = n
@@ -78,7 +90,7 @@ class Control:
             nics += got[2]
             for (kt, kg), f in self._fits.items():
                 if f[n]:
-                    f[n] = self.state.first_choice(kt, kg, n, True) is not None
+                    f[n] = self.state.first_choice(kt, kg, n, **self.broken) is not None
 
         def col(rows, j, dtype=np.int64):
             return np.asarray([r[j] for r in rows], dtype)
@@ -123,13 +135,13 @@ class Control:
 
 
 def run_control(manifest: dict, cell: dict, cfg: dict, mix: dict, seed: int,
-                seconds: float) -> dict:
+                seconds: float, broken: str = "nic_sharing") -> dict:
     """The cell's loop with the control in the program's place, judged
     as a run is; returns the numbers compared."""
     from bench_port.run import LIMITS, Loop, warm_up
     from bench_port.traffic import mix_gangs
 
-    ctl = Control(cfg, mix)
+    ctl = Control(cfg, mix, broken)
     loop = Loop(ctl, mix["occupancy_pods"], traced=False)
     warm_up(loop, mix, seed)
     t_end = time.perf_counter() + seconds
@@ -155,13 +167,14 @@ def main(argv=None) -> int:
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seeds", required=True, help="comma-separated seeds")
     ap.add_argument("--seconds", type=float, default=10.0)
+    ap.add_argument("--control", choices=sorted(BROKEN), default="nic_sharing")
     args = ap.parse_args(argv)
     manifest = mf.load(ROOT)
     cell = mf.cell(manifest, args.workload)
     cfg, mix = mf.config(cell["config"]), mf.traffic(cell["traffic"])
     for seed in (int(s) for s in args.seeds.split(",")):
-        print(json.dumps(run_control(manifest, cell, cfg, mix, seed, args.seconds)),
-              flush=True)
+        print(json.dumps(run_control(manifest, cell, cfg, mix, seed, args.seconds,
+                                     args.control)), flush=True)
     return 0
 
 

@@ -7,6 +7,15 @@ format follows ``nhd_tpu_torch/sim/synth.py`` ``make_node_labels``,
 copied here so that the benchmark owns its inputs. The reference gets
 the same hardware as plain numbers (``Hardware``), worked out from the
 same specification. Nothing here imports the program.
+
+The PCIe switch layout is stated by two optional keys of the fleet,
+``gpus_per_switch`` and ``nics_per_switch`` (both 1 where absent): GPU
+``j`` of NUMA node ``u`` sits on switch ``u * SW_STRIDE + j //
+gpus_per_switch``, NIC ``k`` of NUMA node ``u`` on switch ``u *
+SW_STRIDE + k // nics_per_switch``. With both at 1, GPU ``j`` and NIC
+``j`` of a NUMA node share a switch and each switch holds one of each;
+a GPUDirect server with two GPUs and two NICs behind each switch states
+both as 2.
 """
 
 from __future__ import annotations
@@ -16,8 +25,14 @@ from typing import Dict, List
 
 import numpy as np
 
-#: the PCIe switch id of slot *s* on NUMA node *u* is ``u * SW_STRIDE + s``
+#: the PCIe switch ids of NUMA node *u* start at ``u * SW_STRIDE``
 SW_STRIDE = 16
+
+
+def switch_id(numa: int, slot: int, per_switch: int) -> int:
+    """The PCIe switch of a NUMA node's GPU or NIC *slot*, *per_switch*
+    of them to a switch."""
+    return numa * SW_STRIDE + slot // per_switch
 
 
 def node_name(fleet: dict, i: int) -> str:
@@ -82,7 +97,7 @@ def node_labels(fleet: dict, i: int) -> Dict[str, str]:
     k = 0
     for numa in range(fleet["sockets"]):
         for slot in range(fleet["nics_per_numa"]):
-            sw = numa * SW_STRIDE + slot
+            sw = switch_id(numa, slot, fleet.get("nics_per_switch", 1))
             labels[
                 f"{pfx}nic.eth{k}.mlx5.{raw_mac(k, numa, slot)}"
                 f".{fleet['nic_speed_mbps']}Mbs.{numa}.{sw:x}.{slot:x}.0"
@@ -91,7 +106,7 @@ def node_labels(fleet: dict, i: int) -> Dict[str, str]:
     g = 0
     for numa in range(fleet["sockets"]):
         for slot in range(fleet["gpus_per_numa"]):
-            sw = numa * SW_STRIDE + slot
+            sw = switch_id(numa, slot, fleet.get("gpus_per_switch", 1))
             labels[f"{pfx}gpu.{g}.{fleet['gpu_model']}.{numa}.{sw:x}"] = "true"
             g += 1
     labels["NHD_GROUP"] = node_group(fleet, i)
@@ -109,7 +124,9 @@ class Hardware:
 
     Logical core ``c`` sits on physical core ``c % P``; physical cores
     ``[u * P/U, (u+1) * P/U)`` are NUMA node ``u``'s. GPU ``j`` and NIC
-    ``k`` are numbered NUMA node by NUMA node, as the labels list them."""
+    ``k`` are numbered NUMA node by NUMA node, as the labels list them;
+    ``gps`` GPUs and ``nps`` NICs share a PCIe switch (the fleet's
+    ``gpus_per_switch`` and ``nics_per_switch``)."""
 
     N: int
     U: int
@@ -122,6 +139,8 @@ class Hardware:
     hugepages: int
     node_groups: List[str]
     group_names: List[str]
+    gps: int = 1
+    nps: int = 1
 
     @classmethod
     def of(cls, fleet: dict, nic_bw_avail: float) -> "Hardware":
@@ -134,6 +153,8 @@ class Hardware:
             hugepages=fleet["hugepages_gb"],
             node_groups=[node_group(fleet, i) for i in range(N)],
             group_names=list(fleet["groups"]),
+            gps=fleet.get("gpus_per_switch", 1),
+            nps=fleet.get("nics_per_switch", 1),
         )
 
     @property
@@ -153,23 +174,25 @@ class Hardware:
     def nic_numa(self) -> np.ndarray:
         return np.arange(self.U * self.npn) // self.npn
 
+    def _raw_gpu_switch(self) -> List[int]:
+        return [switch_id(u, s, self.gps) for u in range(self.U) for s in range(self.gpn)]
+
+    def _raw_nic_switch(self) -> List[int]:
+        return [switch_id(u, s, self.nps) for u in range(self.U) for s in range(self.npn)]
+
     def switches(self) -> List[int]:
         """The node's PCIe switch ids, sorted (dense id = position)."""
-        sw = {u * SW_STRIDE + s for u in range(self.U)
-              for s in range(max(self.gpn, self.npn))}
-        return sorted(sw)
+        return sorted(set(self._raw_gpu_switch()) | set(self._raw_nic_switch()))
 
     def gpu_switch(self) -> np.ndarray:
         """Dense switch id of each GPU."""
         dense = {s: j for j, s in enumerate(self.switches())}
-        return np.array([dense[u * SW_STRIDE + s] for u in range(self.U)
-                         for s in range(self.gpn)], np.int64)
+        return np.array([dense[s] for s in self._raw_gpu_switch()], np.int64)
 
     def nic_switch(self) -> np.ndarray:
         """Dense switch id of each NIC."""
         dense = {s: j for j, s in enumerate(self.switches())}
-        return np.array([dense[u * SW_STRIDE + s] for u in range(self.U)
-                         for s in range(self.npn)], np.int64)
+        return np.array([dense[s] for s in self._raw_nic_switch()], np.int64)
 
     def mac_index(self) -> Dict[str, int]:
         """MAC → NIC number, the same on every node of the fleet."""

@@ -22,6 +22,32 @@ the configuration's guarantees:
   only shrink within a gang, so a pod that fits then fitted when the
   program gave up on it).
 
+A pod type with ``map_mode`` PCI (upstream's PCI map mode, the
+PCIe-switch-aware GPU and NIC pairing of GPUDirect, README.md:16,
+147-148) is held to every rule above and to upstream's switch rules,
+with the switches ``Hardware`` states:
+
+- placements: each GPU of a processing group sits on the PCIe switch of
+  that group's NIC (Node.py:648-655, 688-716 take a PCI group's GPUs
+  off its NIC's switch, and fail the pod where that switch has none);
+- failures: every processing group takes a NIC choice on its NUMA node,
+  whatever bandwidth it asks for (Matcher.py:224-276), and upstream
+  admits a choice only where each switch holds at least as many free
+  GPUs as NICs chosen on it, the NICs of groups that ask for no GPU
+  counted too (Matcher.py:313-322, the quirk ``nhd_tpu_torch/solver/
+  oracle.py`` keeps). A pod left unplaced is judged by that admission:
+  it failed rightly where no node admits it. An admitted choice then
+  takes each GPU off the chosen NIC's switch, which a group of one GPU
+  always finds;
+- pod types refused (``PodType.of``): a PCI group that asks for more
+  than one GPU, since admission counts NICs and not GPUs and upstream
+  fails the pod at assignment where the two part (NHDScheduler.py:
+  296-299), on a node the answers do not name; and a PCI group that
+  asks for a GPU but no NIC bandwidth, whose NIC the answers do not
+  name.
+
+NUMA map mode's verdicts do not depend on any of this.
+
 After the window ``row_mismatches`` compares the program's resident
 device rows with the rows this state gives.
 """
@@ -54,13 +80,28 @@ class PodType:
     misc: int
     misc_smt: bool
     hugepages: int
+    pci: bool = False
 
     @classmethod
     def of(cls, spec: dict) -> "PodType":
-        if spec.get("map_mode", "NUMA") != "NUMA":
-            raise ValueError("the reference judges NUMA map mode only")
+        mode = spec.get("map_mode", "NUMA")
+        if mode not in ("NUMA", "PCI"):
+            raise ValueError(f"the reference judges NUMA and PCI map modes, not {mode!r}")
+        for g, grp in enumerate(spec["groups"] if mode == "PCI" else []):
+            if grp["gpus"] > 1:
+                raise ValueError(
+                    f"PCI group {g} asks for {grp['gpus']} GPUs: upstream admits a NIC "
+                    "choice by the free GPUs against the NICs on its switch, not the "
+                    "GPUs asked for (Matcher.py:313-322), and fails the pod at "
+                    "assignment where the two part (NHDScheduler.py:296-299), on a "
+                    "node the answers do not name, so the reference cannot judge it")
+            if grp["gpus"] and not (grp["rx_gbps"] > 0 or grp["tx_gbps"] > 0):
+                raise ValueError(
+                    f"PCI group {g} asks for a GPU and no NIC bandwidth: its GPU "
+                    "belongs on its NIC's switch, and the answers name no NIC for a "
+                    "group that serves none")
         return cls(spec["groups"], spec["misc"], spec["misc_smt"],
-                   spec["hugepages_gb"])
+                   spec["hugepages_gb"], mode == "PCI")
 
     def parts(self, node_smt: bool):
         """(group, part, logical count, physical count) of each core set."""
@@ -76,6 +117,15 @@ class PodType:
     def needs_nic(self, g: int) -> bool:
         grp = self.groups[g]
         return grp["rx_gbps"] > 0 or grp["tx_gbps"] > 0
+
+    def nic_groups(self, switch_ignored: bool = False) -> List[int]:
+        """The groups that take a NIC choice: in PCI mode every group
+        (each NIC chosen counts against its switch's free GPUs), else
+        those that ask for bandwidth. *switch_ignored*: PCI judged as
+        NUMA (the second control's broken guarantee)."""
+        if self.pci and not switch_ignored:
+            return list(range(len(self.groups)))
+        return [g for g in range(len(self.groups)) if self.needs_nic(g)]
 
 
 @dataclass
@@ -133,6 +183,11 @@ class Reference:
         self.node_group = np.array(
             [hw.group_names.index(g) for g in hw.node_groups], np.int64)
         self._expect = self._expected_parts()
+        self._pci = np.array([t.pci for t in self.types], bool)
+        # the dense switch of each GPU and NIC, and [GPUs, switches]
+        self._gsw, self._nsw = hw.gpu_switch(), hw.nic_switch()
+        self._gpu_on_sw = np.zeros((len(self._gsw), len(hw.switches())), np.int64)
+        self._gpu_on_sw[np.arange(len(self._gsw)), self._gsw] = 1
         self.verdict = Verdict()
 
     # -- the program's answers against this state --------------------
@@ -279,6 +334,14 @@ class Reference:
                 | (base[:, 1] + tx > hw.nic_cap + 1e-9))
         flag(n_pod[over[nk]], "nic bandwidth over its headroom")
 
+        # -- PCI map mode: each GPU on its group's NIC's switch --
+        pci_gpu = self._pci[a.ptype][g_pod]
+        if pci_gpu.any():
+            nic_sw = np.full(n * G1, -1, np.int64)
+            nic_sw[slot_n] = self._nsw[n_id]
+            off = self._gsw[g_id] != nic_sw[g_pod * G1 + g_grp + 1]
+            flag(g_pod[pci_gpu & off], "gpu off its NIC's PCIe switch")
+
         # -- hugepages --
         hp = np.array([t.hugepages for t in self.types], np.int64)[a.ptype]
         need = np.bincount(node[placed], weights=hp[placed],
@@ -349,17 +412,21 @@ class Reference:
         return np.stack([free, free], axis=2)
 
     def fits_anywhere(self, ti: int, gi: int, rows=None,
-                      nic_pods_ignored: bool = False) -> np.ndarray:
+                      nic_pods_ignored: bool = False,
+                      switch_ignored: bool = False) -> np.ndarray:
         """Whether a pod of type *ti* in node group *gi* fits each node
         (each of *rows*) as the state stands: some NUMA node for each
         group and for the misc cores, and some NIC for each group that
         needs one, such that every NUMA node's cores and GPUs and every
         NIC's headroom hold what lands there (the matcher's rule).
+        In PCI mode every switch must also hold as many free GPUs as
+        NICs chosen on it (upstream's admission, the module docstring).
         *nic_pods_ignored*: judge NICs by bandwidth alone, as if NIC
-        sharing were on (the control's broken guarantee)."""
+        sharing were on (the first control's broken guarantee).
+        *switch_ignored*: judge PCI as NUMA map mode (the second's)."""
         rows = np.arange(self.hw.N) if rows is None else np.asarray(rows)
         fits = np.zeros(len(rows), bool)
-        for _choice, ok in self._choices(ti, rows, nic_pods_ignored):
+        for _choice, ok in self._choices(ti, rows, nic_pods_ignored, switch_ignored):
             fits |= ok
             if fits.all():
                 break
@@ -367,7 +434,8 @@ class Reference:
                    & (self.hp_free[rows] >= self.types[ti].hugepages))
         return fits & ok_node
 
-    def _choices(self, ti: int, rows: np.ndarray, nic_pods_ignored: bool):
+    def _choices(self, ti: int, rows: np.ndarray, nic_pods_ignored: bool,
+                 switch_ignored: bool = False):
         """Each (NUMA node per group, misc NUMA node, NIC per NIC group)
         choice in the matcher's product order, with whether it fits each
         of *rows*."""
@@ -384,7 +452,10 @@ class Reference:
         cpu_g = [phys_of(g["proc"], g["proc_smt"], hw.smt)
                  + phys_of(g["helpers"], g["helper_smt"], hw.smt) for g in t.groups]
         misc = phys_of(t.misc, t.misc_smt, hw.smt)
-        nic_groups = [g for g in range(G) if t.needs_nic(g)]
+        nic_groups = t.nic_groups(switch_ignored)
+        pci = t.pci and not switch_ignored
+        if pci:
+            fsw = (~self.gpu_used[rows]).astype(np.int64) @ self._gpu_on_sw
         for numas in itertools.product(range(hw.U), repeat=G):
             d_cpu = np.zeros(hw.U, np.int64)
             d_gpu = np.zeros(hw.U, np.int64)
@@ -406,9 +477,22 @@ class Reference:
                     good = base.copy()
                     for k, (rx, tx) in use.items():
                         good &= (head[:, k, 0] >= rx - 1e-9) & (head[:, k, 1] >= tx - 1e-9)
+                    if pci:
+                        for s, c in self._switch_share(numas, nic_groups, picks):
+                            good &= fsw[:, s] >= c
                     yield (numas, m, dict(zip(nic_groups, picks))), good
 
-    def first_choice(self, ti: int, gi: int, n: int, nic_pods_ignored: bool = False):
+    def _switch_share(self, numas, nic_groups, picks):
+        """(dense switch, NICs chosen on it) of one NIC choice."""
+        npn = self.hw.npn
+        share: Dict[int, int] = {}
+        for g, s in zip(nic_groups, picks):
+            sw = int(self._nsw[numas[g] * npn + s])
+            share[sw] = share.get(sw, 0) + 1
+        return share.items()
+
+    def first_choice(self, ti: int, gi: int, n: int, nic_pods_ignored: bool = False,
+                     switch_ignored: bool = False):
         """The first choice in ``_choices``' order by which a pod of type
         *ti* in node group *gi* fits node *n*, or None: the same rule,
         one node at a time in plain Python."""
@@ -430,7 +514,10 @@ class Reference:
         cpu_g = [phys_of(g["proc"], g["proc_smt"], hw.smt)
                  + phys_of(g["helpers"], g["helper_smt"], hw.smt) for g in t.groups]
         misc = phys_of(t.misc, t.misc_smt, hw.smt)
-        nic_groups = [g for g in range(G) if t.needs_nic(g)]
+        nic_groups = t.nic_groups(switch_ignored)
+        pci = t.pci and not switch_ignored
+        if pci:
+            fsw = ((~self.gpu_used[n]).astype(np.int64) @ self._gpu_on_sw).tolist()
         for numas in itertools.product(range(hw.U), repeat=G):
             d_cpu = [0] * hw.U
             d_gpu = [0] * hw.U
@@ -451,24 +538,32 @@ class Reference:
                         acc = use.setdefault(numas[g] * hw.npn + s, [0.0, 0.0])
                         acc[0] += t.groups[g]["rx_gbps"]
                         acc[1] += t.groups[g]["tx_gbps"]
-                    if all(head[k][0] >= rx - 1e-9 and head[k][1] >= tx - 1e-9
-                           for k, (rx, tx) in use.items()):
-                        return numas, m, dict(zip(nic_groups, picks))
+                    if not all(head[k][0] >= rx - 1e-9 and head[k][1] >= tx - 1e-9
+                               for k, (rx, tx) in use.items()):
+                        continue
+                    if pci and not all(
+                            fsw[s] >= c for s, c in
+                            self._switch_share(numas, nic_groups, picks)):
+                        continue
+                    return numas, m, dict(zip(nic_groups, picks))
         return None
 
-    def place(self, ti: int, gi: int, n: int, pod: int, nic_pods_ignored: bool = False):
+    def place(self, ti: int, gi: int, n: int, pod: int, nic_pods_ignored: bool = False,
+              switch_ignored: bool = False):
         """Place a pod of type *ti* in node group *gi* on node *n* by the
-        first choice that fits, lowest free cores and GPUs first, and
+        first choice that fits, lowest free cores and GPUs first (in PCI
+        mode the lowest free GPUs on the group's NIC's switch), and
         claim it in this state. Returns its (cores, gpus, nics) records,
         or None where it does not fit: cores as (pod, group, part,
         logical id), gpus as (pod, group, id), nics as (pod, group, id,
         rx, tx)."""
         hw = self.hw
         t = self.types[ti]
-        choice = self.first_choice(ti, gi, n, nic_pods_ignored)
+        choice = self.first_choice(ti, gi, n, nic_pods_ignored, switch_ignored)
         if choice is None:
             return None
         numas, m, picks = choice
+        pci = t.pci and not switch_ignored
         per = hw.P // hw.U
         cores, gpus, nics = [], [], []
 
@@ -490,11 +585,12 @@ class Reference:
             take(u, grp["proc"], grp["proc_smt"], g, PROC)
             take(u, grp["helpers"], grp["helper_smt"], g, HELPER)
             free_g = [j for j in range(u * hw.gpn, (u + 1) * hw.gpn)
-                      if not self.gpu_used[n, j]]
+                      if not self.gpu_used[n, j]
+                      and (not pci or self._gsw[j] == self._nsw[u * hw.npn + picks[g]])]
             for j in free_g[:grp["gpus"]]:
                 self.gpu_used[n, j] = True
                 gpus.append((pod, g, j))
-            if g in picks:
+            if g in picks and t.needs_nic(g):
                 k = u * hw.npn + picks[g]
                 nics.append((pod, g, k, grp["rx_gbps"], grp["tx_gbps"]))
                 self.nic_bw[n, k] += (grp["rx_gbps"], grp["tx_gbps"])

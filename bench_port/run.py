@@ -18,7 +18,11 @@ result as one JSON object; the numbers compared, each beside its limit,
 end standard error.
 
 With ``--trace 0`` the result holds the cell's end-to-end metrics, with
-``--trace 1`` its per-layer metrics, read under ``torch.profiler``.
+``--trace 1`` its per-layer metrics, read under ``torch.profiler`` with
+the program's flight recorder on (``nhd_tpu_torch.obs``): its spans and
+tallies go to the readers, laid on the profiler's clock to name the
+device's idle gaps. Each gang's record carries the program's own
+counters (``BatchStats.counters``) in both.
 Exits non-zero with no result when no CUDA device is present (or fewer
 than the cell asks for), when the program is not beside the benchmark,
 or when JAX or the JAX package was loaded.
@@ -54,14 +58,16 @@ from bench_port import roofline, trace as trace_mod  # noqa: E402
 from bench_port.fleet import Hardware  # noqa: E402
 from bench_port.imports import loaded_forbidden  # noqa: E402
 from bench_port.reference import Reference  # noqa: E402
-from bench_port.traffic import gangs, mix_gangs  # noqa: E402
+from bench_port.traffic import gangs, mix_gangs, stream_gangs  # noqa: E402
 
 #: the harness's own spans, around its calls into the program
 SPANS = ("schedule", "teardown", "refresh", "answers", "items")
 #: the numbers compared, each with its limit: every one an exact count
 LIMITS = {"bad_placements": 0, "bad_failures": 0, "row_mismatches": 0}
-WINDOW_GANGS = 8192
 WARM_INDEX = 1 << 30
+#: the recorder's ring in a traced window: a gang records some tens of
+#: spans, and a window of small gangs holds thousands of gangs
+RECORDER_SPANS = 1 << 21
 
 
 def process_age() -> float:
@@ -158,7 +164,7 @@ class Loop:
             "encode_s": stats.phases.get("encode", 0.0),
             "spec_dispatch_s": stats.phases.get("spec_dispatch") if spec else None,
             "select_s": stats.select_seconds, "assign_s": stats.assign_seconds,
-            "teardowns": len(released),
+            "teardowns": len(released), "counters": dict(stats.counters),
         }
 
     def replay(self, ref: Reference) -> None:
@@ -210,7 +216,7 @@ def run_cell(manifest: dict, cell: dict, cfg: dict, mix: dict, seed: int,
     t_warm = time.perf_counter()
     warm_gangs = warm_up(loop, mix, seed)
     t_warmed = time.perf_counter()
-    window = mix_gangs(mix, seed, WINDOW_GANGS, stream=0)
+    window = stream_gangs(mix, seed, 0)
 
     gc.collect()
     if cuda:
@@ -230,13 +236,18 @@ def run_cell(manifest: dict, cell: dict, cfg: dict, mix: dict, seed: int,
                 gc_pause["full_s"] += dt
             gc_pause["t"] = None
 
-    prof = None
+    prof = rec = None
     if traced:
         from torch.profiler import ProfilerActivity, profile
 
+        from nhd_tpu_torch import obs
+        from nhd_tpu_torch.obs import chrome
+
+        rec = obs.enable(capacity=RECORDER_SPANS)
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
         prof = profile(activities=acts)
         prof.__enter__()
+        anchors = [chrome.clock_anchor()]
     loop.traced = traced
     recs: List[dict] = []
     gc.callbacks.append(on_gc)
@@ -249,19 +260,23 @@ def run_cell(manifest: dict, cell: dict, cfg: dict, mix: dict, seed: int,
             answers_s += recs[-1]["answers_s"]
             if time.perf_counter() - answers_s >= t_open + seconds:
                 break
-        else:
-            raise RuntimeError("the window outran the drawn gangs")
         if cuda:
             torch.cuda.synchronize()
         t_close = time.perf_counter()
     finally:
         gc.callbacks.remove(on_gc)
     loop.traced = False
+    spans = tallies = None
+    dropped = 0
+    if rec is not None:
+        anchors.append(chrome.clock_anchor())
+        spans, tallies, dropped = rec.spans(), rec.tallies(), rec.dropped()
+        obs.disable()
     # the traced window is the whole wall; the program's window leaves
     # out the harness's reading of answers
     window_s = t_close - t_open
     program_s = window_s - answers_s
-    summary = None
+    summary = laid = None
     if prof is not None:
         prof.__exit__(None, None, None)
         with tempfile.TemporaryDirectory() as tmp:
@@ -269,6 +284,7 @@ def run_cell(manifest: dict, cell: dict, cfg: dict, mix: dict, seed: int,
             prof.export_chrome_trace(str(path))
             events = trace_mod.read_export(path)
         del prof
+        laid = chrome.lay_on_profile(events, spans, anchors)
         kernels = trace_mod.port_kernels(ROOT / "nhd_tpu_torch" / "kernels")
         summary = trace_mod.summarize(events, kernels, SPANS)
         del events
@@ -298,6 +314,10 @@ def run_cell(manifest: dict, cell: dict, cfg: dict, mix: dict, seed: int,
           f"{gc_pause['full']} full collections {gc_pause['full_s']:.3f} s; "
           f"{captures} graph captures), reference "
           f"{time.perf_counter() - t_ref:.3f} s", file=sys.stderr)
+    if laid is not None:
+        print(f"bench_port: recorder {laid['spans']} spans, {dropped} dropped, "
+              f"{sum(c for c, _ in tallies.values())} tallied calls; laid on the "
+              f"profiler's clock at {laid['us_per_s']:.3f} us/s", file=sys.stderr)
 
     pods = sum(r["pods"] for r in recs)
     placed = sum(r["placed"] for r in recs)
@@ -305,6 +325,8 @@ def run_cell(manifest: dict, cell: dict, cfg: dict, mix: dict, seed: int,
         "gangs": recs, "window_s": window_s,
         "rows_uploaded": rows_up, "captures": captures,
         "gc_pause_s": gc_pause["s"], "trace": summary, "fleet": cfg["fleet"],
+        "spans": None if spans is None else [sp.to_dict() for sp in spans],
+        "tallies": tallies, "dropped": dropped,
         "least_s": sum(roofline.least_seconds(
             roofline.solve_passes(r["rounds"], r["spec_round"], r["spec_iterations"]),
             cfg["fleet"]) for r in recs),

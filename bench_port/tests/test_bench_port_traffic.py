@@ -4,20 +4,26 @@ gives every seed the same gangs."""
 
 import numpy as np
 
+import itertools
+
 from bench_port import manifest as mf
-from bench_port.traffic import block_sizes, gang_sizes, gangs, mix_gangs
+from bench_port.traffic import block_sizes, gangs, mix_gangs, stream_gangs
 
 BIG = 2 ** 31 + 12345
 #: a mix of many sizes, as a later cell's file would hold
 SPREAD = {"gang_pods_min": 64, "gang_pods_max": 2048, "block": 32}
 
 
+def sizes(mix, seed, n, stream=0):
+    return np.array([g.size for g in mix_gangs(mix, seed, n, stream)])
+
+
 def test_same_seed_same_gangs():
-    a = gang_sizes(SPREAD, BIG, 500, stream=0)
-    b = gang_sizes(SPREAD, BIG, 500, stream=0)
+    a = sizes(SPREAD, BIG, 500)
+    b = sizes(SPREAD, BIG, 500)
     assert np.array_equal(a, b)
-    assert not np.array_equal(a, gang_sizes(SPREAD, BIG + 1, 500, stream=0))
-    assert not np.array_equal(a, gang_sizes(SPREAD, BIG, 500, stream=1))
+    assert not np.array_equal(a, sizes(SPREAD, BIG + 1, 500))
+    assert not np.array_equal(a, sizes(SPREAD, BIG, 500, stream=1))
 
 
 def test_blocks_hold_the_same_sizes_for_every_seed():
@@ -25,7 +31,7 @@ def test_blocks_hold_the_same_sizes_for_every_seed():
     assert base[0] >= SPREAD["gang_pods_min"] and base[-1] <= SPREAD["gang_pods_max"]
     b = SPREAD["block"]
     for seed in (0, 7, BIG, 2 ** 40):
-        s = gang_sizes(SPREAD, seed, 4 * b, stream=0)
+        s = sizes(SPREAD, seed, 4 * b)
         for j in range(4):
             assert np.array_equal(np.sort(s[j * b:(j + 1) * b]), base)
 
@@ -61,3 +67,14 @@ def test_pods_cycle_types_and_groups_across_gangs():
     k = np.arange(16)
     assert np.array_equal(types, k % 3)
     assert np.array_equal(groups, (k // 3) % 3)
+
+
+def test_the_window_draw_never_runs_out():
+    """The window takes gangs until its clock runs out: the draw goes on
+    past any count, a block at a time, numbering gangs and pods on."""
+    far = next(itertools.islice(stream_gangs(SPREAD, BIG, 0), 100000, None))
+    assert far.index == 100000
+    assert SPREAD["gang_pods_min"] <= far.size <= SPREAD["gang_pods_max"]
+    b = SPREAD["block"]
+    gs = mix_gangs(SPREAD, BIG, 3 * b, stream=0)
+    assert [g.first for g in gs[1:]] == np.cumsum([g.size for g in gs[:-1]]).tolist()

@@ -9,6 +9,12 @@ replay's device time is the span from the first to the last of that
 work. The profiler records 0, 1 or every pass of the graph's WHILE node,
 so that span is what the trace shows of a replay, not a count of its
 passes.
+
+Where the program's flight recorder ran, its spans are laid on the
+trace's clock as complete events of category ``nhd``
+(``nhd_tpu_torch.obs.chrome.lay_on_profile``); an idle gap is then named
+by the innermost program span it fell in (the collector's ``gc`` spans
+among them), and by the harness's span where no program span holds it.
 """
 
 from __future__ import annotations
@@ -22,6 +28,10 @@ from typing import Dict, Iterable, List, Tuple
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 GRAPH_OP = "megaround_graph"
+#: the category of the program's recorded spans once laid on the trace
+PROGRAM_CAT = "nhd"
+#: recorded spans that time the device, not the host: they name no gap
+DEVICE_SPAN_CATS = ("device",)
 
 _GLOBAL = re.compile(r"__global__\s+(?:void\s+)?(?:__launch_bounds__\([^)]*\)\s+)?"
                      r"(?:void\s+)?(\w+)\s*\(")
@@ -57,8 +67,9 @@ def summarize(events: List[dict], kernels: List[str], spans: Iterable[str]) -> D
     """Reduce the trace's events (``ts``/``dur`` in microseconds) to
     seconds: ``busy_s`` (union of device activity), ``kernel_s`` (the
     port's kernels outside graphs plus each replay's span), ``device_ops``
-    and ``idle_gaps`` (each at most 10, longest first; a gap is named by the harness span
-    it fell in and the device op before it)."""
+    and ``idle_gaps`` (each at most 10, longest first; a gap is named by the
+    innermost span it fell in, the program's or else the harness's, and
+    the device op before it)."""
     spans = set(spans)
     graph_corr = set()
     device = []
@@ -76,7 +87,9 @@ def summarize(events: List[dict], kernels: List[str], spans: Iterable[str]) -> D
             d = float(e.get("dur", 0.0))
             device.append((s, s + d, e.get("name", cat), cat,
                            (e.get("args") or {}).get("correlation")))
-        elif cat == "user_annotation" and e.get("name") in spans:
+        elif ((cat == "user_annotation" and e.get("name") in spans)
+              or (cat == PROGRAM_CAT
+                  and (e.get("args") or {}).get("cat") not in DEVICE_SPAN_CATS)):
             s = float(e["ts"])
             host.append((s, s + float(e.get("dur", 0.0)), e["name"]))
 
@@ -100,7 +113,9 @@ def summarize(events: List[dict], kernels: List[str], spans: Iterable[str]) -> D
     busy = union((s, e) for s, e, *_ in device)
     busy_us = sum(e - s for s, e in busy)
 
-    host.sort()
+    # by start, the outer of two spans that start together first: the
+    # innermost span holding an instant is the last one that started
+    host.sort(key=lambda h: (h[0], -h[1]))
     hs = [h[0] for h in host]
 
     def doing(t: float) -> str:
@@ -115,10 +130,10 @@ def summarize(events: List[dict], kernels: List[str], spans: Iterable[str]) -> D
     for s, e, name, cat, corr in device:
         last_name[e] = GRAPH_OP if corr in graph_corr else (
             short(name) if cat == "kernel" else cat)
-    gaps = []
-    for (s0, e0), (s1, _e1) in zip(busy, busy[1:]):
-        gaps.append((s1 - e0, f"{doing((e0 + s1) / 2)}_after_{last_name.get(e0, 'device')}"))
-    gaps.sort(reverse=True)
+    longest = sorted(((s1 - e0, e0, s1) for (s0, e0), (s1, _e1) in zip(busy, busy[1:])),
+                     reverse=True)[:10]
+    gaps = [(g, f"{doing((e0 + s1) / 2)}_after_{last_name.get(e0, 'device')}")
+            for g, e0, s1 in longest]
     return {
         "busy_s": busy_us * 1e-6,
         "kernel_s": (kernel_us + graph_us) * 1e-6,

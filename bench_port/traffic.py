@@ -18,8 +18,9 @@ imports the program.
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass
-from typing import List
+from typing import Iterator, List
 
 import numpy as np
 
@@ -47,15 +48,6 @@ def block_sizes(mix: dict) -> np.ndarray:
     return np.rint(lo * (hi / lo) ** q).astype(np.int64)
 
 
-def gang_sizes(mix: dict, seed: int, n_gangs: int, stream: int) -> np.ndarray:
-    """*n_gangs* sizes of the seed's stream number *stream* (0 = the
-    window's, 1 = the warm-up's): shuffled blocks of ``block_sizes``."""
-    rng = np.random.default_rng([seed, stream])
-    base = block_sizes(mix)
-    blocks = -(-n_gangs // len(base))
-    return np.concatenate([rng.permutation(base) for _ in range(blocks)])[:n_gangs]
-
-
 def gangs(sizes: np.ndarray, first_pod: int = 0, first_index: int = 0,
           restart: bool = False) -> List[Gang]:
     """The gangs of *sizes*, pods numbered on from *first_pod*, or each
@@ -69,8 +61,25 @@ def gangs(sizes: np.ndarray, first_pod: int = 0, first_index: int = 0,
     return out
 
 
+def stream_gangs(mix: dict, seed: int, stream: int,
+                 first_index: int = 0) -> Iterator[Gang]:
+    """The seed's stream number *stream* (0 = the window's, 1 = the
+    warm-up's) of *mix*, without end: shuffled blocks of ``block_sizes``,
+    drawn a block at a time, so a loop that takes gangs until its clock
+    runs out cannot outrun the draw."""
+    rng = np.random.default_rng([seed, stream])
+    base = block_sizes(mix)
+    restart = bool(mix.get("same_pods_every_gang"))
+    index, at = first_index, 0
+    while True:
+        for s in rng.permutation(base).tolist():
+            yield Gang(index, at, int(s))
+            index += 1
+            if not restart:
+                at += int(s)
+
+
 def mix_gangs(mix: dict, seed: int, n_gangs: int, stream: int,
               first_index: int = 0) -> List[Gang]:
-    """*n_gangs* gangs of the seed's stream *stream* of *mix*."""
-    return gangs(gang_sizes(mix, seed, n_gangs, stream), first_index=first_index,
-                 restart=bool(mix.get("same_pods_every_gang")))
+    """The first *n_gangs* gangs of the seed's stream *stream* of *mix*."""
+    return list(itertools.islice(stream_gangs(mix, seed, stream, first_index), n_gangs))
